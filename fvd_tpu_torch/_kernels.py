@@ -29,12 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-#: kernel name -> (launcher symbol, argtypes)
+#: kernel name -> (launcher symbol, argtypes): device pointers, a pointer to the
+#: scalar arguments' struct and the stream, all as ``c_void_p``
 SIGNATURES = {
-    "lipsync_window": ("lipsync_window_launch",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+    "lipsync_score": ("lipsync_score_launch", [_P] * 8),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

@@ -4,8 +4,8 @@
 b []) -> (fake_probability, lip_sync_score)`` over 10 s of 30 fps video: the
 SSD detector on the 1 fps subsample (V1), the hourglass on the 5 fps crops
 gathered with each frame's nearest keyframe box (V3), the mouth-aspect-ratio
-series, the audio RMS envelope (A3), windowed lip-sync (C1, through the CUDA
-window kernel on the card) and the LR head.  Both backbones run in bf16, as
+series, the audio RMS envelope (A3), windowed lip-sync (C1, one launch of the CUDA
+stage kernel on the card) and the LR head.  Both backbones run in bf16, as
 the reference does.
 
 Run it on the card with ``python -m fvd_tpu_torch.entry``.

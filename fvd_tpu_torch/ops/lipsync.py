@@ -5,10 +5,11 @@ cut both into 5 s windows at 50% hop, score each window by its
 cross-correlation peak over +-0.5 s of lag (halved when the peak is not
 sharp), and take the mean of the top half of the valid window scores.
 
-The per-window step is the port of the Pallas TPU kernel
-``_lipsync_window_kernel``: :func:`lip_sync_window_scores` launches the CUDA
-kernel ``csrc/lipsync_window.cu`` on a CUDA tensor and uses
-:func:`lip_sync_window_scores_plain` on a CPU tensor.  The reference's quirks
+The whole stage is the port of the Pallas TPU kernel
+``_lipsync_window_kernel`` and the jitted program around it
+(``lip_sync_score_pallas``): :func:`lip_sync_score_batch` launches the CUDA
+kernel ``csrc/lipsync_score.cu`` once on a CUDA tensor and runs
+:func:`lip_sync_score_batch_plain` on a CPU tensor.  The reference's quirks
 are kept: the window gate uses a Bessel-corrected std while ``_znorm`` uses
 the population std, each window gets its own zero lag padding, and the
 cross-correlation divides by ``int(window_duration_s * fps)`` even when a
@@ -17,6 +18,8 @@ short signal is a single shorter window.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -69,9 +72,11 @@ def _top_half_mean(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 class LipSyncResult(NamedTuple):
-    score: torch.Tensor      # [] for one video, [B] for a batch
+    score: torch.Tensor          # f32, [] for one video, [B] for a batch
     n_windows: int
-    n_valid: torch.Tensor    # int, same shape as score
+    n_valid: torch.Tensor        # int32, same shape as score
+    window_scores: torch.Tensor  # f32, [n_windows] or [B, n_windows]
+    window_valid: torch.Tensor   # bool, same shape as window_scores
 
 
 def lip_sync_window_scores_plain(
@@ -86,73 +91,100 @@ def lip_sync_window_scores_plain(
     sharpness_threshold: float = 1.5,
     sharpness_penalty: float = 0.5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the window kernel, the same function as
-    :func:`lip_sync_window_scores`: ``[B, N]`` z-normalised signals ->
-    (score f32 ``[B, n_win]``, valid bool ``[B, n_win]``).  One einsum over
-    all (window, lag) pairs, as ``lip_sync_score_xla`` does."""
-    wm = mouth.unfold(-1, window, step)[:, :n_win]  # [B, n_win, W]
-    wa = audio.unfold(-1, window, step)[:, :n_win]
+    """Per-window scores of the z-normalised signals ``[B, N]`` (or ``[N]``) ->
+    (score f32 ``[B, n_win]``, valid bool ``[B, n_win]``), the function of the TPU
+    window kernel.  One einsum over all (window, lag) pairs, as
+    ``lip_sync_score_xla`` does."""
+    wm = mouth.unfold(-1, window, step)[..., :n_win, :]  # [B, n_win, W]
+    wa = audio.unfold(-1, window, step)[..., :n_win, :]
     valid = (wa.std(dim=-1) >= silence_std) & (wm.std(dim=-1) >= silence_std)  # Bessel
     a_lag = torch.nn.functional.pad(wa, (max_lag, max_lag)).unfold(-1, window, 1)
-    cc = torch.einsum("bnlw,bnw->bnl", a_lag, wm) / norm_div  # [B, n_win, 2L+1]
+    cc = torch.einsum("...lw,...w->...l", a_lag, wm) / norm_div  # [B, n_win, 2L+1]
     max_corr = cc.amax(dim=-1)
     sharpness = max_corr / (cc.abs().mean(dim=-1) + EPS)
     score = torch.where(sharpness < sharpness_threshold, max_corr * sharpness_penalty, max_corr)
     return score, valid
 
 
-def lip_sync_window_scores(
-    mouth: torch.Tensor,
-    audio: torch.Tensor,
-    window: int,
-    step: int,
-    n_win: int,
-    max_lag: int,
-    norm_div: float,
+def lip_sync_score_batch_plain(
+    mouths: torch.Tensor,
+    audios: torch.Tensor,
+    fps: float,
+    window_duration_s: float = 5.0,
+    max_lag_s: float = 0.5,
     silence_std: float = 0.01,
     sharpness_threshold: float = 1.5,
     sharpness_penalty: float = 0.5,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-window (score ``[B, n_win]``, valid ``[B, n_win]``) of the
-    z-normalised signals ``mouth`` and ``audio`` ``[B, N]``.
+) -> LipSyncResult:
+    """Plain PyTorch version of the stage kernel, the same function as
+    :func:`lip_sync_score_batch`: ``_znorm``, the window scores and the
+    top-half mean as separate torch ops."""
+    n = mouths.shape[-1]
+    window, step, n_win = window_params(n, fps, window_duration_s)
+    scores, valid = lip_sync_window_scores_plain(
+        _znorm(mouths.to(torch.float32)), _znorm(audios.to(torch.float32)),
+        window, step, n_win,
+        max_lag=int(fps * max_lag_s),
+        norm_div=float(int(window_duration_s * fps)),
+        silence_std=silence_std,
+        sharpness_threshold=sharpness_threshold,
+        sharpness_penalty=sharpness_penalty,
+    )
+    return LipSyncResult(score=_top_half_mean(scores, valid), n_windows=n_win,
+                         n_valid=valid.sum(dim=-1, dtype=torch.int32),
+                         window_scores=scores, window_valid=valid)
 
-    On a CUDA tensor this launches ``csrc/lipsync_window.cu`` once for all
-    ``B * n_win`` windows (or raises); on a CPU tensor it is
-    :func:`lip_sync_window_scores_plain`."""
-    args = (window, step, n_win, max_lag, norm_div, silence_std,
-            sharpness_threshold, sharpness_penalty)
-    if mouth.device.type == "cpu" and audio.device.type == "cpu":
-        return lip_sync_window_scores_plain(mouth, audio, *args)
-    if mouth.device.type != "cuda" or audio.device != mouth.device:
-        raise ValueError(f"lip_sync_window_scores: tensors on {mouth.device} and "
-                         f"{audio.device}; both must be on one CUDA device, or on the CPU")
-    if mouth.dtype != torch.float32 or audio.dtype != torch.float32:
-        raise ValueError("lip_sync_window_scores: the kernel takes float32 signals")
-    if mouth.dim() != 2 or mouth.shape != audio.shape:
-        raise ValueError(f"lip_sync_window_scores: need two [B, N] signals of one shape, "
-                         f"got {tuple(mouth.shape)} and {tuple(audio.shape)}")
-    if not (mouth.is_contiguous() and audio.is_contiguous()):
-        raise ValueError("lip_sync_window_scores: signals must be contiguous")
-    batch, n = mouth.shape
-    if not (window >= 1 and step >= 1 and n_win >= 1 and max_lag >= 0
-            and (n_win - 1) * step + window <= n):
-        raise ValueError(f"lip_sync_window_scores: windows (W={window}, step={step}, "
-                         f"n_win={n_win}) do not fit N={n}")
-    if (2 * window + 2 * max_lag) * 4 > 48 * 1024:
-        raise ValueError("lip_sync_window_scores: window too long for the kernel's shared memory")
-    launch = _kernels.load("lipsync_window")
-    score = torch.empty((batch, n_win), dtype=torch.float32, device=mouth.device)
-    valid = torch.empty((batch, n_win), dtype=torch.bool, device=mouth.device)
-    with torch.cuda.device(mouth.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(mouth.data_ptr(), audio.data_ptr(), score.data_ptr(), valid.data_ptr(),
-                     batch, n, window, step, n_win, max_lag, float(norm_div),
-                     float(silence_std), float(sharpness_threshold), float(sharpness_penalty),
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"lipsync_window kernel launch failed: cudaError {err}")
-    _kernels.LAUNCHES["lipsync_window"] += 1
-    return score, valid
+
+#: the stage kernel's block: 16 warps, each of which can take windows
+KERNEL_WARPS = 16
+#: dynamic shared memory the kernel may use: 227 KB a block can opt into on
+#: sm_90, less 1 KB for its static arrays (``kMaxDynamicSmem`` in the source)
+KERNEL_SMEM_BYTES = 227 * 1024 - 1024
+
+
+def kernel_slices(window: int, max_lag: int, n_win: int) -> int:
+    """Warps of the stage kernel that take windows: as many as fit the shared
+    memory, at most one per window and :data:`KERNEL_WARPS`.  Each holds a
+    slice of ``4 * round4(2 * round4(window) + 2 * max_lag)`` bytes, and the
+    block holds ``5 * n_win`` bytes of window results.  Raises
+    ``ValueError`` where not even one slice fits."""
+    wp = -(-window // 4) * 4
+    slice_bytes = 4 * (-(-(2 * wp + 2 * max_lag) // 4) * 4)
+    slices = min(KERNEL_WARPS, n_win, (KERNEL_SMEM_BYTES - 5 * n_win) // slice_bytes)
+    if slices < 1:
+        raise ValueError(
+            f"lip_sync_score_batch: the kernel's shared memory ({KERNEL_SMEM_BYTES} B) holds "
+            f"no {slice_bytes} B window slice (window {window}, max_lag {max_lag}) beside "
+            f"{n_win} window results")
+    return slices
+
+
+class _KernelArgs(ctypes.Structure):
+    """The scalar arguments of ``lipsync_score_launch`` (``StageArgs`` in
+    ``csrc/lipsync_score.cu``), passed by address."""
+    _fields_ = ([(f, ctypes.c_int) for f in ("batch", "n", "window", "step", "n_win", "max_lag", "slices")]
+                + [(f, ctypes.c_float) for f in ("norm_div", "silence_std", "sharpness_threshold",
+                                                 "sharpness_penalty")])
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_args(batch: int, n: int, fps: float, window_duration_s: float, max_lag_s: float,
+                 silence_std: float, sharpness_threshold: float, sharpness_penalty: float):
+    """(n_win, the kernel's scalar arguments, their address) for ``batch`` rows
+    of ``n`` samples; raises ``ValueError`` past the kernel's limits.  The
+    struct is part of the cached value, which keeps its address valid."""
+    window, step, n_win = window_params(n, fps, window_duration_s)
+    max_lag = int(fps * max_lag_s)
+    if window < 1 or max_lag < 0:
+        raise ValueError(f"lip_sync_score_batch: fps {fps} gives window {window}, "
+                         f"max_lag {max_lag}")
+    args = _KernelArgs(batch, n, window, step, n_win, max_lag, kernel_slices(window, max_lag, n_win),
+                       float(int(window_duration_s * fps)), silence_std, sharpness_threshold,
+                       sharpness_penalty)
+    return n_win, args, ctypes.addressof(args)
+
+
+_launch_stage = None  # the kernel's ctypes launcher, bound at the first CUDA call
 
 
 def lip_sync_score_batch(
@@ -165,26 +197,57 @@ def lip_sync_score_batch(
     sharpness_threshold: float = 1.5,
     sharpness_penalty: float = 0.5,
 ) -> LipSyncResult:
-    """Scores of ``B`` same-length signal pairs ``[B, N]``: one window-kernel
-    launch for all videos x windows.  Returns ``score`` and ``n_valid`` of
-    shape ``[B]``."""
-    n = mouths.shape[-1]
-    window, step, n_win = window_params(n, fps, window_duration_s)
-    m = _znorm(mouths.to(torch.float32)).contiguous()
-    a = _znorm(audios.to(torch.float32)).contiguous()
-    scores, valid = lip_sync_window_scores(
-        m, a, window, step, n_win,
-        max_lag=int(fps * max_lag_s),
-        norm_div=float(int(window_duration_s * fps)),
-        silence_std=silence_std,
-        sharpness_threshold=sharpness_threshold,
-        sharpness_penalty=sharpness_penalty,
-    )
-    return LipSyncResult(score=_top_half_mean(scores, valid), n_windows=n_win,
-                         n_valid=valid.sum(dim=-1))
+    """Scores of ``B`` same-length raw signal pairs ``[B, N]``: ``score`` and
+    ``n_valid`` of shape ``[B]``, the per-window results ``[B, n_windows]``.
+    One video's ``[N]`` pair gives ``[]`` and ``[n_windows]``.
+
+    On a CUDA tensor this is one launch of ``csrc/lipsync_score.cu`` for the
+    whole stage and every video, and no other device op but the outputs'
+    allocation (or it raises); on a CPU tensor it is
+    :func:`lip_sync_score_batch_plain`.  At the main path's sizes a caller
+    waits for the host work of a call, not for the card, so it is kept to a
+    few torch calls and one ctypes call."""
+    global _launch_stage
+    dev = mouths.device
+    if dev.type == "cpu" and audios.device.type == "cpu":
+        return lip_sync_score_batch_plain(mouths, audios, fps, window_duration_s, max_lag_s,
+                                          silence_std, sharpness_threshold, sharpness_penalty)
+    if (dev.type != "cuda" or audios.device != dev or mouths.dim() not in (1, 2)
+            or mouths.shape != audios.shape or mouths.numel() == 0):
+        raise ValueError(f"lip_sync_score_batch: need two non-empty [B, N] or [N] signals of one "
+                         f"shape on one CUDA device (or the CPU), got {tuple(mouths.shape)} on "
+                         f"{dev} and {tuple(audios.shape)} on {audios.device}")
+    lead, n = mouths.shape[:-1], mouths.shape[-1]
+    batch = lead[0] if lead else 1
+    n_win, _args, args_ptr = _kernel_args(batch, n, fps, window_duration_s, max_lag_s, silence_std,
+                                          sharpness_threshold, sharpness_penalty)
+    if mouths.dtype != torch.float32 or not mouths.is_contiguous():
+        mouths = mouths.to(torch.float32).contiguous()
+    if audios.dtype != torch.float32 or not audios.is_contiguous():
+        audios = audios.to(torch.float32).contiguous()
+    # the four outputs as they are returned: four torch calls and no views
+    score = torch.empty(lead, dtype=torch.float32, device=dev)
+    n_valid = torch.empty(lead, dtype=torch.int32, device=dev)
+    window_scores = torch.empty(lead + (n_win,), dtype=torch.float32, device=dev)
+    window_valid = torch.empty(lead + (n_win,), dtype=torch.bool, device=dev)
+    if _launch_stage is None:
+        _launch_stage = _kernels.load("lipsync_score")
+    # the stream's handle as an int, without building a torch.cuda.Stream object
+    args = (mouths.data_ptr(), audios.data_ptr(), score.data_ptr(), n_valid.data_ptr(),
+            window_scores.data_ptr(), window_valid.data_ptr(), args_ptr,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = _launch_stage(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _launch_stage(*args)
+    if err != 0:
+        raise RuntimeError(f"lipsync_score kernel launch failed: cudaError {err}")
+    _kernels.LAUNCHES["lipsync_score"] += 1
+    return LipSyncResult(score=score, n_windows=n_win, n_valid=n_valid,
+                         window_scores=window_scores, window_valid=window_valid)
 
 
 def lip_sync_score(mouth: torch.Tensor, audio: torch.Tensor, fps: float, **kwargs) -> LipSyncResult:
     """One video's score from its ``[N]`` mouth and audio signals."""
-    r = lip_sync_score_batch(mouth[None], audio[None], fps, **kwargs)
-    return LipSyncResult(score=r.score[0], n_windows=r.n_windows, n_valid=r.n_valid[0])
+    return lip_sync_score_batch(mouth, audio, fps, **kwargs)

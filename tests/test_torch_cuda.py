@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version.
 
 These tests need an NVIDIA card (``-m cuda``) and skip elsewhere; on a
-machine with one run ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+machine with one run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
 import numpy as np
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from fvd_tpu_torch import _kernels
+from fvd_tpu_torch.c1_timing import count_device_ops
 from fvd_tpu_torch.ops import lipsync as tlip
 
 pytestmark = pytest.mark.cuda
@@ -22,35 +23,56 @@ def cuda():
     return torch.device("cuda")
 
 
-# (batch, n, fps): the analyzer's shape, 30 fps, a short signal, a serving batch, odd sizes
-SHAPES = [(1, 50, 5.0), (1, 300, 30.0), (2, 40, 30.0), (64, 50, 5.0), (7, 611, 25.0), (3, 10, 1.0)]
+def bessel_gate_signal(rng_seed: int = 0) -> np.ndarray:
+    """A raw 10 s row at 30 fps (3 windows of 150) whose first window,
+    z-normalised with the row's population std, has a Bessel std midway
+    between ``silence_std`` = 0.01 and 0.01 * sqrt(150/149), so its population
+    std is just under 0.01: the gate passes it only with the Bessel std."""
+    rest = np.random.RandomState(rng_seed).rand(150)
+    target = 0.01 * (1 + np.sqrt(150 / 149)) / 2
+    a = 0.003
+    for _ in range(20):  # the row's std moves a little with a
+        sig = np.concatenate([0.5 + a * np.tile([1.0, -1.0], 75), rest])
+        a = target * sig.std() / np.sqrt(150 / 149)
+    return np.concatenate([0.5 + a * np.tile([1.0, -1.0], 75), rest]).astype(np.float32)
+
+
+def _stage_pair(cuda, batch, n, fps):
+    rng = np.random.RandomState(batch * 1000 + n)
+    m = torch.from_numpy(rng.rand(batch, n).astype(np.float32)).to(cuda)
+    a = torch.from_numpy(rng.rand(batch, n).astype(np.float32)).to(cuda)
+    a[0] = 0.0  # a silent video: every window invalid
+    return m, a
+
+
+# (batch, n, fps): the analyzer's shape, 30 fps, a short signal, a serving batch, odd sizes,
+# and the DAG node's: 60 s, a coalesced group of 64, 10 min
+SHAPES = [(1, 50, 5.0), (1, 300, 30.0), (2, 40, 30.0), (64, 50, 5.0), (7, 611, 25.0), (3, 10, 1.0),
+          (1, 1800, 30.0), (64, 1800, 30.0), (1, 18000, 30.0)]
 
 
 @pytest.mark.parametrize("batch,n,fps", SHAPES)
 def test_window_kernel_matches_plain(cuda, batch, n, fps):
-    rng = np.random.RandomState(batch * 1000 + n)
-    m = tlip._znorm(torch.from_numpy(rng.rand(batch, n).astype(np.float32)).to(cuda)).contiguous()
-    a = tlip._znorm(torch.from_numpy(rng.rand(batch, n).astype(np.float32)).to(cuda)).contiguous()
-    a[0] = 0.0  # a silent video: every window invalid
-    window, step, n_win = tlip.window_params(n, fps)
-    kw = dict(window=window, step=step, n_win=n_win, max_lag=int(fps * 0.5),
-              norm_div=float(int(5.0 * fps)))
-    before = _kernels.LAUNCHES["lipsync_window"]
-    s, v = tlip.lip_sync_window_scores(m, a, **kw)
-    assert _kernels.LAUNCHES["lipsync_window"] == before + 1
-    s_p, v_p = tlip.lip_sync_window_scores_plain(m, a, **kw)
+    """The stage kernel against the plain stage from the same raw signals,
+    with one launch per call."""
+    m, a = _stage_pair(cuda, batch, n, fps)
+    before = _kernels.LAUNCHES["lipsync_score"]
+    r = tlip.lip_sync_score_batch(m, a, fps)
+    assert _kernels.LAUNCHES["lipsync_score"] == before + 1
+    p = tlip.lip_sync_score_batch_plain(m, a, fps)
     torch.cuda.synchronize()
-    assert float((s - s_p).abs().max()) <= TOL
-    assert torch.equal(v, v_p) and not bool(v[0].any())
+    assert float((r.score - p.score).abs().max()) <= TOL
+    assert float((r.window_scores - p.window_scores).abs().max()) <= TOL
+    assert torch.equal(r.window_valid, p.window_valid) and torch.equal(r.n_valid, p.n_valid)
+    assert not bool(r.window_valid[0].any()) and float(r.score[0]) == 0.0
 
 
 def test_window_gate_uses_bessel_std(cuda):
-    a = 0.00999  # population std just under silence_std, Bessel std just over
-    sig = torch.tensor([a, -a] * 75, dtype=torch.float32, device=cuda)[None]
-    s, v = tlip.lip_sync_window_scores(sig, sig, 150, 150, 1, 15, 150.0)
-    s_p, v_p = tlip.lip_sync_window_scores_plain(sig, sig, 150, 150, 1, 15, 150.0)
-    assert bool(v[0, 0]) and bool(v_p[0, 0])
-    assert abs(float(s[0, 0]) - float(s_p[0, 0])) <= TOL
+    sig = torch.from_numpy(bessel_gate_signal()).to(cuda)[None]
+    r = tlip.lip_sync_score_batch(sig, sig, 30.0)
+    p = tlip.lip_sync_score_batch_plain(sig, sig, 30.0)
+    assert r.window_valid[0].tolist() == p.window_valid[0].tolist() == [True, True, True]
+    assert abs(float(r.score[0]) - float(p.score[0])) <= TOL
 
 
 def test_batch_score_on_card_matches_cpu(cuda):
@@ -63,17 +85,46 @@ def test_batch_score_on_card_matches_cpu(cuda):
     assert torch.equal(got.n_valid.cpu(), ref.n_valid)
 
 
+def test_single_video_on_card_matches_its_batch_row(cuda):
+    m, a = _stage_pair(cuda, 4, 300, 30.0)
+    rb = tlip.lip_sync_score_batch(m, a, 30.0)
+    before = _kernels.LAUNCHES["lipsync_score"]
+    r = tlip.lip_sync_score(m[2], a[2], 30.0)
+    assert _kernels.LAUNCHES["lipsync_score"] == before + 1
+    assert r.score.shape == () and r.n_valid.shape == () and r.window_scores.shape == (3,)
+    assert float(r.score) == float(rb.score[2]) and int(r.n_valid) == int(rb.n_valid[2])
+    assert torch.equal(r.window_scores, rb.window_scores[2]) and torch.equal(r.window_valid, rb.window_valid[2])
+
+
+def test_stage_call_dispatches_no_device_op(cuda):
+    """Besides its outputs' allocation and its one launch, a stage call does
+    no device work."""
+    m, a = _stage_pair(cuda, 64, 1800, 30.0)
+    tlip.lip_sync_score_batch(m, a, 30.0)
+    before = _kernels.LAUNCHES["lipsync_score"]
+    ops = count_device_ops(lambda: tlip.lip_sync_score_batch(m, a, 30.0))
+    assert not ops and _kernels.LAUNCHES["lipsync_score"] == before + 1
+
+
 def test_window_wrapper_rejects_bad_inputs(cuda):
     m = torch.zeros(2, 50, device=cuda)
-    kw = dict(window=25, step=12, n_win=3, max_lag=2, norm_div=25.0)
     with pytest.raises(ValueError):
-        tlip.lip_sync_window_scores(m.double(), m.double(), **kw)
+        tlip.lip_sync_score_batch(m, m[:, :40].contiguous(), 5.0)  # shapes differ
     with pytest.raises(ValueError):
-        tlip.lip_sync_window_scores(torch.zeros(50, 2, device=cuda).t(), m, **kw)  # strided
+        tlip.lip_sync_score_batch(m[None], m[None], 5.0)  # neither [B, N] nor [N]
     with pytest.raises(ValueError):
-        tlip.lip_sync_window_scores(m, m[:, :40].contiguous(), **kw)
-    with pytest.raises(ValueError):
-        tlip.lip_sync_window_scores(m, m, window=25, step=12, n_win=4, max_lag=2, norm_div=25.0)
+        tlip.lip_sync_score_batch(m, m.cpu(), 5.0)  # two devices
+    with pytest.raises(ValueError):  # a 5 s window at 6000 fps: no slice fits the shared memory
+        tlip.lip_sync_score_batch(torch.zeros(1, 40000, device=cuda), torch.zeros(1, 40000, device=cuda), 6000.0)
+
+
+def test_stage_takes_strided_and_half_signals(cuda):
+    """Signals that are not contiguous float32 are converted before the launch."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(300, 4).astype(np.float32)).to(cuda)
+    r = tlip.lip_sync_score_batch(x.t()[:2], x.t()[2:].half(), 30.0)
+    p = tlip.lip_sync_score_batch_plain(x.t()[:2], x.t()[2:].half(), 30.0)
+    assert float((r.score - p.score).abs().max()) <= TOL
 
 
 def test_entry_on_card_launches_the_kernel(cuda):
@@ -82,5 +133,5 @@ def test_entry_on_card_launches_the_kernel(cuda):
     fn, args = entry(device=cuda, duration=4.0)
     _kernels.reset_launches()
     prob, lip = fn(*args)
-    assert _kernels.LAUNCHES["lipsync_window"] == 1
+    assert _kernels.LAUNCHES["lipsync_score"] == 1
     assert 0.0 <= float(prob) <= 1.0 and float(lip) >= 0.0

@@ -1,6 +1,8 @@
 """C1 lip-sync: the port's plain path against the JAX package's XLA path and
 its Pallas kernel (interpret mode on the CPU, as ``tests/test_c1_lipsync.py``
-runs it), plus the batched scorer and the window wrapper's CPU route."""
+runs it), the batched scorer and the stage wrapper's CPU route, and numpy
+models of the CUDA stage kernel's algorithm (the kernel itself runs only on
+the card: ``tests/test_torch_cuda.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +12,9 @@ import torch
 
 from fvd_tpu.ops import lipsync as jlip
 from fvd_tpu_torch import _kernels
+from fvd_tpu_torch.c1_timing import make_signals
 from fvd_tpu_torch.ops import lipsync as tlip
+from test_torch_cuda import bessel_gate_signal
 
 #: the bar the JAX package sets between its own XLA and Pallas paths
 TOL = 1e-5
@@ -139,15 +143,17 @@ def test_batch_matches_per_video_scores():
 
 
 def test_window_wrapper_takes_the_plain_route_on_cpu_without_counting():
+    """The stage wrapper on CPU tensors is the plain stage, and counts no launch."""
     rng = np.random.RandomState(5)
-    m = tlip._znorm(torch.from_numpy(rng.rand(3, 50).astype(np.float32)))
-    a = tlip._znorm(torch.from_numpy(rng.rand(3, 50).astype(np.float32)))
-    kw = dict(window=25, step=12, n_win=3, max_lag=2, norm_div=25.0)
+    m = torch.from_numpy(rng.rand(3, 50).astype(np.float32))
+    a = torch.from_numpy(rng.rand(3, 50).astype(np.float32))
     before = dict(_kernels.LAUNCHES)
-    s, v = tlip.lip_sync_window_scores(m, a, **kw)
-    s_p, v_p = tlip.lip_sync_window_scores_plain(m, a, **kw)
-    assert torch.equal(s, s_p) and torch.equal(v, v_p)
-    assert s.shape == (3, 3) and v.dtype == torch.bool
+    r = tlip.lip_sync_score_batch(m, a, 5.0)
+    r_p = tlip.lip_sync_score_batch_plain(m, a, 5.0)
+    for got, want in zip(r, r_p):
+        assert got == want if isinstance(got, int) else torch.equal(got, want)
+    assert r.score.shape == (3,) and r.n_valid.dtype == torch.int32
+    assert r.window_scores.shape == (3, 3) and r.window_valid.dtype == torch.bool
     assert _kernels.LAUNCHES == before
 
 
@@ -174,7 +180,9 @@ def test_window_plain_matches_pallas_kernel_per_window():
 def test_window_wrapper_rejects_mixed_devices():
     m = torch.zeros(1, 50)
     with pytest.raises(ValueError):
-        tlip.lip_sync_window_scores(m, torch.zeros(1, 50, device="meta"), 25, 12, 3, 2, 25.0)
+        tlip.lip_sync_score_batch(m, torch.zeros(1, 50, device="meta"), 5.0)
+    with pytest.raises(ValueError):
+        tlip.lip_sync_score_batch(torch.zeros(1, 50, device="meta"), m, 5.0)
 
 
 def test_window_gate_uses_bessel_std():
@@ -190,3 +198,143 @@ def test_window_gate_uses_bessel_std():
                                                interpret=True)
     assert bool(v[0, 0]) and bool(np.asarray(v_ref)[0])
     assert float(s[0, 0]) == pytest.approx(float(np.asarray(s_ref)[0]), abs=TOL)
+
+
+# ------------------------------------------------------------- the stage kernel
+def test_stage_gate_uses_bessel_std():
+    """A raw row whose first z-normalised window has a Bessel std just over
+    ``silence_std`` and a population std just under it: the window is valid,
+    in the plain stage and in the JAX package's stage."""
+    sig = bessel_gate_signal()
+    z0 = (sig - sig.mean()) / sig.std()
+    assert z0[:150].std() < 0.01 <= z0[:150].std(ddof=1)
+    r = tlip.lip_sync_score_batch_plain(torch.from_numpy(sig)[None], torch.from_numpy(sig)[None], 30.0)
+    assert r.window_valid[0].tolist() == [True, True, True] and int(r.n_valid[0]) == 3
+    r_xla = jlip.lip_sync_score_xla(jnp.asarray(sig), jnp.asarray(sig), 30.0)
+    assert int(r_xla.n_valid) == 3
+    assert float(r.score[0]) == pytest.approx(float(r_xla.score), abs=TOL)
+
+
+@pytest.mark.parametrize("jax_path", ["xla", "pallas"])
+def test_stage_plain_matches_jax_at_dag_shape(jax_path):
+    """The plain stage at the DAG node's shape (60 s at 30 fps, 23 windows),
+    four videos with one silent and one static row, against the JAX package's
+    batched XLA stage or its Pallas stage (interpret mode), to its own 1e-5
+    bar between those two paths."""
+    fps, n = 30.0, 1800
+    mouths, audios = make_signals(4, n, fps, "speech", np.random.RandomState(11))
+    audios[1] = 0.0   # silent
+    mouths[2] = 0.5   # static face
+    r = tlip.lip_sync_score_batch_plain(torch.from_numpy(mouths), torch.from_numpy(audios), fps)
+    assert r.n_windows == 23 and r.window_scores.shape == (4, 23)
+    if jax_path == "xla":
+        ref = jlip.lip_sync_score_batch(mouths, audios, fps)
+    else:
+        ref = [jlip.lip_sync_score_pallas(jnp.asarray(mm), jnp.asarray(aa), fps, interpret=True)
+               for mm, aa in zip(mouths, audios)]
+    for i in range(4):
+        assert float(r.score[i]) == pytest.approx(float(ref[i].score), abs=TOL)
+        assert int(r.n_valid[i]) == int(ref[i].n_valid)
+    assert r.n_valid[1:3].tolist() == [0, 0] and r.score[1:3].tolist() == [0.0, 0.0]
+    assert int(r.n_valid[0]) == 23 and float(r.score[0]) > 0.7
+
+
+def _rank_select_top_half_mean(scores, valid):
+    """numpy model of the kernel's phase 3: with invalid windows held as -inf,
+    window i is kept iff it is valid and fewer than k = max(1, n_valid // 2)
+    windows beat it (a higher score, or the same score at a lower index); mean
+    of the kept, clamped at 0."""
+    n_valid = int(valid.sum())
+    k = max(1, n_valid // 2)
+    held = np.where(valid, scores, -np.inf)
+    kept = 0.0
+    for i in np.flatnonzero(valid):
+        beaten_by = sum(1 for j in range(len(held))
+                        if held[j] > held[i] or (held[j] == held[i] and j < i))
+        kept += held[i] if beaten_by < k else 0.0
+    return max(kept / k, 0.0) if n_valid else 0.0
+
+
+_RANK_CASES = {
+    "ties": ([0.5, 0.7, 0.5, 0.7, 0.5, 0.1], [1, 1, 1, 1, 1, 1]),
+    "all_tied": ([0.3] * 7, [1] * 7),
+    "tie_at_the_cut": ([0.9, 0.4, 0.4, 0.4, 0.2], [1, 1, 1, 1, 1]),
+    "all_invalid": ([0.9, 0.8, 0.7], [0, 0, 0]),
+    "one_valid": ([0.9, 0.2, 0.8], [0, 1, 0]),
+    "one_window": ([0.6], [1]),
+    "negative_clamped": ([-0.2, -0.1, -0.3, 0.05], [1, 1, 1, 0]),
+    "invalid_beats_valid": ([0.99, 0.1, 0.2, 0.3], [0, 1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RANK_CASES))
+def test_kernel_rank_selection_matches_top_half_mean(case):
+    scores, valid = (np.asarray(x) for x in _RANK_CASES[case])
+    scores, valid = scores.astype(np.float32), valid.astype(bool)
+    want = float(jlip._top_half_mean(jnp.asarray(scores), jnp.asarray(valid)))
+    assert _rank_select_top_half_mean(scores, valid) == pytest.approx(want, abs=1e-7)
+    got = tlip._top_half_mean(torch.from_numpy(scores)[None], torch.from_numpy(valid)[None])
+    assert float(got[0]) == pytest.approx(want, abs=1e-7)
+
+
+def _stage_kernel_model(mouth, audio, fps):
+    """numpy (float64) model of ``csrc/lipsync_score.cu`` for one video, in
+    its own steps: the rows' z-normalisation, each window staged into a slice
+    of round4(W) mouth values (zeros past W) and round4(W) + 2L audio values
+    (zero lag padding), the Bessel gate, lag l as dot(wm, wa[l : l + round4(W)])
+    and the rank-selection top-half mean."""
+    n = len(mouth)
+    window, step, n_win = tlip.window_params(n, fps)
+    L, norm_div = int(fps * 0.5), float(int(5.0 * fps))
+    wp = -(-window // 4) * 4
+    zm = (mouth - mouth.mean()) / (mouth.std() + 1e-9)
+    za = (audio - audio.mean()) / (audio.std() + 1e-9)
+    scores, valid = np.zeros(n_win), np.zeros(n_win, bool)
+    for w in range(n_win):
+        wm = np.zeros(wp)
+        wa = np.zeros(wp + 2 * L)
+        wm[:window] = zm[w * step:w * step + window]
+        wa[L:L + window] = za[w * step:w * step + window]
+        valid[w] = wa[L:L + window].std(ddof=1) >= 0.01 and wm[:window].std(ddof=1) >= 0.01
+        cc = np.array([wm @ wa[l:l + wp] for l in range(2 * L + 1)]) / norm_div
+        mx = cc.max()
+        scores[w] = mx * 0.5 if mx / (np.abs(cc).mean() + 1e-9) < 1.5 else mx
+    return _rank_select_top_half_mean(scores, valid), int(valid.sum()), scores, valid
+
+
+@pytest.mark.parametrize("batch,n,fps,kind", [
+    (1, 50, 5.0, "speech"), (1, 300, 30.0, "speech"), (1, 40, 30.0, "speech"),
+    (3, 300, 30.0, "silent"), (2, 600, 30.0, "ties"), (2, 611, 25.0, "speech"),
+])
+def test_stage_kernel_model_matches_plain_stage(batch, n, fps, kind):
+    """The kernel's algorithm, modelled in numpy, against the plain stage at
+    the chip check's shapes: float64 against float32, so within 1e-5."""
+    mouths, audios = make_signals(batch, n, fps, kind, np.random.RandomState(n))
+    r = tlip.lip_sync_score_batch_plain(torch.from_numpy(mouths), torch.from_numpy(audios), fps)
+    for i in range(batch):
+        score, n_valid, scores, valid = _stage_kernel_model(
+            mouths[i].astype(np.float64), audios[i].astype(np.float64), fps)
+        assert float(r.score[i]) == pytest.approx(score, abs=TOL)
+        assert int(r.n_valid[i]) == n_valid
+        np.testing.assert_allclose(r.window_scores[i].numpy(), scores, atol=TOL)
+        assert r.window_valid[i].tolist() == valid.tolist()
+
+
+def test_kernel_slices_fit_its_shared_memory():
+    """Warps that take windows: one per window up to 16 at the main path's
+    shapes; the largest window the earlier per-window kernel took (2W + 2L
+    floats = 48 KB) still fits; past the shared memory the check raises."""
+    assert tlip.kernel_slices(25, 2, 3) == 3            # the analyzer: 3 windows
+    assert tlip.kernel_slices(150, 15, 239) == 16       # 10 min at 30 fps
+    assert tlip.kernel_slices(6000, 144, 100) >= 1      # (2*6000 + 2*144) * 4 = 49152 B
+    with pytest.raises(ValueError):
+        tlip.kernel_slices(30000, 15, 1)
+    with pytest.raises(ValueError):
+        tlip.kernel_slices(150, 15, 50000)
+
+
+def test_single_video_view_carries_window_results():
+    audio, mouth = generate_signals(12.0, 30.0, "perfect")
+    r = _port(mouth, audio, 30.0)
+    assert r.window_scores.shape == (r.n_windows,) and r.window_valid.shape == (r.n_windows,)
+    assert int(r.window_valid.sum()) == int(r.n_valid) == r.n_windows
