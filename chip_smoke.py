@@ -22,7 +22,15 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              top kernels by device time;
 5. serving   ``ScoringService`` answers 64 concurrent requests, each checked
              against per-request scoring on the CPU; one C1 launch per
-             micro-batch.
+             micro-batch;
+6. dag       the {C1 -> LR} tail of the DAG on the port's ``Scheduler``, one
+             ``invoke`` per video, for 16 videos of 60 s and one of 10 min at
+             30 fps: all at once under the program coalescer (one C1 launch
+             per coalesced group, at least one group of several videos), then
+             one at a time (one launch per video); every video's
+             ``lip_sync_score`` and ``fake_probability`` against the same
+             states run on the CPU; group sizes, wall time per video and the
+             tracer's node and group spans.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -33,11 +41,13 @@ present.  Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -68,6 +78,10 @@ BF16_TOL = {"fake_probability": 1e-2, "lip_sync_score": 3e-1}
 #: kernel vs plain version, both float32 on the card from the same raw signals:
 #: only the summation order differs (scores and window scores; flags and counts exact)
 KERNEL_TOL = 1e-5
+#: the dag phase, card against CPU on the same states: ``lip_sync_score`` is the
+#: stage kernel against its plain version (``KERNEL_TOL``); ``fake_probability``
+#: sees it through |w[lip_sync]| = 0.46 and the sigmoid's slope of at most 1/4
+DAG_PROB_TOL = 1e-6
 #: the analyzer's stages run one by one against ``fn`` on the same inputs: the
 #: same ops in the same order, so only a non-deterministic cuDNN algorithm could
 #: move a value
@@ -435,6 +449,125 @@ def serving_phase():
     return launches["lipsync_score"]
 
 
+def _generate_signals(duration, fps, sync_type, seed):
+    """The reference's synthetic lip-sync generator (a copy of
+    ``generate_signals`` in ``tests/test_c1_lipsync.py``): an A3-like envelope
+    and a mouth signal that follows it, lags it, ignores it or faces silence."""
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0, duration, int(duration * fps))
+    envelope = np.clip(0.5 * (1 + np.sin(2 * np.pi * 2 * t)) + 0.1 * rng.rand(len(t)), 0, 1)
+    audio, mouth = envelope, envelope
+    if sync_type == "delayed":
+        mouth = np.roll(envelope, int(0.1 * fps))
+    elif sync_type == "random":
+        mouth = rng.rand(len(t))
+    elif sync_type == "silence":
+        audio = np.zeros_like(t)
+    landmarks = [{"timestamp": t[i], "mar": v * 0.5 + 0.1} for i, v in enumerate(mouth)]
+    return audio, landmarks
+
+
+def _dag_states(fps=30.0):
+    """What A3 and V3 would have written for 16 videos of 60 s and one of
+    10 min: landmarks at V3's 5 fps, an envelope of ``duration * fps``
+    samples (of 0.8 of that for every other video, which C1 reconciles)."""
+    kinds = ("perfect", "delayed", "random", "silence")
+    out = []
+    for i, seconds in enumerate([60.0] * 16 + [600.0]):
+        audio, landmarks = _generate_signals(seconds, fps, kinds[i % 4], seed=i)
+        if i % 2:
+            n = int(0.8 * len(audio))
+            audio = np.interp(np.linspace(0, 1, n), np.linspace(0, 1, len(audio)), audio)
+        out.append(dict(input_path=f"dag_video_{i:02d}.mp4", metadata={"fps": fps, "duration": seconds},
+                        face_detections=[{"timestamp": 0.0, "box": [40, 30, 200, 210], "confidence": 0.9}],
+                        mouth_landmarks=landmarks[::int(fps / 5)], audio_envelope=audio))
+    return out
+
+
+def _span_ms(tracer, name):
+    spans = [sp.elapsed_s * 1e3 for sp in tracer.spans if sp.name == name]
+    return statistics.median(spans) if spans else None
+
+
+def dag_phase():
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.config import default_config
+    from fvd_tpu_torch.nodes import c1_lipsync, lr_fusion
+    from fvd_tpu_torch.providers import coalesce
+    from fvd_tpu_torch.runtime import DAG, Scheduler, Tracer, set_tracer
+    from fvd_tpu_torch.state import State
+
+    states = _dag_states()
+    n = len(states)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = default_config()
+        cfg = cfg.replace(fusion=type(cfg.fusion)(weights_path=os.path.join(tmp, "lr_weights.json"),
+                                                  features_dir=os.path.join(tmp, "features")))
+
+        def scheduler(device):
+            dag = DAG()
+            dag.add_node("C1", functools.partial(c1_lipsync.run, config=cfg, device=device))
+            dag.add_node("LR", functools.partial(lr_fusion.run, config=cfg), deps=["C1"])
+            return Scheduler(dag)
+
+        def invoke(sched, i):
+            t0 = time.perf_counter()
+            final = sched.invoke(State(**states[i]))
+            return final, (time.perf_counter() - t0) * 1e3
+
+        cpu_sched, card_sched = scheduler("cpu"), scheduler("cuda")
+        ref = [invoke(cpu_sched, i)[0] for i in range(n)]
+        invoke(card_sched, 0)  # warm-up: the event loop, the thread pools, the first copies
+
+        def run(coalesced):
+            tracer = set_tracer(Tracer())
+            deactivate = coalesce._activate_program_coalescer(max_wait_ms=30.0) if coalesced else (lambda: None)
+            co = coalesce._program_co
+            try:
+                _kernels.reset_launches()
+                t0 = time.perf_counter()
+                if coalesced:
+                    with ThreadPoolExecutor(n) as pool:
+                        out = list(pool.map(lambda i: invoke(card_sched, i), range(n)))
+                else:
+                    out = [invoke(card_sched, i) for i in range(n)]
+                total_ms = (time.perf_counter() - t0) * 1e3
+                launches = _kernels.LAUNCHES["lipsync_score"]
+                groups = co.groups_run if coalesced else None
+            finally:
+                deactivate()
+                set_tracer(None)
+            finals, wall = zip(*out)
+            errs = {"lip_sync_score": max(abs(f.lip_sync_score - r.lip_sync_score) for f, r in zip(finals, ref)),
+                    "fake_probability": max(abs(f.fake_probability - r.fake_probability)
+                                            for f, r in zip(finals, ref))}
+            check(errs["lip_sync_score"] <= KERNEL_TOL and errs["fake_probability"] <= DAG_PROB_TOL,
+                  f"dag on the card vs the CPU ({'coalesced' if coalesced else 'one at a time'}): {errs}")
+            check(all(np.isfinite(f.fake_probability) and 0.0 < f.fake_probability < 1.0 for f in finals),
+                  f"dag probabilities {[f.fake_probability for f in finals]}")
+            sizes = sorted((sp.meta["n"] for sp in tracer.spans if sp.name == "coalesce/c1_lipsync"),
+                           reverse=True)
+            return {"launches": launches, "groups": groups, "group_sizes": sizes, "max_abs_err": errs,
+                    "median_wall_ms_per_video": statistics.median(wall), "wall_ms_all_videos": total_ms,
+                    "span_median_ms": {k: _span_ms(tracer, k)
+                                       for k in ("node/C1", "node/LR", "coalesce/c1_lipsync")}}, finals
+
+        a, finals = run(coalesced=True)
+        check(a["launches"] == a["groups"] == len(a["group_sizes"]) and sum(a["group_sizes"]) == n,
+              f"coalesced run: {a['launches']} launches for {a['groups']} groups of {a['group_sizes']}")
+        check(a["group_sizes"][0] > 1, f"no coalesced group held more than one video: {a['group_sizes']}")
+        b, _ = run(coalesced=False)
+        check(b["launches"] == n and not b["group_sizes"],
+              f"one video at a time: {b['launches']} launches for {n} videos")
+    scores = [f.lip_sync_score for f in finals]
+    check(all(s == 0.0 for s in scores[3::4]) and len(set(np.round(scores, 3))) >= 4,
+          f"dag lip-sync scores {scores}")
+    phase("dag", videos=n, video_seconds=[s["metadata"]["duration"] for s in states], tolerance=KERNEL_TOL,
+          prob_tolerance=DAG_PROB_TOL, coalesced=a, one_at_a_time=b,
+          lip_sync_scores=scores, fake_probabilities=[f.fake_probability for f in finals])
+    return a["launches"] + b["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -447,7 +580,7 @@ def main() -> int:
     smi_line = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
-    launches = analyzer_phase() + serving_phase()
+    launches = analyzer_phase() + serving_phase() + dag_phase()
 
     kernels = [{
         "name": "lipsync_score",

@@ -3,12 +3,12 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain ``extern "C"``
 launcher and no PyTorch header.  At first use it is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``build/fvd_tpu_torch_kernels/`` at the
-root of the checkout, named by a hash of its source, and loaded with
-``ctypes``.  Nothing here runs at import; a missing ``nvcc`` or a failed build
-raises, and nothing falls back.
+root of the checkout, named by a hash of its source and ``NVCC_FLAGS``, and
+loaded with ``ctypes``.  Nothing here runs at import; a missing ``nvcc`` or a
+failed build raises, and nothing falls back.
 
-Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel, so a
-run can show that it went through the kernel.
+Each wrapper calls :func:`count_launch` where it launches its kernel, so a run
+can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -40,12 +40,21 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 BUILD_SECONDS: Dict[str, float] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``; safe from several threads at once (the
+    coalescer's groups launch from its own threads)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def source_path(name: str) -> Path:
@@ -65,12 +74,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` lives: named by a hash of the
+    source and of ``NVCC_FLAGS``, so a change of either builds anew."""
+    digest = hashlib.sha256(source_path(name).read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    these flags exists."""
     so = library_path(name)
     if so.exists():
         return so

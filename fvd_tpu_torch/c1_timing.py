@@ -29,8 +29,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 #: (case, batch, n, fps, kind): the analyzer's and the serving batch's shapes,
-#: the DAG node's (60 s, a coalesced group of 64, 10 min; all at 30 fps), a
-#: short signal, silent and static rows, and a row whose window scores tie
+#: the DAG node's (60 s, coalesced groups of 64 and of the program
+#: coalescer's 16, 10 min; all at 30 fps), a short signal, silent and static
+#: rows, and a row whose window scores tie
 SHAPES = [
     ("entry: 1x50 @5fps, W25 L2, 3 windows", 1, 50, 5.0, "speech"),
     ("30fps 10s: 1x300, W150 L15", 1, 300, 30.0, "speech"),
@@ -39,6 +40,7 @@ SHAPES = [
     ("serving: 64x50 @5fps", 64, 50, 5.0, "speech"),
     ("DAG 60s: 1x1800 @30fps, 23 windows", 1, 1800, 30.0, "speech"),
     ("DAG group: 64x1800 @30fps", 64, 1800, 30.0, "speech"),
+    ("DAG coalesced group: 16x1800 @30fps (max_total 16)", 16, 1800, 30.0, "speech"),
     ("DAG 10min: 1x18000 @30fps, 239 windows", 1, 18000, 30.0, "speech"),
     ("ties: 2x600 @30fps, repeating windows", 2, 600, 30.0, "ties"),
 ]

@@ -243,7 +243,7 @@ def lip_sync_score_batch(
             err = _launch_stage(*args)
     if err != 0:
         raise RuntimeError(f"lipsync_score kernel launch failed: cudaError {err}")
-    _kernels.LAUNCHES["lipsync_score"] += 1
+    _kernels.count_launch("lipsync_score")
     return LipSyncResult(score=score, n_windows=n_win, n_valid=n_valid,
                          window_scores=window_scores, window_valid=window_valid)
 

@@ -135,3 +135,40 @@ def test_entry_on_card_launches_the_kernel(cuda):
     prob, lip = fn(*args)
     assert _kernels.LAUNCHES["lipsync_score"] == 1
     assert 0.0 <= float(prob) <= 1.0 and float(lip) >= 0.0
+
+
+def test_c1_node_on_card_matches_cpu_and_groups_launch_once(cuda):
+    """The C1 node on the card equals the node on the CPU, one launch per
+    single-video call, and a coalesced group of 4 videos is one launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fvd_tpu_torch.nodes import c1_lipsync
+    from fvd_tpu_torch.providers import coalesce
+    from fvd_tpu_torch.state import State
+
+    rng = np.random.RandomState(6)
+    t = np.linspace(0, 60.0, 1800)
+    states = []
+    for i in range(4):
+        env = np.clip(0.5 * (1 + np.sin(2 * np.pi * 2 * t)) + 0.1 * rng.rand(t.size), 0, 1)
+        mouth = np.roll(env, 3 * i) if i < 3 else rng.rand(t.size)
+        states.append(State(metadata={"fps": 30.0, "duration": 60.0}, face_detections=[{"box": [0, 0, 9, 9]}],
+                            mouth_landmarks=[{"timestamp": t[j], "mar": mouth[j]} for j in range(0, t.size, 6)],
+                            audio_envelope=env))
+    cpu = [c1_lipsync.run(s, device="cpu")["lip_sync_score"] for s in states]
+    _kernels.reset_launches()
+    single = [c1_lipsync.run(s, device=cuda)["lip_sync_score"] for s in states]
+    assert _kernels.LAUNCHES["lipsync_score"] == len(states)
+    np.testing.assert_allclose(single, cpu, atol=TOL, rtol=0)
+
+    deactivate = coalesce._activate_program_coalescer(max_wait_ms=200.0)
+    co = coalesce._program_co
+    try:
+        _kernels.reset_launches()
+        with ThreadPoolExecutor(len(states)) as pool:
+            grouped = [d["lip_sync_score"] for d in pool.map(lambda s: c1_lipsync.run(s, device=cuda), states)]
+        launches, groups = _kernels.LAUNCHES["lipsync_score"], co.groups_run
+    finally:
+        deactivate()
+    assert groups == 1 and launches == 1, (groups, launches)
+    np.testing.assert_allclose(grouped, cpu, atol=TOL, rtol=0)

@@ -21,7 +21,10 @@ def _modules():
 def test_every_module_imports_with_jax_flax_cv2_blocked():
     mods = _modules()
     assert {"fvd_tpu_torch.entry", "fvd_tpu_torch.serving", "fvd_tpu_torch.ops.lipsync",
-            "fvd_tpu_torch.models.face_ssd", "fvd_tpu_torch.models.landmarks_fan"} <= set(mods)
+            "fvd_tpu_torch.models.face_ssd", "fvd_tpu_torch.models.landmarks_fan",
+            "fvd_tpu_torch.config", "fvd_tpu_torch.state", "fvd_tpu_torch.runtime.scheduler",
+            "fvd_tpu_torch.providers.coalesce", "fvd_tpu_torch.nodes.c1_lipsync",
+            "fvd_tpu_torch.nodes.lr_fusion"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
