@@ -30,7 +30,21 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              one at a time (one launch per video); every video's
              ``lip_sync_score`` and ``fake_probability`` against the same
              states run on the CPU; group sizes, wall time per video and the
-             tracer's node and group spans.
+             tracer's node and group spans;
+7. video     the DAG's lip-sync path from a video file, IN -> A1 -> A3,
+             IN -> V1 -> V3, {A3, V3} -> C1 -> LR, on the port's ``Scheduler``
+             with the shipped checkpoints, for 4 clips of 10 s at 30 fps and
+             240x320 made by ``fvd_tpu_torch.synthetic.make_face_video`` with
+             44.1 kHz audio (two in sync, one with a dubbed mouth, one with
+             random audio), written as raw-RGBA AVI: on the card in bf16 and in
+             f32 and on the CPU in f32, each clip alone and then all 4 at once
+             under the program coalescer.  Checks the card's f32 against the
+             CPU's, the faces and mouth landmarks found, the in-sync clips
+             scoring above the broken ones, one C1 launch per video alone and
+             one per coalesced C1 group, one frame upload per video, and the
+             AVI round trip; prints wall times, node and ``v3/*`` span
+             medians, PNG seconds, the OneEuro scan's time and a
+             ``torch.profiler`` view of one video.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -41,9 +55,11 @@ present.  Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,9 +132,12 @@ def env_phase():
     # the f32 references compare f32 with f32: keep cuDNN and cuBLAS out of TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    import ctypes.util
+
     phase("env", nvidia_smi=smi_line, torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          python=sys.version.split()[0])
+          python=sys.version.split()[0], libavcodec=ctypes.util.find_library("avcodec"),
+          ffmpeg=shutil.which("ffmpeg"))
     return smi_line
 
 
@@ -568,6 +587,242 @@ def dag_phase():
     return a["launches"] + b["launches"]
 
 
+#: the video phase, card f32 against CPU f32 on the same clips: the same
+#: programs summing in other orders (cuDNN against the CPU's convolutions); on
+#: the CPU the port matched the JAX package within 4.2e-7 (lip) and 4.7e-8
+#: (probability) on a 6 s clip (``tests/test_torch_video_dag.py``)
+VIDEO_LIP_TOL, VIDEO_PROB_TOL = 1e-4, 1e-5
+#: the share of keyframes with a face (V1) and of 5 fps samples with mouth
+#: landmarks (V3) every clip must reach
+VIDEO_FOUND_MIN = 0.8
+VIDEO_SPANS = ("node/IN", "node/A1", "node/A3", "node/V1", "node/V3", "node/C1", "node/LR",
+               "v3/decode", "v3/landmark_fwd", "v3/track", "v3/smooth", "v3/emit")
+
+
+def _video_clips(root):
+    """4 clips of 10 s at 30 fps and 240x320 with 44.1 kHz audio: two in sync
+    (gates of 1.0 and 1.3 Hz), one whose mouth moves at 0.37 Hz against a
+    1 Hz audio gate (a dubbed mouth), one with random audio."""
+    from fvd_tpu_torch.synthetic import make_face_video
+    from fvd_tpu_torch.utils.wav import write_wav
+
+    common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=44100)
+    clips = [make_face_video(root, "sync_a", gate_hz=1.0, seed=0, **common),
+             make_face_video(root, "sync_b", gate_hz=1.3, seed=1, **common),
+             make_face_video(root, "dubbed", gate_hz=1.0, mouth_gate_hz=0.37, seed=2, **common),
+             make_face_video(root, "random_audio", gate_hz=1.0, seed=3, **common)]
+    noise = np.random.RandomState(3).uniform(-0.5, 0.5, int(10.0 * 44100))
+    write_wav(os.path.join(root, "random_audio.wav"), noise, 44100)
+    return clips, ["sync", "sync", "broken", "broken"]
+
+
+def _video_scheduler(root, device, dtype):
+    """The seven nodes of the lip-sync path on ``device``, wired with the
+    dependencies of the JAX package's ``graph.py`` restricted to them; runs
+    write under ``root/processed``."""
+    from fvd_tpu_torch.config import default_config
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.nodes import (a1_standardize, a3_onsets, c1_lipsync, ingest, lr_fusion, v1_faces,
+                                     v3_landmarks)
+    from fvd_tpu_torch.providers import Providers
+    from fvd_tpu_torch.runtime import DAG, Scheduler
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+    prov = Providers(face_detector=det, landmarks=FANLandmarks(
+        det, checkpoint=os.path.join(ckpt, "landmarks.npz"), compute_dtype=dtype, device=device))
+    cfg = default_config()
+    cfg = cfg.replace(ingest=dataclasses.replace(cfg.ingest, processed_dir=os.path.join(root, "processed")),
+                      fusion=dataclasses.replace(cfg.fusion, weights_path=os.path.join(root, "lr_weights.json"),
+                                                 features_dir=os.path.join(root, "features")))
+    part = functools.partial
+    dag = DAG()
+    dag.add_node("IN", part(ingest.run, config=cfg), host_only=True)
+    dag.add_node("A1", part(a1_standardize.run, config=cfg, device=device), deps=["IN"])
+    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov), deps=["IN"])
+    dag.add_node("A3", part(a3_onsets.run, config=cfg, device=device), deps=["A1"])
+    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov), deps=["V1"])
+    dag.add_node("C1", part(c1_lipsync.run, config=cfg, device=device), deps=["A3", "V3"])
+    dag.add_node("LR", part(lr_fusion.run, config=cfg), deps=["C1"])
+    return Scheduler(dag)
+
+
+def _video_run(sched, root, clips, coalesced, window_ms=30.0):
+    """Every clip through ``sched``, one after another or all at once under
+    the program coalescer (its adaptive window from ``window_ms``, or fixed at
+    ``window_ms`` where it is over 30), from cold caches: final states, wall
+    ms per video, C1 launches, coalesced C1 groups, frame uploads and the
+    tracer's spans.  The run directories under ``root`` are removed after."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import coalesce, media
+    from fvd_tpu_torch.runtime import Tracer, io_pool, set_tracer
+    from fvd_tpu_torch.state import State
+
+    def invoke(path):
+        t0 = time.perf_counter()
+        final = sched.invoke(State(input_path=path))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return final, (time.perf_counter() - t0) * 1e3
+
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    tracer = set_tracer(Tracer())
+    deactivate = coalesce._activate_program_coalescer(max_wait_ms=window_ms) if coalesced else (lambda: None)
+    fixed = coalesced and window_ms > 30.0
+    if fixed:
+        os.environ["FVD_TPU_NO_ADAPTIVE_WINDOW"] = "1"
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        if coalesced:
+            with ThreadPoolExecutor(len(clips)) as pool:
+                out = list(pool.map(invoke, clips))
+        else:
+            out = [invoke(p) for p in clips]
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = _kernels.LAUNCHES["lipsync_score"]
+    finally:
+        deactivate()
+        set_tracer(None)
+        if fixed:
+            os.environ.pop("FVD_TPU_NO_ADAPTIVE_WINDOW", None)
+        shutil.rmtree(os.path.join(root, "processed"), ignore_errors=True)
+    finals, wall = zip(*out)
+    spans = {k: _span_ms(tracer, k) for k in VIDEO_SPANS}
+    totals = tracer.summary()
+    return {"finals": finals, "wall": list(wall), "total_ms": total_ms, "launches": launches,
+            "c1_groups": sorted((sp.meta["n"] for sp in tracer.spans if sp.name == "coalesce/c1_lipsync"),
+                                reverse=True),
+            "uploads": media._device_frames.uploads, "upload_bytes": media._device_frames.upload_bytes,
+            "spans": spans, "png_s": totals.get("artifact/png", 0.0), "viz_s": totals.get("artifact/viz", 0.0),
+            "png_writes": tracer.counts().get("artifact/png", 0)}
+
+
+def _video_summary(r, n):
+    finals = r["finals"]
+    return {"median_wall_ms_per_video": statistics.median(r["wall"]), "wall_ms_all_videos": r["total_ms"],
+            "lipsync_score_launches": r["launches"], "c1_group_sizes": r["c1_groups"],
+            "frame_uploads_per_video": r["uploads"] / n, "frame_upload_mb_per_video": r["upload_bytes"] / n / 1e6,
+            "png_writes_per_video": r["png_writes"] / n, "png_write_s_per_video": r["png_s"] / n,
+            "viz_encode_s_per_video": r["viz_s"] / n, "span_median_ms": r["spans"],
+            "lip_sync_scores": [f.lip_sync_score for f in finals],
+            "fake_probabilities": [f.fake_probability for f in finals]}
+
+
+def _check_video_run(r, kinds, what):
+    n = len(kinds)
+    for f, kind in zip(r["finals"], kinds):
+        faces = [bool(d["faces"]) for d in f.face_detections]
+        mouths = [bool(m["landmarks"]) for m in f.mouth_landmarks]
+        check(len(faces) == 10 and sum(faces) >= VIDEO_FOUND_MIN * len(faces),
+              f"{what}: V1 found faces in {sum(faces)} of {len(faces)} keyframes")
+        check(len(mouths) == 50 and sum(mouths) >= VIDEO_FOUND_MIN * len(mouths),
+              f"{what}: V3 gave mouth landmarks for {sum(mouths)} of {len(mouths)} samples")
+        check(np.isfinite(f.fake_probability) and 0.0 < f.fake_probability < 1.0 and f.lip_sync_score >= 0.0,
+              f"{what}: {kind} clip gave {f.lip_sync_score}, {f.fake_probability}")
+    sync = [f.lip_sync_score for f, k in zip(r["finals"], kinds) if k == "sync"]
+    broken = [f.lip_sync_score for f, k in zip(r["finals"], kinds) if k == "broken"]
+    check(min(sync) > max(broken), f"{what}: in-sync clips {sync} do not score above the broken ones {broken}")
+    check(r["uploads"] == n, f"{what}: {r['uploads']} frame uploads for {n} videos")
+
+
+def _profile_video(sched, clip):
+    """``torch.profiler`` over one video's DAG on the card: the ten kernels
+    with the most device time and the device's busy share of the wall time."""
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.runtime import io_pool
+    from fvd_tpu_torch.state import State
+
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    return _profile_top_kernels(lambda: sched.invoke(State(input_path=clip)), (), calls=1)
+
+
+def _one_euro_ms(samples):
+    """Median ms of the port's host OneEuro scan over a track of ``samples``
+    5 fps samples of 68 points (V3's smoothing of a whole clip)."""
+    from fvd_tpu_torch.ops.filters import one_euro_scan
+
+    rng = np.random.RandomState(0)
+    times = np.arange(samples) / 5.0
+    values = 100 + 50 * rng.rand(samples, 68, 2)
+    valid = rng.rand(samples) > 0.1
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_euro_scan(times, values, valid, min_cutoff=0.5, beta=0.1)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def video_phase():
+    import torch
+
+    from fvd_tpu_torch.providers.media import VideoReader, write_video
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = np.random.RandomState(4).randint(0, 256, (30, 240, 320, 3), dtype=np.uint8)
+        write_video(os.path.join(tmp, "roundtrip.avi"), frames, 30.0)
+        back, kept = VideoReader(use_cache=False).sample(os.path.join(tmp, "roundtrip.avi"), range(30))
+        check(kept == list(range(30)) and np.array_equal(back, frames), "write_video -> VideoReader is not bit-exact")
+
+        t0 = time.perf_counter()
+        clips, kinds = _video_clips(os.path.join(tmp, "clips"))
+        make_s = time.perf_counter() - t0
+        n = len(clips)
+        runs, summary = {}, {}
+        for name, device, dtype in (("card_bf16", "cuda", torch.bfloat16), ("card_f32", "cuda", torch.float32),
+                                    ("cpu_f32", "cpu", torch.float32)):
+            root = os.path.join(tmp, name)
+            sched = _video_scheduler(root, device, dtype)
+            _video_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
+            modes = [("one_at_a_time", False, None), ("coalesced", True, 30.0)]
+            if name == "card_f32":
+                # the 30 ms window rarely lets the clips' C1 calls meet (groups
+                # of one on the card); a fixed 500 ms window makes C1 groups
+                # of several videos, which must hold to the CPU as well
+                modes.append(("grouped_500ms", True, 500.0))
+            for mode, coalesced, window_ms in modes:
+                r = _video_run(sched, root, clips, coalesced, window_ms or 30.0)
+                _check_video_run(r, kinds, f"{name} {mode}")
+                if device == "cuda":
+                    if coalesced:
+                        check(r["launches"] == len(r["c1_groups"]) and sum(r["c1_groups"]) == n,
+                              f"{name} {mode}: {r['launches']} launches for C1 groups {r['c1_groups']}")
+                    else:
+                        check(r["launches"] == n, f"{name}: {r['launches']} launches for {n} videos")
+                    if mode == "grouped_500ms":
+                        check(r["c1_groups"][0] > 1, f"{name} {mode}: no C1 group of more than one video: "
+                                                     f"{r['c1_groups']}")
+                runs[(name, mode)] = r
+                summary.setdefault(name, {})[mode] = _video_summary(r, n)
+            if name == "card_bf16":
+                summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
+        errs = {}
+        for mode, cpu_mode in (("one_at_a_time", "one_at_a_time"), ("coalesced", "coalesced"),
+                               ("grouped_500ms", "one_at_a_time")):
+            card, cpu = runs[("card_f32", mode)]["finals"], runs[("cpu_f32", cpu_mode)]["finals"]
+            errs[mode] = {"lip_sync_score": max(abs(a.lip_sync_score - b.lip_sync_score) for a, b in zip(card, cpu)),
+                          "fake_probability": max(abs(a.fake_probability - b.fake_probability)
+                                                  for a, b in zip(card, cpu))}
+            check(errs[mode]["lip_sync_score"] <= VIDEO_LIP_TOL and errs[mode]["fake_probability"] <= VIDEO_PROB_TOL,
+                  f"video, card f32 vs CPU f32 ({mode}): {errs[mode]}")
+        bf16_gap = max(abs(a.lip_sync_score - b.lip_sync_score)
+                       for a, b in zip(runs[("card_bf16", "one_at_a_time")]["finals"],
+                                       runs[("card_f32", "one_at_a_time")]["finals"]))
+    launches = sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
+    phase("video", clips=[os.path.basename(c) for c in clips], kinds=kinds, clip_seconds=10.0, fps=30.0,
+          frame_size=[240, 320], audio_sr=44100, make_clips_s=make_s, tolerance=VIDEO_LIP_TOL,
+          prob_tolerance=VIDEO_PROB_TOL, card_f32_vs_cpu_f32=errs, card_bf16_vs_f32_max_lip=bf16_gap,
+          one_euro_scan_ms={"50 samples (10 s)": _one_euro_ms(50), "3000 samples (10 min)": _one_euro_ms(3000)},
+          runs=summary)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -580,7 +835,7 @@ def main() -> int:
     smi_line = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
-    launches = analyzer_phase() + serving_phase() + dag_phase()
+    launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase()
 
     kernels = [{
         "name": "lipsync_score",

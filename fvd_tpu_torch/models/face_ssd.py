@@ -5,22 +5,26 @@ backbone and three detection heads) with submodules named after the flax
 auto-names, so a flax params tree loads through :mod:`fvd_tpu_torch.weights`.
 :func:`detect_batch` is ``detect_batch_jit``: resize, backbone in
 ``compute_dtype``, box decode, top-256 prefilter and greedy NMS, batched over
-frames.
+frames.  :class:`SSDFaceDetector` is the V1 provider around it (batched
+detect on host frames or a device tensor, host unpacking of the slots with
+``s > 0``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, group_norm
+from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
 from fvd_tpu_torch.ops import detection
 from fvd_tpu_torch.ops.image import resize
+from fvd_tpu_torch.providers.vision import FaceBox
 
 INPUT_SIZE = 300
 #: (feature map size, anchor scales, aspect ratios) per head
@@ -110,8 +114,7 @@ def detect_batch(
     reference); decode and NMS stay float32."""
     x = resize(frames.to(torch.float32), (INPUT_SIZE, INPUT_SIZE), antialias=True)
     x = (x - torch.tensor(MEAN_RGB, device=x.device)).to(compute_dtype)
-    params = {k: v.to(compute_dtype) for k, v in model.state_dict().items()}
-    loc, conf = torch.func.functional_call(model, params, (x,))
+    loc, conf = in_dtype(model, compute_dtype)(x)
     boxes = detection.decode_boxes(loc.float(), torch.from_numpy(anchors()).to(x.device))
     scores = torch.sigmoid(conf.float())
 
@@ -123,3 +126,38 @@ def detect_batch(
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     return detection.nms(top_boxes, top_scores, max_out=max_out, iou_threshold=0.45,
                          score_threshold=0.05)
+
+
+class SSDFaceDetector:
+    """FaceDetectorProvider: one batched :func:`detect_batch` forward and one
+    host fetch per call, then host unpacking of the slots with a score above
+    0 (``fvd_tpu/models/face_ssd.py`` ``SSDFaceDetector``)."""
+
+    model_name = "fvd_tpu_ssd"
+    #: nodes may pass a device-resident frame tensor instead of host numpy
+    accepts_device_frames = True
+
+    def __init__(self, checkpoint: str, max_out: int = 32,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        self.model = from_params(weights_mod.read_npz(checkpoint), self.device)
+        self.width = self.model.width
+        self.max_out = max_out
+        self.compute_dtype = compute_dtype
+
+    def detect_batch(self, frames) -> List[List[FaceBox]]:
+        """uint8 [T, H, W, 3] RGB, host numpy or a tensor on the detector's
+        device -> per-frame detections in pixels."""
+        if len(frames) == 0:
+            return []
+        x = frames if torch.is_tensor(frames) else torch.from_numpy(np.ascontiguousarray(frames))
+        h, w = x.shape[1:3]
+        boxes, scores = detect_batch(self.model, x.to(self.device), compute_dtype=self.compute_dtype,
+                                     max_out=self.max_out)
+        host = torch.cat([boxes, scores[..., None]], dim=-1).cpu().numpy()  # ONE host fetch
+        out: List[List[FaceBox]] = []
+        for rows in host:
+            bb, ss = rows[:, :4], rows[:, 4]
+            out.append([FaceBox(b[0] * w, b[1] * h, b[2] * w, b[3] * h, float(s))
+                        for b, s in zip(bb, ss) if s > 0.0])
+        return out

@@ -1,6 +1,7 @@
 """Hourglass landmark regressor (V3): the counterpart of ``ResBlock``,
-``Hourglass``, ``LandmarkHourglass``, ``decode_heatmaps``, ``_device_crops``
-and ``landmarks_from_frames`` in ``fvd_tpu/models/landmarks_fan.py``.
+``Hourglass``, ``LandmarkHourglass``, ``decode_heatmaps``, ``_device_crops``,
+``landmarks_from_frames``, ``_pad_bucket``, ``_marshal_boxes`` and the
+``FANLandmarks`` provider in ``fvd_tpu/models/landmarks_fan.py``.
 
 Submodules carry the flax auto-names (``Conv_0``, ``GroupNorm_0``,
 ``ResBlock_3``, ``Hourglass_0``) so a flax params tree loads through
@@ -10,14 +11,17 @@ layout; the convolutions run NCHW inside.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import List, Mapping
+
+import numpy as np
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, group_norm
+from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
 from fvd_tpu_torch.ops.image import scale_and_translate
 
 CROP_SIZE = 128
@@ -140,6 +144,88 @@ def landmarks_from_frames(
     """Crop from the frame tensor + hourglass forward in ``compute_dtype`` +
     float32 soft-argmax -> landmark coords [N, 68, 2] in crop [0, 1]."""
     x = _device_crops(frames, boxes, owners)
-    params = {k: v.to(compute_dtype) for k, v in model.state_dict().items()}
-    hm = torch.func.functional_call(model, params, (x.to(compute_dtype),))
+    hm = in_dtype(model, compute_dtype)(x.to(compute_dtype))
     return decode_heatmaps(hm.to(torch.float32))
+
+
+def _pad_bucket(n: int) -> int:
+    """Static shape bucket (next power of two, >= 8) so varying face counts
+    reuse the same shapes."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+def _marshal_boxes(boxes, owners, device):
+    """(boxes, owners) lists -> bucket-padded float32 / int64 tensors on
+    ``device`` + real count.  Pad rows are the [0, 0, CROP_SIZE, CROP_SIZE]
+    sentinel of owner 0 — valid inputs whose outputs are sliced off."""
+    n = len(boxes)
+    pad = _pad_bucket(n)
+    boxes_arr = np.zeros((pad, 4), np.float32)
+    boxes_arr[:n] = np.asarray(boxes, np.float32)
+    boxes_arr[n:] = [0, 0, CROP_SIZE, CROP_SIZE]
+    owners_arr = np.zeros(pad, np.int64)
+    owners_arr[:n] = owners
+    return torch.from_numpy(boxes_arr).to(device), torch.from_numpy(owners_arr).to(device), n
+
+
+class FANLandmarks:
+    """LandmarkProvider: a face detector composed with the hourglass; crops
+    for ALL frames are gathered on the device from the frame tensor and run
+    as one forward.
+
+    The JAX package also crops on the host with OpenCV when it has no device
+    frames; the port always takes the device program, uploading host frames
+    first where none are given.  The fused landmark+pose program of V4
+    (``landmarks_pose_batch``) comes with V4.
+    """
+
+    model_name = "fvd_tpu_hourglass"
+    #: the inner detector forward can consume a device-resident frame tensor
+    accepts_device_frames = True
+
+    def __init__(self, face_detector, checkpoint: str, detector_threshold: float = 0.5,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        self.face_detector = face_detector
+        self.landmark_model = from_params(weights_mod.read_npz(checkpoint), self.device)
+        self.detector_threshold = detector_threshold
+        self.compute_dtype = compute_dtype
+
+    def _collect_detections(self, detections, frame_w: int, frame_h: int):
+        """Apply the confidence / clip / min-size gate (integer truncation of
+        the float boxes, as the reference)."""
+        owners, boxes = [], []
+        for i, dets in enumerate(detections):
+            for d in dets:
+                if d.confidence < self.detector_threshold:
+                    continue
+                x1, y1 = max(0, int(d.x1)), max(0, int(d.y1))
+                x2, y2 = min(frame_w, int(d.x2)), min(frame_h, int(d.y2))
+                if x2 - x1 < 4 or y2 - y1 < 4:
+                    continue
+                owners.append(i)
+                boxes.append((x1, y1, x2, y2))
+        return owners, boxes
+
+    def landmarks_batch(self, frames: np.ndarray, device_frames=None) -> List[List[np.ndarray]]:
+        """uint8 [T, H, W, 3] RGB -> per-frame lists of [68, 2] pixel
+        landmarks.  ``device_frames``: the same frames already on the device;
+        the detector and the crop gather both read it."""
+        if device_frames is None:
+            device_frames = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        detections = self.face_detector.detect_batch(device_frames)
+        h, w = frames.shape[1:3]
+        owners, boxes = self._collect_detections(detections, w, h)
+        out: List[List[np.ndarray]] = [[] for _ in range(len(frames))]
+        if not boxes:
+            return out
+        boxes_t, owners_t, n = _marshal_boxes(boxes, owners, self.device)
+        coords = landmarks_from_frames(self.landmark_model, device_frames, boxes_t, owners_t,
+                                       compute_dtype=self.compute_dtype)[:n].cpu().numpy()
+        for (x1, y1, x2, y2), owner, c in zip(boxes, owners, coords):
+            pts = np.stack([x1 + c[:, 0] * (x2 - x1), y1 + c[:, 1] * (y2 - y1)], axis=1)
+            out[owner].append(pts)
+        return out

@@ -6,13 +6,39 @@
   ``forward`` (a stride-2 3x3 conv pads (0, 1) on 300 but (1, 1) on 75).
 * :func:`group_norm` is flax's ``GroupNorm(num_groups=8)``: eps 1e-6, where
   torch defaults to 1e-5.
+* :func:`in_dtype` is the model with every parameter cast to the compute
+  dtype, as the reference casts its params tree inside each jitted forward.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
+import weakref
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+_cast_lock = threading.Lock()
+_cast: "weakref.WeakKeyDictionary[nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+def in_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``model`` with its parameters and buffers in ``dtype``: a copy cast on
+    the first call for each dtype and kept, so later calls cast nothing; the
+    model itself where its first parameter already has ``dtype``.  Calling a
+    module is safe from several threads at once (concurrent videos share one
+    provider); swapping its parameters per call, as
+    ``torch.func.functional_call`` does, is not.  The copy does not follow
+    later changes to ``model``'s weights."""
+    if next(model.parameters()).dtype == dtype:
+        return model
+    with _cast_lock:
+        per = _cast.setdefault(model, {})
+        if dtype not in per:
+            per[dtype] = copy.deepcopy(model).to(dtype)
+        return per[dtype]
 
 
 def same_pads(n: int, k: int, s: int):

@@ -1,0 +1,107 @@
+"""OneEuro smoothing and box IoU: the counterpart of ``iou``,
+``one_euro_scan``, ``one_euro_init_carry`` and ``one_euro_scan_chunk`` in
+``fvd_tpu/ops/filters.py``.
+
+The JAX package runs the filter as one ``lax.scan`` over a track's T samples,
+vectorised over its coordinates.  On the card a scan step would be some twenty
+tiny launches, T times over, so here it is a float32 loop over T on the host,
+vectorised over the coordinates (and over a leading batch of videos).  The
+step is the same float32 arithmetic in the same order; no transcendental
+appears.  Invalid samples leave the filter state untouched and output NaN, and
+the chunked scan hands its carry on, so chunk by chunk equals one whole scan.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+
+_F = np.float32
+_TWO_PI = _F(2.0 * math.pi)
+
+#: (initialized bool, t_prev f32, x_prev f32[...], dx_prev f32[...]), each
+#: with the leading batch dimensions of the scan that made it
+Carry = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def iou(box_a, box_b) -> float:
+    """IoU with inclusive-pixel (+1) areas — reference calculate_iou
+    (v3:48-61 / v4:90-103)."""
+    xA = max(box_a[0], box_b[0])
+    yA = max(box_a[1], box_b[1])
+    xB = min(box_a[2], box_b[2])
+    yB = min(box_a[3], box_b[3])
+    inter = max(0, xB - xA + 1) * max(0, yB - yA + 1)
+    area_a = (box_a[2] - box_a[0] + 1) * (box_a[3] - box_a[1] + 1)
+    area_b = (box_b[2] - box_b[0] + 1) * (box_b[3] - box_b[1] + 1)
+    return inter / float(area_a + area_b - inter)
+
+
+def one_euro_init_carry(value_shape) -> Carry:
+    """Fresh (uninitialized) filter carry for the chunked scan."""
+    zero = np.zeros(value_shape, _F)
+    return (np.array(False), _F(0.0), zero, zero.copy())
+
+
+def _smoothing(t_e: np.ndarray, cutoff) -> np.ndarray:
+    # the JAX step's 2.0 * jnp.pi * cutoff * t_e, left to right in float32
+    r = (_TWO_PI * cutoff) * t_e
+    return r / (r + _F(1.0))
+
+
+def one_euro_scan_chunk(carry: Carry, times, values, valid, min_cutoff: float = 1.0,
+                        beta: float = 0.0, d_cutoff: float = 1.0):
+    """Chunk-resumable OneEuroFilter: ``times [..., T]``, ``values
+    [..., T, *V]``, ``valid [..., T]`` with the same leading dimensions as the
+    carry's ``initialized`` -> (float32 ``[..., T, *V]``, new carry).
+
+    * the first valid sample initializes the filter and passes through raw;
+    * later valid samples are filtered with t_e measured from the previous
+      valid one;
+    * invalid samples leave the state untouched and output NaN."""
+    initialized, t_prev, x_prev, dx_prev = (np.asarray(c) for c in carry)
+    times = np.asarray(times).astype(_F)
+    values = np.asarray(values).astype(_F)
+    valid = np.asarray(valid, bool)
+    lead = initialized.ndim
+    T = times.shape[lead]
+    vdims = values.ndim - lead - 1
+    mc, b, dc = _F(min_cutoff), _F(beta), _F(2.0 * math.pi * d_cutoff)
+    initialized, t_prev = initialized.copy(), t_prev.astype(_F).copy()
+    x_prev, dx_prev = x_prev.astype(_F).copy(), dx_prev.astype(_F).copy()
+    out = np.empty_like(values)
+    expand = (slice(None),) * lead + (None,) * vdims  # [...] -> [..., 1 x vdims]
+    for i in range(T):
+        t = times[(slice(None),) * lead + (i,)]
+        x = values[(slice(None),) * lead + (i,)]
+        ok = valid[(slice(None),) * lead + (i,)]
+        t_e = t - t_prev
+        safe_te = np.where(t_e != 0, t_e, _F(1.0)).astype(_F)
+        r_d = dc * safe_te
+        a_d = (r_d / (r_d + _F(1.0)))[expand]
+        te = safe_te[expand]
+        dx = (x - x_prev) / te
+        dx_hat = a_d * dx + (_F(1.0) - a_d) * dx_prev
+        cutoff = mc + b * np.abs(dx_hat)
+        a = _smoothing(te, cutoff)
+        x_hat = a * x + (_F(1.0) - a) * x_prev
+        use_init = np.logical_and(ok, np.logical_not(initialized))
+        use_filt = np.logical_and(ok, initialized)
+        ui, uf = use_init[expand], use_filt[expand]
+        out[(slice(None),) * lead + (i,)] = np.where(ui, x, np.where(uf, x_hat, _F(np.nan)))
+        x_prev = np.where(ui, x, np.where(uf, x_hat, x_prev))
+        dx_prev = np.where(ui, _F(0.0), np.where(uf, dx_hat, dx_prev))
+        t_prev = np.where(ok, t, t_prev).astype(_F)
+        initialized = np.logical_or(initialized, ok)
+    return out, (initialized, t_prev, x_prev, dx_prev)
+
+
+def one_euro_scan(times, values, valid, min_cutoff: float = 1.0, beta: float = 0.0,
+                  d_cutoff: float = 1.0) -> np.ndarray:
+    """OneEuroFilter over a whole track (times [T], values [T, ...], valid [T])."""
+    values = np.asarray(values)
+    out, _ = one_euro_scan_chunk(one_euro_init_carry(values.shape[1:]), times, values, valid,
+                                 min_cutoff=min_cutoff, beta=beta, d_cutoff=d_cutoff)
+    return out

@@ -1,0 +1,193 @@
+"""Synthetic face clips for the port: ``make_face_video`` and the gated and
+tone-coded audio it uses, the counterparts of those in ``fvd_tpu/synthetic.py``,
+drawn with numpy (``fvd_tpu_torch/utils/draw.py``) so that they can be made
+where OpenCV is not installed.
+
+The clip is an elliptical face whose mouth aperture follows the same gate as
+its audio track, with a slow centre drift that exercises IoU tracking; it is
+written as a raw-RGBA AVI with a sibling ``.wav``.  The pixels are not
+OpenCV's: the face outline and the background blur differ a little.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from fvd_tpu_torch.providers.media import write_video
+from fvd_tpu_torch.utils import draw
+from fvd_tpu_torch.utils.wav import write_wav
+
+
+def _build_template() -> np.ndarray:
+    """68-point template in a unit face box (x, y in [0, 1]), iBUG-68
+    topology: 0-16 jaw, 17-26 brows, 27-35 nose, 36-47 eyes, 48-67 mouth."""
+    t = np.zeros((68, 2))
+    ang = np.linspace(np.pi * 0.1, np.pi * 0.9, 17)
+    t[:17, 0] = 0.5 + 0.48 * np.cos(ang[::-1])
+    t[:17, 1] = 0.55 + 0.45 * np.sin(ang[::-1])
+    for i, x in enumerate(np.linspace(0.2, 0.42, 5)):
+        t[17 + i] = [x, 0.3]
+    for i, x in enumerate(np.linspace(0.58, 0.8, 5)):
+        t[22 + i] = [x, 0.3]
+    for i, y in enumerate(np.linspace(0.38, 0.58, 4)):
+        t[27 + i] = [0.5, y]
+    for i, x in enumerate(np.linspace(0.42, 0.58, 5)):
+        t[31 + i] = [x, 0.62]
+    for base, cx in ((36, 0.31), (42, 0.69)):
+        ex, ey, rw, rh = cx, 0.4, 0.08, 0.03
+        a = np.array([0, 60, 120, 180, 240, 300]) * np.pi / 180
+        t[base: base + 6, 0] = ex + rw * np.cos(a)
+        t[base: base + 6, 1] = ey - rh * np.sin(a)
+    a = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    t[48:60, 0] = 0.5 + 0.16 * np.cos(a)
+    t[48:60, 1] = 0.78 + 0.07 * np.sin(a)
+    a = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    t[60:68, 0] = 0.5 + 0.1 * np.cos(a)
+    t[60:68, 1] = 0.78 + 0.045 * np.sin(a)
+    return t
+
+
+TEMPLATE_68 = _build_template()
+
+
+def draw_face(img: np.ndarray, cx: float, cy: float, fw: float, fh: float, skin: np.ndarray,
+              aperture: float) -> np.ndarray:
+    """Draw one face into ``img`` (in place) with its mouth open by
+    ``aperture`` in [0, 1]; -> landmarks [68, 2] px."""
+    draw.fill_ellipse(img, (int(cx), int(cy)), (int(fw / 2), int(fh / 2)), skin.tolist())
+    x1, y1 = cx - fw / 2, cy - fh / 2
+    pts = TEMPLATE_68.copy()
+    out_ry = 0.02 + 0.09 * float(aperture)
+    in_ry = out_ry * 0.64
+    pts[48:60, 1] = 0.78 + out_ry * np.sin(np.linspace(0, 2 * np.pi, 12, endpoint=False))
+    pts[60:68, 1] = 0.78 + in_ry * np.sin(np.linspace(0, 2 * np.pi, 8, endpoint=False))
+    pts[:, 0] = x1 + pts[:, 0] * fw
+    pts[:, 1] = y1 + pts[:, 1] * fh
+
+    dark = (skin * 0.35).astype(int).tolist()
+    for base in (36, 42):  # eyes
+        center = pts[base: base + 6].mean(axis=0).astype(int)
+        draw.fill_ellipse(img, center, (max(2, int(fw * 0.08)), max(1, int(fw * 0.035))), dark)
+    for sl in (slice(17, 22), slice(22, 27)):  # brows
+        draw.polyline(img, pts[sl].astype(np.int32), max(1, int(fw * 0.02)), dark)
+    mouth_c = pts[48:60].mean(axis=0).astype(int)  # vertical radius follows the aperture
+    draw.fill_ellipse(img, mouth_c, (max(2, int(fw * 0.16)), max(1, int(fh * out_ry))), (120, 40, 40))
+    draw.polyline(img, pts[27:31].astype(np.int32), max(1, int(fw * 0.015)), dark)  # nose
+    return pts.astype(np.float32)
+
+
+def _box_blur5(img: np.ndarray) -> np.ndarray:
+    """5x5 mean with mirrored borders (``cv2.blur(img, (5, 5))``)."""
+    pad = np.pad(img.astype(np.float32), ((2, 2), (2, 2), (0, 0)), mode="reflect")
+    h, w = img.shape[:2]
+    acc = sum(pad[dy:dy + h, dx:dx + w] for dy in range(5) for dx in range(5))
+    return np.round(acc / 25.0).astype(np.uint8)
+
+
+TONE_ALPHABET = "abcdefghijklmnopqrstuvwxyz "
+TONE_SR = 16000
+TONE_CHAR_S = 0.08
+TONE_BASE_HZ = 300.0
+TONE_STEP_HZ = 60.0
+
+
+def tone_speech(text: str, rng: np.random.RandomState | None = None) -> np.ndarray:
+    """Tone-coded 'speech': each character is a Hann-windowed sine on a
+    frequency ladder."""
+    n = int(TONE_SR * TONE_CHAR_S)
+    t = np.arange(n) / TONE_SR
+    chunks = []
+    for ch in text:
+        k = TONE_ALPHABET.index(ch)
+        f = TONE_BASE_HZ + k * TONE_STEP_HZ
+        chunks.append(0.4 * np.sin(2 * np.pi * f * t) * np.hanning(n))
+    audio = np.concatenate(chunks) if chunks else np.zeros(n)
+    if rng is not None:
+        audio = audio + 0.01 * rng.randn(len(audio))
+    return audio.astype(np.float32)
+
+
+def gated_speech(text: str, duration: float, gate_hz: float = 1.0, sr: int = TONE_SR,
+                 rng: np.random.RandomState | None = None) -> np.ndarray:
+    """Tone-coded speech phrased into the gate's on-windows: words are packed
+    greedily into successive gate-on half-periods (the mouth-open phases of
+    the face), with silence between; text beyond the clip is dropped."""
+    n_total = int(sr * duration)
+    audio = np.zeros(n_total, np.float32)
+    on_s = 0.5 / gate_hz  # gate = sin(2*pi*gate_hz*t) > 0: first half-period
+    period = 1.0 / gate_hz
+    max_chars = min(int(on_s / TONE_CHAR_S), 10)
+    words = [w for w in text.split() if w]
+    wi = 0
+    k = 0
+    while wi < len(words) and k * period < duration:
+        phrase = ""
+        while wi < len(words):
+            cand = words[wi] if not phrase else f"{phrase} {words[wi]}"
+            if len(cand) > max_chars:
+                break
+            phrase = cand
+            wi += 1
+        if not phrase:
+            # a word longer than any window: render it anyway, spilling past
+            # the gate-on phase
+            phrase = words[wi][: max_chars + 4]
+            wi += 1
+        a = tone_speech(phrase, rng)
+        i0 = int(k * period * sr)
+        i1 = min(i0 + len(a), n_total)
+        audio[i0:i1] = a[: i1 - i0]
+        k += 1
+    return audio
+
+
+def make_face_video(
+    dirpath: str,
+    name: str = "face",
+    duration: float = 6.0,
+    fps: float = 10.0,
+    width: int = 320,
+    height: int = 240,
+    gate_hz: float = 1.0,
+    sr: int = 16000,
+    seed: int = 0,
+    speech_text: str | None = None,
+    mouth_gate_hz: float | None = None,
+) -> str:
+    """A face clip ``<dirpath>/<name>.avi`` and its audio ``<name>.wav``.
+
+    The mouth opens with ``0.5 * (1 + sin(2 pi mouth_gate_hz t))`` and the
+    audio is a 330 Hz tone gated by ``sin(2 pi gate_hz t) > 0`` (or tone-coded
+    ``speech_text`` in the gate's on-windows).  ``mouth_gate_hz`` (default
+    ``gate_hz``) drives the mouth at another rate than the audio: the dubbed
+    mouth no lag can align."""
+    os.makedirs(dirpath, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    background = _box_blur5((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
+    skin = np.array([rng.randint(160, 230), rng.randint(120, 190), rng.randint(100, 170)])
+    fh = 0.62 * height
+    fw = fh / 1.25
+    n = int(fps * duration)
+    frames = np.zeros((n, height, width, 3), np.uint8)
+    mouth_hz = gate_hz if mouth_gate_hz is None else mouth_gate_hz
+    for i in range(n):
+        t = i / fps
+        gate = 0.5 * (1 + np.sin(2 * np.pi * mouth_hz * t))
+        cx = width / 2 + 0.06 * width * np.sin(2 * np.pi * 0.05 * t)
+        cy = height / 2 + 0.04 * height * np.cos(2 * np.pi * 0.07 * t)
+        frame = background.copy()
+        draw_face(frame, cx, cy, fw, fh, skin, aperture=gate)
+        frames[i] = frame
+    video_path = os.path.join(dirpath, f"{name}.avi")
+    write_video(video_path, frames, fps)
+
+    if speech_text is not None:
+        sig = gated_speech(speech_text, duration, gate_hz=gate_hz, sr=sr)
+    else:
+        t = np.arange(int(sr * duration)) / sr
+        gate = (np.sin(2 * np.pi * gate_hz * t) > 0).astype(np.float32)
+        sig = 0.5 * np.sin(2 * np.pi * 330 * t).astype(np.float32) * gate
+    write_wav(os.path.join(dirpath, f"{name}.wav"), sig, sr)
+    return video_path

@@ -172,3 +172,91 @@ def test_c1_node_on_card_matches_cpu_and_groups_launch_once(cuda):
         deactivate()
     assert groups == 1 and launches == 1, (groups, launches)
     np.testing.assert_allclose(grouped, cpu, atol=TOL, rtol=0)
+
+
+def _video_dag(root, device, dtype):
+    """The seven nodes IN -> A1 -> A3, IN -> V1 -> V3, {A3, V3} -> C1 -> LR of
+    the port on ``device``, with the shipped checkpoints."""
+    import dataclasses
+    import functools
+    import os
+
+    from fvd_tpu_torch.config import default_config
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.nodes import (a1_standardize, a3_onsets, c1_lipsync, ingest, lr_fusion, v1_faces,
+                                     v3_landmarks)
+    from fvd_tpu_torch.providers import Providers
+    from fvd_tpu_torch.runtime import DAG
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+    prov = Providers(face_detector=det, landmarks=FANLandmarks(
+        det, checkpoint=os.path.join(ckpt, "landmarks.npz"), compute_dtype=dtype, device=device))
+    cfg = default_config()
+    cfg = cfg.replace(ingest=dataclasses.replace(cfg.ingest, processed_dir=str(root / "processed")),
+                      fusion=dataclasses.replace(cfg.fusion, weights_path=str(root / "lr_weights.json"),
+                                                 features_dir=str(root / "features")))
+    part = functools.partial
+    dag = DAG()
+    dag.add_node("IN", part(ingest.run, config=cfg), host_only=True)
+    dag.add_node("A1", part(a1_standardize.run, config=cfg, device=device), deps=["IN"])
+    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov), deps=["IN"])
+    dag.add_node("A3", part(a3_onsets.run, config=cfg, device=device), deps=["A1"])
+    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov), deps=["V1"])
+    dag.add_node("C1", part(c1_lipsync.run, config=cfg, device=device), deps=["A3", "V3"])
+    dag.add_node("LR", part(lr_fusion.run, config=cfg), deps=["C1"])
+    return dag
+
+
+@pytest.fixture(scope="module")
+def video_runs(tmp_path_factory):
+    """The seven-node DAG in f32 on the CPU and on the card, for a clip in
+    sync and one with a dubbed mouth: final states, and per card run the C1
+    launches and the frame uploads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the C1 kernel is CUDA C++ and has no CPU mode")
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.runtime import Scheduler
+    from fvd_tpu_torch.state import State
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    root = tmp_path_factory.mktemp("video")
+    clips = [make_face_video(str(root / "clips"), "sync", duration=6.0, fps=10.0, sr=44100),
+             make_face_video(str(root / "clips"), "dubbed", duration=6.0, fps=10.0, sr=44100,
+                             mouth_gate_hz=0.37)]
+    out = {"cpu": [], "cuda": [], "launches": [], "uploads": []}
+    # f32 against f32: keep cuDNN's convolutions and cuBLAS out of TF32
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            sched = Scheduler(_video_dag(tmp_path_factory.mktemp(device), device, torch.float32))
+            for clip in clips:
+                media.clear_frame_cache()
+                _kernels.reset_launches()
+                out[device].append(sched.invoke(State(input_path=clip)))
+                if device == "cuda":
+                    out["launches"].append(_kernels.LAUNCHES["lipsync_score"])
+                    out["uploads"].append(media._device_frames.uploads)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def test_video_dag_on_card_matches_cpu(video_runs):
+    for card, cpu in zip(video_runs["cuda"], video_runs["cpu"]):
+        assert abs(card.lip_sync_score - cpu.lip_sync_score) <= 1e-4
+        assert abs(card.fake_probability - cpu.fake_probability) <= 1e-5
+        assert sum(bool(m["landmarks"]) for m in card.mouth_landmarks) >= 24
+    assert video_runs["cuda"][0].lip_sync_score > video_runs["cuda"][1].lip_sync_score
+
+
+def test_video_dag_launches_the_c1_kernel_once_per_video(video_runs):
+    assert video_runs["launches"] == [1, 1]
+
+
+def test_video_dag_uploads_frames_once_per_video(video_runs):
+    """V1 uploads the union of its keyframes and V3's samples; V3 gathers
+    from it on the card."""
+    assert video_runs["uploads"] == [1, 1]

@@ -24,7 +24,15 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.models.face_ssd", "fvd_tpu_torch.models.landmarks_fan",
             "fvd_tpu_torch.config", "fvd_tpu_torch.state", "fvd_tpu_torch.runtime.scheduler",
             "fvd_tpu_torch.providers.coalesce", "fvd_tpu_torch.nodes.c1_lipsync",
-            "fvd_tpu_torch.nodes.lr_fusion"} <= set(mods)
+            "fvd_tpu_torch.nodes.lr_fusion", "fvd_tpu_torch.utils.wav", "fvd_tpu_torch.utils.avi",
+            "fvd_tpu_torch.utils.png", "fvd_tpu_torch.utils.draw", "fvd_tpu_torch.ops.resample",
+            "fvd_tpu_torch.ops.spectral", "fvd_tpu_torch.ops.filters", "fvd_tpu_torch.providers.media",
+            "fvd_tpu_torch.providers.vision", "fvd_tpu_torch.providers.llm",
+            "fvd_tpu_torch.providers.search", "fvd_tpu_torch.providers.encoders",
+            "fvd_tpu_torch.providers.asr", "fvd_tpu_torch.runtime.io_pool", "fvd_tpu_torch.nodes.ingest",
+            "fvd_tpu_torch.nodes.a1_standardize", "fvd_tpu_torch.nodes.a3_onsets",
+            "fvd_tpu_torch.nodes.v1_faces", "fvd_tpu_torch.nodes._tracking",
+            "fvd_tpu_torch.nodes.v3_landmarks", "fvd_tpu_torch.synthetic"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
