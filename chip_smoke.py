@@ -44,7 +44,23 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              one per coalesced C1 group, one frame upload per video, and the
              AVI round trip; prints wall times, node and ``v3/*`` span
              medians, PNG seconds, the OneEuro scan's time and a
-             ``torch.profiler`` view of one video.
+             ``torch.profiler`` view of one video;
+8. full_dag  all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
+             clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
+             ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
+             card bf16 and card f32 one video at a time, card bf16 with all 4
+             at once under the program coalescer, and CPU f32.  Checks all 16
+             nodes done, card f32 against CPU f32 on the 9 LR features and the
+             probability, one C1 launch per video (per C1 group when
+             coalesced), one frame upload per video, one shared landmark
+             forward per chunk for V3 and V4, and V4's pose samples; prints
+             every node's span median, the ``v4/*`` spans, wall time per video,
+             the card's busy share over one profiled video, and the landmark
+             forward's time without and with V4's fused pose program;
+9. cli       ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
+             card, then again with label 1: rc 0, a last line
+             ``Fake probability: p`` with 0 <= p <= 1, and the weights file
+             written by the labelled run; prints the cold-start seconds.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -823,6 +839,246 @@ def video_phase():
     return launches
 
 
+#: the full_dag phase, card f32 against CPU f32 on the same clips and bundle:
+#: the video phase's bars for lip and the probability, held by every LR feature (on the
+#: CPU the port matched the JAX package within 7.7e-7 on every feature,
+#: ``tests/test_torch_full_dag.py``)
+DAG_FEATURE_TOL, DAG_FULL_PROB_TOL = 1e-4, 1e-5
+FULL_DAG_NODES = ("IN", "A1", "V1", "A2", "A3", "V2", "V3", "V4", "V5",
+                  "C1", "C2", "C3", "E1", "E2", "E3", "LR")
+FULL_DAG_SPANS = tuple(f"node/{n}" for n in FULL_DAG_NODES) + (
+    "v4/decode", "v4/landmark_fwd", "v4/track", "v4/pose_fwd", "v4/smooth", "v4/emit", "v3/landmark_fwd",
+    "coalesce/v5_ela", "coalesce/c1_lipsync")
+
+
+def _hermetic_providers(det, lmk):
+    """Fixed ASR, LLM, search and CLIP content for a 10 s clip: two claims,
+    five search results over three trust tiers, one gesture check of each
+    status, a texture score of 0.3."""
+    from fvd_tpu_torch.providers import Providers, ScriptedASR, ScriptedLLM, StaticSearch, StubClip
+    from fvd_tpu_torch.providers.search import make_result
+    from fvd_tpu_torch.providers.vision import NullOCR
+
+    claims = ["the moon landing happened in 1969", "water boils at 100 degrees"]
+    segments = [{"start": 0.0, "end": 2.5, "text": claims[0]}, {"start": 3.2, "end": 5.6, "text": claims[1]},
+                {"start": 6.4, "end": 9.5, "text": "thanks for watching"}]
+    search = {"moon landing": [make_result("https://www.nasa.gov/apollo11", "Apollo 11", "moon landing 1969"),
+                               make_result("https://en.wikipedia.org/wiki/Apollo_11", "Apollo 11", "first landing"),
+                               make_result("http://moon-hoax.example.com/fake", "it was staged", "hoax")],
+              "water boils": [make_result("https://www.bbc.com/science/boiling", "Boiling", "100 degrees"),
+                              make_result("https://chem.mit.edu/water", "Phase changes", "boiling water")]}
+    llm = {"Extract verifiable factual claims": {"claims": claims},
+           "forensic image analyst": {"fake_probability": 0.3, "reasoning": "scripted"}}
+    return Providers(llm=ScriptedLLM(responses=llm), search=StaticSearch(search),
+                     clip=StubClip(scripted={"moon": 0.3, "water": 0.1}),
+                     asr=ScriptedASR(" ".join(s["text"] for s in segments), segments), ocr=NullOCR(),
+                     face_detector=det, landmarks=lmk)
+
+
+def _full_dag_scheduler(root, device, dtype):
+    """``graph.build_graph`` on ``device`` with the shipped face_ssd,
+    landmarks and pose checkpoints and the hermetic bundle; runs write under
+    ``root``."""
+    from fvd_tpu_torch.config import default_config
+    from fvd_tpu_torch.graph import build_graph
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.runtime import Scheduler
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+    lmk = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                       pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=dtype, device=device)
+    cfg = default_config()
+    cfg = cfg.replace(ingest=dataclasses.replace(cfg.ingest, processed_dir=os.path.join(root, "processed")),
+                      fusion=dataclasses.replace(cfg.fusion, weights_path=os.path.join(root, "lr_weights.json"),
+                                                 features_dir=os.path.join(root, "features")),
+                      evidence=dataclasses.replace(cfg.evidence, rate_limit_s=0.0))
+    return Scheduler(build_graph(cfg, _hermetic_providers(det, lmk), device=device))
+
+
+def _full_dag_run(sched, root, clips, coalesced):
+    """Every clip through the 16 nodes, one after another or all at once
+    under the program coalescer (30 ms adaptive window), from cold caches:
+    final states, the nodes done per video, wall ms per video, C1 launches and
+    groups, frame uploads, landmark forwards and the tracer's spans."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import coalesce, media
+    from fvd_tpu_torch.runtime import Tracer, io_pool, set_tracer
+    from fvd_tpu_torch.state import State
+
+    def run(path):
+        t0 = time.perf_counter()
+        done, final = [], None
+        for ev in sched.stream(State(input_path=path)):
+            if ev.node == "__end__":
+                check(ev.status == "done", f"full DAG failed on {path}: {ev.error}")
+                final = ev.delta["__final_state__"]
+            elif ev.status == "done":
+                done.append(ev.node)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return final, done, (time.perf_counter() - t0) * 1e3
+
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    tracer = set_tracer(Tracer())
+    deactivate = coalesce._activate_program_coalescer(max_wait_ms=30.0) if coalesced else (lambda: None)
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        if coalesced:
+            with ThreadPoolExecutor(len(clips)) as pool:
+                out = list(pool.map(run, clips))
+        else:
+            out = [run(p) for p in clips]
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = _kernels.LAUNCHES["lipsync_score"]
+    finally:
+        deactivate()
+        set_tracer(None)
+        shutil.rmtree(os.path.join(root, "processed"), ignore_errors=True)
+    finals, done, wall = zip(*out)
+    counts = tracer.counts()
+    return {"finals": finals, "done": done, "wall": list(wall), "total_ms": total_ms, "launches": launches,
+            "c1_groups": sorted((sp.meta["n"] for sp in tracer.spans if sp.name == "coalesce/c1_lipsync"),
+                                reverse=True),
+            "uploads": media._device_frames.uploads, "forwards": media._landmark_share.forwards,
+            "fwd_spans": (counts.get("v3/landmark_fwd", 0), counts.get("v4/landmark_fwd", 0)),
+            "pose_fwd_calls": sum(1 for sp in tracer.spans if sp.name == "v4/pose_fwd"),
+            "spans": {k: _span_ms(tracer, k) for k in FULL_DAG_SPANS}}
+
+
+def _check_full_dag_run(r, what):
+    n = len(r["finals"])
+    for f, done in zip(r["finals"], r["done"]):
+        check(sorted(done) == sorted(FULL_DAG_NODES), f"{what}: nodes done {sorted(done)}")
+        check(len(f.blink_data) >= VIDEO_FOUND_MIN * 50 and len(f.head_pose_data) >= VIDEO_FOUND_MIN * 50,
+              f"{what}: V4 gave {len(f.blink_data)} EARs and {len(f.head_pose_data)} poses of 50 samples")
+        check(np.isfinite(f.fake_probability) and 0.0 < f.fake_probability < 1.0,
+              f"{what}: probability {f.fake_probability}")
+        check(all(np.isfinite(v) for v in f.features.values()), f"{what}: features {f.features}")
+        check(len(f.claims) == 2 and len(f.evidence) == 5 and f.texture_ela_score == 0.3,
+              f"{what}: {len(f.claims)} claims, {len(f.evidence)} evidence items, texture {f.texture_ela_score}")
+    check(r["uploads"] == n, f"{what}: {r['uploads']} frame uploads for {n} videos")
+    # one chunk per 10 s video (50 samples <= stream_chunk_frames): V3 and V4
+    # each ask once, the share runs one forward, V4 runs no pose forward
+    check(r["forwards"] == n and r["fwd_spans"] == (n, n),
+          f"{what}: {r['forwards']} landmark forwards, spans {r['fwd_spans']}, for {n} one-chunk videos")
+
+
+def _full_dag_summary(r):
+    n = len(r["finals"])
+    return {"median_wall_ms_per_video": statistics.median(r["wall"]), "wall_ms_all_videos": r["total_ms"],
+            "lipsync_score_launches": r["launches"], "c1_group_sizes": r["c1_groups"],
+            "frame_uploads_per_video": r["uploads"] / n, "landmark_forwards_per_video": r["forwards"] / n,
+            "span_median_ms": r["spans"], "features": [f.features for f in r["finals"]],
+            "fake_probabilities": [f.fake_probability for f in r["finals"]]}
+
+
+def _pose_program_ms(clip, rounds=10):
+    """Median host ms (each call ends in its fetch) of V3's landmark forward
+    without and with V4's fused pose program, bf16, on one clip's 50 samples
+    at 5 fps already on the card, in interleaved rounds after a warm-up: what
+    sharing one program for V3 and V4 costs the landmark forward."""
+    import torch
+
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.providers.media import VideoReader
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), device="cuda")
+    lmk = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                       pose_checkpoint=os.path.join(ckpt, "pose.npz"), device="cuda")
+    frames, _ = VideoReader(use_cache=False).sample(clip, range(0, 300, 6))
+    dev = torch.from_numpy(frames).cuda()
+    calls = {"landmarks_only": lambda: lmk.landmarks_batch(frames, device_frames=dev),
+             "landmarks_and_pose": lambda: lmk.landmarks_pose_batch(frames, device_frames=dev, pose_pad=0.1)}
+    times = {k: [] for k in calls}
+    for r in range(rounds + 1):
+        for k, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            if r:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def full_dag_phase():
+    import torch
+
+    from fvd_tpu_torch.ops.fusion import FEATURE_ORDER
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, _ = _video_clips(os.path.join(tmp, "clips"))
+        n = len(clips)
+        runs, summary = {}, {}
+        for name, device, dtype, modes in (("card_bf16", "cuda", torch.bfloat16, (False, True)),
+                                           ("card_f32", "cuda", torch.float32, (False,)),
+                                           ("cpu_f32", "cpu", torch.float32, (False,))):
+            root = os.path.join(tmp, name)
+            sched = _full_dag_scheduler(root, device, dtype)
+            if device == "cuda":
+                _full_dag_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
+            for coalesced in modes:
+                mode = "coalesced" if coalesced else "one_at_a_time"
+                r = _full_dag_run(sched, root, clips, coalesced)
+                _check_full_dag_run(r, f"full_dag {name} {mode}")
+                if device == "cuda":
+                    if coalesced:
+                        check(r["launches"] == len(r["c1_groups"]) and sum(r["c1_groups"]) == n,
+                              f"full_dag {name} {mode}: {r['launches']} launches for C1 groups {r['c1_groups']}")
+                    else:
+                        check(r["launches"] == n, f"full_dag {name}: {r['launches']} launches for {n} videos")
+                runs[(name, mode)] = r
+                summary.setdefault(name, {})[mode] = _full_dag_summary(r)
+            if name == "card_bf16":
+                summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
+                summary[name]["shared_forward_ms"] = _pose_program_ms(clips[0])
+        card, cpu = runs[("card_f32", "one_at_a_time")]["finals"], runs[("cpu_f32", "one_at_a_time")]["finals"]
+        errs = {k: max(abs(a.features[k] - b.features[k]) for a, b in zip(card, cpu)) for k in FEATURE_ORDER}
+        errs["fake_probability"] = max(abs(a.fake_probability - b.fake_probability) for a, b in zip(card, cpu))
+        check(all(v <= DAG_FEATURE_TOL for k, v in errs.items() if k != "fake_probability")
+              and errs["fake_probability"] <= DAG_FULL_PROB_TOL, f"full_dag, card f32 vs CPU f32: {errs}")
+    launches = sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
+    phase("full_dag", clips=[os.path.basename(c) for c in clips], nodes=len(FULL_DAG_NODES),
+          feature_tolerance=DAG_FEATURE_TOL, prob_tolerance=DAG_FULL_PROB_TOL, card_f32_vs_cpu_f32=errs,
+          runs=summary)
+    return launches
+
+
+def cli_phase():
+    """The CLI as a user runs it, in a fresh interpreter on the card."""
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = make_face_video(os.path.join(tmp, "clips"), "clip", duration=10.0, fps=30.0, sr=44100)
+        cwd = os.path.join(tmp, "run")
+        os.makedirs(cwd)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        weights = os.path.join(cwd, "lr_weights.json")
+        out = {}
+        for name, extra in (("unlabelled", []), ("label_1", ["1"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", clip] + extra, cwd=cwd, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0, f"cli {name}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+            last = proc.stdout.strip().splitlines()[-1]
+            check(last.startswith("Fake probability: "), f"cli {name}: last line {last!r}")
+            p = float(last.split(": ", 1)[1])
+            check(0.0 <= p <= 1.0, f"cli {name}: probability {p}")
+            out[name] = {"seconds": seconds, "fake_probability": p, "weights_file": os.path.exists(weights)}
+        check(not out["unlabelled"]["weights_file"] and out["label_1"]["weights_file"],
+              f"cli: the labelled run did not write {weights}: {out}")
+        with open(weights) as f, open(os.path.join(REPO, "assets", "lr_weights_pretrained.json")) as g:
+            check(json.load(f) != json.load(g), "cli: the labelled run left the weights as they were")
+    phase("cli", cold_start_s=out["unlabelled"]["seconds"], runs=out)
+
+
 def main() -> int:
     import torch
 
@@ -835,7 +1091,8 @@ def main() -> int:
     smi_line = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
-    launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase()
+    launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase() + full_dag_phase()
+    cli_phase()  # its launches happen in the CLI's own processes and are not counted here
 
     kernels = [{
         "name": "lipsync_score",

@@ -1,7 +1,10 @@
-"""Hourglass landmark regressor (V3): the counterpart of ``ResBlock``,
-``Hourglass``, ``LandmarkHourglass``, ``decode_heatmaps``, ``_device_crops``,
-``landmarks_from_frames``, ``_pad_bucket``, ``_marshal_boxes`` and the
-``FANLandmarks`` provider in ``fvd_tpu/models/landmarks_fan.py``.
+"""Hourglass landmark regressor (V3) and 6D head-pose head (V4): the
+counterpart of ``ResBlock``, ``Hourglass``, ``LandmarkHourglass``,
+``decode_heatmaps``, ``PoseHead``, ``rotation_6d_to_matrix``,
+``euler_from_matrix_deg``, ``_device_crops``, ``landmarks_from_frames``,
+``pose_from_frames``, ``landmarks_pose_from_frames``, ``_pad_bucket``,
+``_marshal_boxes`` and the ``FANLandmarks`` provider in
+``fvd_tpu/models/landmarks_fan.py``.
 
 Submodules carry the flax auto-names (``Conv_0``, ``GroupNorm_0``,
 ``ResBlock_3``, ``Hourglass_0``) so a flax params tree loads through
@@ -11,7 +14,7 @@ layout; the convolutions run NCHW inside.
 
 from __future__ import annotations
 
-from typing import List, Mapping
+from typing import List, Mapping, Optional
 
 import numpy as np
 
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
 from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
-from fvd_tpu_torch.ops.image import scale_and_translate
+from fvd_tpu_torch.ops.image import resize, scale_and_translate
 
 CROP_SIZE = 128
 HEATMAP_SIZE = 32
@@ -116,6 +119,71 @@ def decode_heatmaps(heatmaps: torch.Tensor, temperature: float = 10.0) -> torch.
     return torch.stack([x, y], dim=-1)
 
 
+class PoseHead(nn.Module):
+    """NHWC [B, 128, 128, 3] float (0..1) -> 6D rotation representation [B, 6]:
+    four stride-2 3x3 convs, each with GroupNorm(8) and ReLU, a spatial mean,
+    then Dense(128), ReLU, Dense(6)."""
+
+    def __init__(self, width: int = 32):
+        super().__init__()
+        in_ch = 3
+        for i in range(4):
+            out_ch = width * 2 ** min(i, 2)
+            setattr(self, f"Conv_{i}", SameConv2d(in_ch, out_ch, 3, stride=2))
+            setattr(self, f"GroupNorm_{i}", group_norm(out_ch))
+            in_ch = out_ch
+        self.Dense_0 = nn.Linear(in_ch, 128)
+        self.Dense_1 = nn.Linear(128, 6)
+        self.width = width
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        for i in range(4):
+            x = F.relu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        x = x.mean(dim=(2, 3))
+        return self.Dense_1(F.relu(self.Dense_0(x)))
+
+
+def pose_from_params(params: Mapping, device=None) -> PoseHead:
+    """A :class:`PoseHead` holding a flax params tree; the width is read from
+    the first conv kernel (``pose.npz``: 32, the width its ``pose.json``
+    names)."""
+    model = PoseHead(weights_mod.kernel_width(params, "Conv_0"))
+    model.load_state_dict(weights_mod.to_state_dict(params), strict=True)
+    return model.eval().to(device)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt 6D -> SO(3) (Zhou et al., the SixDRepNet representation);
+    the rows of the result are b1, b2 and b1 x b2."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / (torch.linalg.vector_norm(a1, dim=-1, keepdim=True) + 1e-8)
+    a2_proj = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2_proj / (torch.linalg.vector_norm(a2_proj, dim=-1, keepdim=True) + 1e-8)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def euler_from_matrix_deg(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> (pitch, yaw, roll) degrees, SixDRepNet convention;
+    where ``sy < 1e-6`` (gimbal lock) pitch comes from the second row and roll
+    is 0."""
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    pitch = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                        torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    yaw = torch.atan2(-R[..., 2, 0], sy)
+    roll = torch.where(singular, torch.zeros_like(sy), torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([pitch, yaw, roll], dim=-1) * (180.0 / np.pi)
+
+
+def _pose_of_crops(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
+    """float32 crops [N, 128, 128, 3] in 0..1 -> (pitch, yaw, roll) [N, 3].
+    The pose head always runs in float32, whatever the landmarks' dtype."""
+    d6 = in_dtype(pose_model, torch.float32)(crops.to(torch.float32))
+    return euler_from_matrix_deg(rotation_6d_to_matrix(d6))
+
+
 def _device_crops(frames: torch.Tensor, boxes: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:
     """Gather and resize face crops from the frame tensor: uint8 [T, H, W, 3]
     + px boxes [N, 4] + owner frame ids [N] -> float crops [N, 128, 128, 3]
@@ -148,6 +216,54 @@ def landmarks_from_frames(
     return decode_heatmaps(hm.to(torch.float32))
 
 
+@torch.no_grad()
+def pose_from_frames(pose_model: PoseHead, frames: torch.Tensor, boxes: torch.Tensor,
+                     owners: torch.Tensor) -> torch.Tensor:
+    """Crop from the frame tensor + 6D pose head -> (pitch, yaw, roll) [N, 3]."""
+    return _pose_of_crops(pose_model, _device_crops(frames, boxes, owners))
+
+
+def pose_crop_boxes(coords: torch.Tensor, boxes: torch.Tensor, frame_w: float, frame_h: float,
+                    pad_frac: float) -> torch.Tensor:
+    """V4's pose crop box per detection, from its landmark coords [N, 68, 2]
+    (crop [0, 1]) and its px box [N, 4]: the landmarks' frame-space bounding
+    box, truncated, padded by ``trunc(extent * pad_frac)`` and clipped to the
+    frame, as float32 [N, 4].  The host tracker's rule (``landmark_box`` plus
+    V4's pad), in float32 with the JAX program's order of operations, so that
+    min, max and trunc give the same integers."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    px = x1[:, None] + coords[:, :, 0] * (x2 - x1)[:, None]
+    py = y1[:, None] + coords[:, :, 1] * (y2 - y1)[:, None]
+    bx1, bx2 = torch.trunc(px.amin(dim=1)), torch.trunc(px.amax(dim=1))
+    by1, by2 = torch.trunc(py.amin(dim=1)), torch.trunc(py.amax(dim=1))
+    # Python scalars enter a float32 op as float32 (no host-to-device copy)
+    pad_w = torch.trunc((bx2 - bx1) * pad_frac)
+    pad_h = torch.trunc((by2 - by1) * pad_frac)
+    return torch.stack([torch.clamp(bx1 - pad_w, min=0.0), torch.clamp(by1 - pad_h, min=0.0),
+                        torch.clamp(bx2 + pad_w, max=frame_w), torch.clamp(by2 + pad_h, max=frame_h)], dim=1)
+
+
+@torch.no_grad()
+def landmarks_pose_from_frames(
+    model: LandmarkHourglass,
+    pose_model: PoseHead,
+    frames: torch.Tensor,
+    boxes: torch.Tensor,
+    owners: torch.Tensor,
+    frame_w: float,
+    frame_h: float,
+    pad_frac: float,
+    compute_dtype: torch.dtype = torch.bfloat16,
+):
+    """Crop gather + hourglass landmarks + per-detection 6D pose, the pose
+    crop box derived on the device from the landmark coords
+    (:func:`pose_crop_boxes`): -> (coords [N, 68, 2], poses [N, 3]).  The
+    landmarks run in ``compute_dtype``, the pose head in float32."""
+    coords = landmarks_from_frames(model, frames, boxes, owners, compute_dtype)
+    pose_boxes = pose_crop_boxes(coords, boxes, frame_w, frame_h, pad_frac)
+    return coords, pose_from_frames(pose_model, frames, pose_boxes, owners)
+
+
 def _pad_bucket(n: int) -> int:
     """Static shape bucket (next power of two, >= 8) so varying face counts
     reuse the same shapes."""
@@ -172,25 +288,36 @@ def _marshal_boxes(boxes, owners, device):
 
 
 class FANLandmarks:
-    """LandmarkProvider: a face detector composed with the hourglass; crops
-    for ALL frames are gathered on the device from the frame tensor and run
-    as one forward.
+    """LandmarkProvider: a face detector composed with the hourglass and the
+    pose head; crops for ALL frames are gathered on the device from the frame
+    tensor and run as one forward.
 
     The JAX package also crops on the host with OpenCV when it has no device
     frames; the port always takes the device program, uploading host frames
-    first where none are given.  The fused landmark+pose program of V4
-    (``landmarks_pose_batch``) comes with V4.
+    first where none are given.  ``pose_checkpoint`` (``pose.npz``) holds the
+    pose head; without one the head is randomly initialised from a fixed seed,
+    as the JAX package initialises it from ``PRNGKey(2)``.  The pose head
+    runs in float32 under any ``compute_dtype``.  The JAX package's chained
+    detector+landmarks program (``FVD_TPU_FUSED_DETLM``, opt-in) is not
+    ported.
     """
 
     model_name = "fvd_tpu_hourglass"
     #: the inner detector forward can consume a device-resident frame tensor
     accepts_device_frames = True
 
-    def __init__(self, face_detector, checkpoint: str, detector_threshold: float = 0.5,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+    def __init__(self, face_detector, checkpoint: str, pose_checkpoint: Optional[str] = None,
+                 detector_threshold: float = 0.5, compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None):
         self.device = resolve_device(device)
         self.face_detector = face_detector
         self.landmark_model = from_params(weights_mod.read_npz(checkpoint), self.device)
+        if pose_checkpoint is not None:
+            self.pose_model = pose_from_params(weights_mod.read_npz(pose_checkpoint), self.device)
+        else:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(2)
+                self.pose_model = PoseHead().eval().to(self.device)
         self.detector_threshold = detector_threshold
         self.compute_dtype = compute_dtype
 
@@ -229,3 +356,46 @@ class FANLandmarks:
             pts = np.stack([x1 + c[:, 0] * (x2 - x1), y1 + c[:, 1] * (y2 - y1)], axis=1)
             out[owner].append(pts)
         return out
+
+    def landmarks_pose_batch(self, frames: np.ndarray, device_frames=None, pose_pad: float = 0.0):
+        """Landmarks and a per-detection pose in one device program
+        (:func:`landmarks_pose_from_frames`): ``(lm_lists, pose_lists)``, where
+        ``pose_lists[i][j]`` is the (pitch, yaw, roll) of detection ``j`` of
+        frame ``i`` on V4's crop box (the landmark box padded by
+        ``pose_pad``)."""
+        if device_frames is None:
+            device_frames = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        detections = self.face_detector.detect_batch(device_frames)
+        h, w = frames.shape[1:3]
+        owners, boxes = self._collect_detections(detections, w, h)
+        out_lm: List[List[np.ndarray]] = [[] for _ in range(len(frames))]
+        out_pose: List[List[np.ndarray]] = [[] for _ in range(len(frames))]
+        if not boxes:
+            return out_lm, out_pose
+        boxes_t, owners_t, n = _marshal_boxes(boxes, owners, self.device)
+        coords, poses = landmarks_pose_from_frames(
+            self.landmark_model, self.pose_model, device_frames, boxes_t, owners_t,
+            float(w), float(h), float(pose_pad), compute_dtype=self.compute_dtype)
+        coords, poses = coords[:n].cpu().numpy(), poses[:n].cpu().numpy()
+        for (x1, y1, x2, y2), owner, c, p in zip(boxes, owners, coords, poses):
+            out_lm[owner].append(np.stack([x1 + c[:, 0] * (x2 - x1), y1 + c[:, 1] * (y2 - y1)], axis=1))
+            out_pose[owner].append(p)
+        return out_lm, out_pose
+
+    @torch.no_grad()
+    def pose_batch(self, crops: np.ndarray) -> np.ndarray:
+        """uint8 face crops [N, S, S, 3] -> (pitch, yaw, roll) [N, 3]: resized
+        to 128 as ``jax.image.resize`` does, then the pose head."""
+        if len(crops) == 0:
+            return np.zeros((0, 3))
+        x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device, torch.float32) / 255.0
+        x = resize(x, (CROP_SIZE, CROP_SIZE), antialias=True)
+        return _pose_of_crops(self.pose_model, x).cpu().numpy()
+
+    def pose_boxes_batch(self, device_frames, boxes, owners) -> np.ndarray:
+        """Pose for px ``boxes`` of the ``owners`` rows of the device frame
+        tensor, cropped on the device."""
+        if len(boxes) == 0:
+            return np.zeros((0, 3))
+        boxes_t, owners_t, n = _marshal_boxes(boxes, owners, self.device)
+        return pose_from_frames(self.pose_model, device_frames, boxes_t, owners_t)[:n].cpu().numpy()

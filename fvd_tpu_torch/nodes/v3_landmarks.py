@@ -15,9 +15,7 @@ the chunk size.  The JAX package batches that scan across videos through the
 program coalescer to save device launches; the port's scan is a host loop
 with no launch to save, so each video runs its own.  The viz
 (``landmarks_viz.avi``, PNG-in-AVI, where the JAX package writes an mp4) is
-drawn with numpy masks and encoded on the artifact pool.  The JAX package's V3 asks the shared forward for landmarks and poses
-in one program for V4 and drops the poses; the port's V3 runs the
-landmarks-only program, which gives the same landmarks.
+drawn with numpy masks and encoded on the artifact pool.
 """
 
 from __future__ import annotations
@@ -114,15 +112,18 @@ def run(
             if chunk is None:
                 break
             frames, kept_ids = chunk
-            # ONE batched landmark forward per chunk; the detector inside
-            # consumes the device-resident tensor V1 uploaded.
+            # ONE batched landmark forward per chunk, shared with V4; the
+            # detector inside consumes the device-resident tensor V1 uploaded.
             with tracer.span("v3/landmark_fwd"):
                 dev = (device_frames_for(video_path, kept_ids, frames,
                                          getattr(providers.landmarks, "device", None))
                        if getattr(providers.landmarks, "accepts_device_frames", False)
                        else None)
+                # pose_pad makes the shared entry compute V4's poses in the
+                # same program, so V4 reuses it; V3 drops the poses
                 all_landmarks = shared_landmarks(video_path, kept_ids,
-                                                 providers.landmarks, frames, dev)
+                                                 providers.landmarks, frames, dev,
+                                                 pose_pad=cfg.pose_crop_pad_frac)
 
             T = len(kept_ids)
             with tracer.span("v3/track"):

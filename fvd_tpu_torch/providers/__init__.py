@@ -6,7 +6,8 @@ Null/Scripted implementation used by default, so nodes behave exactly like
 the reference does with no API key and no model available.  The port's
 production vision providers are ``fvd_tpu_torch.models.face_ssd.SSDFaceDetector``
 and ``fvd_tpu_torch.models.landmarks_fan.FANLandmarks``; ``media.py`` holds the
-video I/O and the frame caches, ``coalesce.py`` the program coalescer.
+video I/O and the frame caches, ``coalesce.py`` the program coalescer and
+``factory.py`` the production bundle.
 """
 
 from __future__ import annotations
@@ -14,15 +15,15 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-from fvd_tpu_torch.providers.llm import LLMProvider, NullLLM  # noqa: F401
-from fvd_tpu_torch.providers.search import NullSearch, SearchProvider  # noqa: F401
+from fvd_tpu_torch.providers.llm import LLMProvider, NullLLM, ScriptedLLM  # noqa: F401
+from fvd_tpu_torch.providers.search import NullSearch, SearchProvider, StaticSearch  # noqa: F401
 from fvd_tpu_torch.providers.encoders import (  # noqa: F401
     ClipProvider,
     HashingTextEncoder,
     StubClip,
     TextEncoder,
 )
-from fvd_tpu_torch.providers.asr import ASRProvider, NullASR  # noqa: F401
+from fvd_tpu_torch.providers.asr import ASRProvider, NullASR, ScriptedASR  # noqa: F401
 from fvd_tpu_torch.providers.vision import (  # noqa: F401
     FaceDetectorProvider,
     LandmarkProvider,

@@ -27,6 +27,13 @@ class TextEncoder(Protocol):
     def encode(self, text: str) -> np.ndarray: ...
 
 
+def cosine(a: np.ndarray, b: np.ndarray) -> float:
+    na, nb = float(np.linalg.norm(a)), float(np.linalg.norm(b))
+    if na == 0.0 or nb == 0.0:
+        return 0.0
+    return float(np.dot(a, b) / (na * nb))
+
+
 class HashingTextEncoder:
     """Hashed bag-of-words embedding (dim buckets, l2-normalized)."""
 

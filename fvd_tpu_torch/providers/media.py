@@ -189,12 +189,11 @@ def _accepts_device_frames_kwarg(provider) -> bool:
 class _LandmarkShare:
     """Cross-branch model-result sharing.
 
-    Nodes that run the same landmark forward over the same sampled frames
-    (V3 and, once ported, V4) share one result per (path, provider, ids): the
+    V3 and V4 run the same landmark forward over the same sampled frames (the
+    reference runs FAN twice, v3:130 and v4:131); the scheduler runs them
+    concurrently, so they share one result per (path, provider, ids): the
     first arrival computes under a per-key lock, a concurrent branch blocks
-    briefly and reuses.  Consumers treat landmark lists as read-only.  The
-    JAX package's fused landmark+pose program, which V4 consumes, comes with
-    V4.
+    briefly and reuses.  Consumers treat landmark lists as read-only.
     """
 
     def __init__(self, max_entries: int = 64):
@@ -203,8 +202,19 @@ class _LandmarkShare:
         self._order: List[tuple] = []
         self._global = threading.Lock()
         self.max_entries = max_entries
+        #: landmark forwards run since the last :meth:`clear`
+        self.forwards = 0
 
-    def get(self, path: str, ids: Sequence[int], provider, frames: np.ndarray, device_frames=None):
+    def get(self, path: str, ids: Sequence[int], provider, frames: np.ndarray, device_frames=None,
+            pose_pad=None):
+        """Returns ``(lm_lists, pose_lists_or_None, entry_pad)``.
+
+        With ``pose_pad`` given, device frames and a provider that has
+        ``landmarks_pose_batch``, the shared forward computes landmarks and
+        per-detection poses in one program (V3 drops the poses, V4 uses them).
+        ``entry_pad`` is the pad the cached poses were computed with: a pose
+        consumer asking for another pad runs its own pose forward.
+        """
         # full ids in the key; the entry keeps a strong ref to the provider so
         # a recycled id() can never alias a dead provider's results
         key = (path, id(provider), tuple(int(i) for i in ids))
@@ -214,11 +224,17 @@ class _LandmarkShare:
             with self._global:
                 if key in self._results:
                     return self._results[key][1]
-            if _accepts_device_frames_kwarg(provider):
-                result = provider.landmarks_batch(frames, device_frames=device_frames)
+            if (pose_pad is not None and device_frames is not None
+                    and hasattr(provider, "landmarks_pose_batch")):
+                lm, poses = provider.landmarks_pose_batch(frames, device_frames=device_frames,
+                                                          pose_pad=float(pose_pad))
+                result = (lm, poses, float(pose_pad))
+            elif _accepts_device_frames_kwarg(provider):
+                result = (provider.landmarks_batch(frames, device_frames=device_frames), None, None)
             else:
-                result = provider.landmarks_batch(frames)
+                result = (provider.landmarks_batch(frames), None, None)
             with self._global:
+                self.forwards += 1
                 self._results[key] = (provider, result)
                 self._order.append(key)
                 while len(self._order) > self.max_entries:
@@ -232,6 +248,7 @@ class _LandmarkShare:
             self._results.clear()
             self._locks.clear()
             self._order.clear()
+            self.forwards = 0
 
 
 _landmark_share = _LandmarkShare()
@@ -309,12 +326,28 @@ def device_frames_for(path: str, ids: Sequence[int], frames_host=None, device=No
 
 
 def shared_landmarks(path: str, ids: Sequence[int], provider, frames: np.ndarray,
-                     device_frames=None):
+                     device_frames=None, pose_pad=None):
     """Landmark forward for ``frames`` (sampled ``ids`` of ``path``), shared
-    across concurrently-running nodes."""
+    across concurrently-running nodes.  ``pose_pad`` (V4's crop pad) makes
+    the shared forward compute V4's poses in the same program, so that V4
+    reuses the entry."""
     if len(ids) == 0:
         return []
-    return _landmark_share.get(path, ids, provider, frames, device_frames)
+    return _landmark_share.get(path, ids, provider, frames, device_frames, pose_pad)[0]
+
+
+def shared_landmarks_pose(path: str, ids: Sequence[int], provider, frames: np.ndarray,
+                          device_frames=None, pose_pad: float = 0.0):
+    """Like :func:`shared_landmarks` but returns ``(lm_lists, pose_lists)``;
+    ``pose_lists`` is None where the shared entry has no poses (a provider
+    without the fused program, no device frames) or was computed with another
+    pad: the caller then runs its own pose forward."""
+    if len(ids) == 0:
+        return [], None
+    lm, poses, entry_pad = _landmark_share.get(path, ids, provider, frames, device_frames, pose_pad)
+    if poses is not None and entry_pad == float(pose_pad):
+        return lm, poses
+    return lm, None
 
 
 def cached_keyframe_images(paths: Sequence[str]) -> List[Optional[np.ndarray]]:

@@ -1,5 +1,6 @@
 """Drawing on uint8 RGB images with numpy masks, in place of the OpenCV
-drawing calls of the JAX package (the V3 viz and the synthetic face clips).
+drawing calls of the JAX package (the V3 and V4 viz and the synthetic face
+clips).
 
 Shapes are rasterised by testing pixel centres; the outlines differ from
 OpenCV's by a pixel here and there, which no output of the pipeline reads.
@@ -69,3 +70,44 @@ def rectangle(img: np.ndarray, p0, p1, thickness: int, color) -> None:
     for a, b in (((x0, y0), (x1, y0)), ((x1, y0), (x1, y1)), ((x1, y1), (x0, y1)),
                  ((x0, y1), (x0, y0))):
         line(img, a, b, thickness, color)
+
+
+#: 5x7 bitmaps of the glyphs the viz labels use (V4's ``"EAR: 0.27"``); a
+#: character not listed draws as a space
+_GLYPHS = {
+    "0": ("01110", "10001", "10011", "10101", "11001", "10001", "01110"),
+    "1": ("00100", "01100", "00100", "00100", "00100", "00100", "01110"),
+    "2": ("01110", "10001", "00001", "00010", "00100", "01000", "11111"),
+    "3": ("11110", "00001", "00001", "01110", "00001", "00001", "11110"),
+    "4": ("00010", "00110", "01010", "10010", "11111", "00010", "00010"),
+    "5": ("11111", "10000", "11110", "00001", "00001", "10001", "01110"),
+    "6": ("00110", "01000", "10000", "11110", "10001", "10001", "01110"),
+    "7": ("11111", "00001", "00010", "00100", "01000", "01000", "01000"),
+    "8": ("01110", "10001", "10001", "01110", "10001", "10001", "01110"),
+    "9": ("01110", "10001", "10001", "01111", "00001", "00010", "01100"),
+    "E": ("11111", "10000", "10000", "11110", "10000", "10000", "11111"),
+    "A": ("01110", "10001", "10001", "11111", "10001", "10001", "10001"),
+    "R": ("11110", "10001", "10001", "11110", "10100", "10010", "10001"),
+    ":": ("00000", "01100", "01100", "00000", "01100", "01100", "00000"),
+    ".": ("00000", "00000", "00000", "00000", "00000", "01100", "01100"),
+    "-": ("00000", "00000", "00000", "11111", "00000", "00000", "00000"),
+}
+
+
+def put_text(img: np.ndarray, text: str, origin, scale: int, color) -> None:
+    """``text`` in a 5x7 bitmap font, each font pixel ``scale`` pixels wide,
+    with the bottom-left corner of the first glyph at ``origin`` (as
+    ``cv2.putText`` places it); clipped to the image."""
+    h, w = img.shape[:2]
+    x0, bottom = int(origin[0]), int(origin[1])
+    top = bottom - 7 * scale
+    for ch in text:
+        glyph = _GLYPHS.get(ch)
+        if glyph is not None:
+            mask = np.repeat(np.repeat(np.array([[c == "1" for c in row] for row in glyph]), scale, 0),
+                             scale, 1)
+            ya, xa = max(0, top), max(0, x0)
+            yb, xb = min(h, top + mask.shape[0]), min(w, x0 + mask.shape[1])
+            if ya < yb and xa < xb:
+                img[ya:yb, xa:xb][mask[ya - top:yb - top, xa - x0:xb - x0]] = color
+        x0 += 6 * scale

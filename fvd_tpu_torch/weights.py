@@ -8,6 +8,7 @@ their submodules after the flax auto-names (``ConvBlock_0``, ``Conv_0``,
 dots and renaming the leaf:
 
 * conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
+* ``Dense`` ``kernel`` [I, O] -> ``nn.Linear`` ``weight`` [O, I];
 * GroupNorm ``scale`` -> ``weight``;
 * ``bias`` stays ``bias``.
 """
@@ -50,9 +51,11 @@ def flatten(tree: Mapping) -> Dict[str, np.ndarray]:
 def _leaf(path, value: np.ndarray):
     *mods, leaf = path
     if leaf == "kernel":
-        if value.ndim != 4:
-            raise ValueError(f"{'.'.join(path)}: only conv kernels [H,W,I,O] are supported")
-        return mods + ["weight"], value.transpose(3, 2, 0, 1)
+        if value.ndim == 4:
+            return mods + ["weight"], value.transpose(3, 2, 0, 1)
+        if value.ndim == 2:
+            return mods + ["weight"], value.T
+        raise ValueError(f"{'.'.join(path)}: only conv [H,W,I,O] and Dense [I,O] kernels are supported")
     if leaf == "scale":
         return mods + ["weight"], value
     if leaf == "bias":

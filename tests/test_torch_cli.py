@@ -1,0 +1,99 @@
+"""``python -m fvd_tpu_torch.cli`` on the CPU: the contract of
+``fvd_tpu/cli.py`` (the last line printed is ``Fake probability: <p>``; a
+label of 0 or 1 trains LR online; a URL or another container exits 1 with
+IN's message) on a clip made with numpy, with the production bundle of
+``providers/factory.py`` on the shipped checkpoints."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fvd_tpu_torch.providers as tprov
+from fvd_tpu_torch import cli
+from fvd_tpu_torch.providers import factory, media
+from fvd_tpu_torch.synthetic import make_face_video
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def workdir(tmp_path, monkeypatch):
+    """A scratch cwd (the nodes write ``processed/``, ``features/`` and
+    ``lr_weights.json`` there) and the process-wide provider bundle restored
+    after the CLI installs its own."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tprov, "_default", tprov.Providers())
+    monkeypatch.setattr(tprov, "_default_is_custom", False)
+    yield tmp_path
+    media.clear_frame_cache()
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    return make_face_video(str(tmp_path_factory.mktemp("cli_clip")), "clip", duration=6.0, fps=10.0, sr=44100)
+
+
+def _last_line(out):
+    return out.strip().splitlines()[-1]
+
+
+def test_cli_prints_fake_probability_and_trains_with_a_label(workdir, clip, capsys):
+    assert cli.main([clip, "--cpu"]) == 0
+    out = capsys.readouterr().out
+    line = _last_line(out)
+    assert line.startswith("Fake probability: ")
+    p = float(line.split(": ")[1])
+    assert 0.0 <= p <= 1.0
+    assert "providers: CLIP: none, C2 skips (ROADMAP §1 item 12)" in out
+    assert tprov.get_providers().landmarks.device == torch.device("cpu")
+    assert not os.path.exists("lr_weights.json")  # no label, no update
+
+    assert cli.main([clip, "1", "--cpu"]) == 0
+    assert _last_line(capsys.readouterr().out) == line  # the bundle is kept; same weights, same clip
+    assert os.path.exists("lr_weights.json")
+    assert cli.main([clip, "--cpu"]) == 0
+    p2 = float(_last_line(capsys.readouterr().out).split(": ")[1])
+    assert p2 > p  # one SGD step towards label 1
+
+
+@pytest.mark.parametrize("args,message", [(["x", "2"], "Label must be 0 or 1"),
+                                          (["https://example.com/v.mp4"], "URL ingest is not ported"),
+                                          (["{bad}"], "UnsupportedVideo")])
+def test_cli_bad_input_exits_1(workdir, clip, capsys, args, message):
+    if args[0] == "{bad}":
+        with open("notavi.mp4", "wb") as f:
+            f.write(b"\x00\x00\x00\x18ftypmp42" + bytes(64))
+        args = ["notavi.mp4"]
+    assert cli.main(args + ["--cpu"]) == 1
+    assert message in capsys.readouterr().out
+
+
+def test_cli_without_a_card_and_without_cpu_raises(workdir, clip):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([clip])
+
+
+def test_production_bundle_on_the_shipped_checkpoints():
+    prov = factory.production_providers(os.path.join(ROOT, "checkpoints"), device="cpu")
+    assert prov.clip is None and prov.llm.available is False
+    assert prov.search.search("anything") == []
+    assert prov.asr.model_name == "energy_vad" and prov.asr.device == torch.device("cpu")
+    assert prov.ocr.model_name == "null"
+    assert prov.landmarks.pose_model.width == 32
+    assert prov.landmarks.compute_dtype == torch.bfloat16
+    assert factory.default_checkpoint_dir().endswith("checkpoints")
+
+
+def test_module_entry_point_runs(tmp_path, clip):
+    """``python -m fvd_tpu_torch.cli`` in a subprocess, from another cwd."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", clip, "--cpu"], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert np.isfinite(float(_last_line(proc.stdout).split("Fake probability: ")[1]))

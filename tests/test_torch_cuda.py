@@ -260,3 +260,85 @@ def test_video_dag_uploads_frames_once_per_video(video_runs):
     """V1 uploads the union of its keyframes and V3's samples; V3 gathers
     from it on the card."""
     assert video_runs["uploads"] == [1, 1]
+
+
+@pytest.fixture(scope="module")
+def full_dag_runs(tmp_path_factory):
+    """The 16-node DAG of ``graph.build_graph`` in f32 on the CPU and on the
+    card (TF32 off), with ``pose.npz`` and ``chip_smoke.py``'s hermetic
+    bundle, for one clip: final states, and for the card run the C1
+    launches, the frame uploads and the shared landmark forwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the C1 kernel is CUDA C++ and has no CPU mode")
+    import os
+    import sys
+
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.state import State
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    clip = make_face_video(str(tmp_path_factory.mktemp("clips")), "clip", duration=6.0, fps=10.0, sr=44100)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            sched = chip_smoke._full_dag_scheduler(str(tmp_path_factory.mktemp(device)), device, torch.float32)
+            media.clear_frame_cache()
+            _kernels.reset_launches()
+            out[device] = sched.invoke(State(input_path=clip))
+            out[device + "_counts"] = (_kernels.LAUNCHES["lipsync_score"], media._device_frames.uploads,
+                                       media._landmark_share.forwards)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def test_full_dag_on_card_matches_cpu(full_dag_runs):
+    card, cpu = full_dag_runs["cuda"], full_dag_runs["cpu"]
+    assert list(card.features) == list(cpu.features) and len(card.features) == 9
+    for k, v in cpu.features.items():
+        assert abs(card.features[k] - v) <= 1e-4, (k, card.features[k], v)
+    assert abs(card.fake_probability - cpu.fake_probability) <= 1e-5
+    assert len(card.head_pose_data) >= 24 and len(card.claims) == 2 and card.texture_ela_score == 0.3
+
+
+def test_full_dag_launches_c1_once_and_shares_one_landmark_forward(full_dag_runs):
+    """One C1 launch, one frame upload and one landmark forward (V3's and
+    V4's, shared) for the clip's one chunk."""
+    assert full_dag_runs["cuda_counts"] == (1, 1, 1)
+
+
+def test_pose_head_runs_in_f32_under_a_bf16_bundle(cuda, tmp_path):
+    """Landmarks in bf16 on the card, the pose head in float32: the fused
+    program's poses are the f32 pose head's on the bf16 landmarks' boxes."""
+    import os
+
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.nodes._tracking import landmark_box
+    from fvd_tpu_torch.providers.media import VideoReader
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=torch.bfloat16, device=cuda)
+    prov = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                        pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=torch.bfloat16, device=cuda)
+    clip = make_face_video(str(tmp_path), "f", duration=1.6, fps=10.0)
+    frames, _ = VideoReader(use_cache=False).sample(clip, range(16))
+    lm, poses = prov.landmarks_pose_batch(frames, pose_pad=0.1)
+    assert next(prov.pose_model.parameters()).dtype == torch.float32
+    boxes, owners, got = [], [], []
+    for i, (lms, ps) in enumerate(zip(lm, poses)):
+        for pts, p in zip(lms, ps):
+            x1, y1, x2, y2 = landmark_box(pts)
+            pw, ph = int((x2 - x1) * 0.1), int((y2 - y1) * 0.1)
+            boxes.append((max(0, x1 - pw), max(0, y1 - ph), min(320, x2 + pw), min(240, y2 + ph)))
+            owners.append(i)
+            got.append(p)
+    assert len(got) >= 14
+    ref = prov.pose_boxes_batch(torch.from_numpy(frames).to(cuda), boxes, owners)
+    np.testing.assert_allclose(np.asarray(got), ref, atol=1e-3, rtol=0)

@@ -32,7 +32,12 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.providers.asr", "fvd_tpu_torch.runtime.io_pool", "fvd_tpu_torch.nodes.ingest",
             "fvd_tpu_torch.nodes.a1_standardize", "fvd_tpu_torch.nodes.a3_onsets",
             "fvd_tpu_torch.nodes.v1_faces", "fvd_tpu_torch.nodes._tracking",
-            "fvd_tpu_torch.nodes.v3_landmarks", "fvd_tpu_torch.synthetic"} <= set(mods)
+            "fvd_tpu_torch.nodes.v3_landmarks", "fvd_tpu_torch.synthetic", "fvd_tpu_torch.graph",
+            "fvd_tpu_torch.cli", "fvd_tpu_torch.ops.forensics", "fvd_tpu_torch.providers.factory",
+            "fvd_tpu_torch.nodes.a2_asr", "fvd_tpu_torch.nodes.v2_ocr", "fvd_tpu_torch.nodes.v4_dynamics",
+            "fvd_tpu_torch.nodes.v5_forensics", "fvd_tpu_torch.nodes.c2_gesture", "fvd_tpu_torch.nodes.c3_claims",
+            "fvd_tpu_torch.nodes.e1_evidence", "fvd_tpu_torch.nodes.e2_reliability",
+            "fvd_tpu_torch.nodes.e3_scorer"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
