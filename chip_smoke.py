@@ -15,15 +15,22 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              library call's ``library_ms``), the kernel alone (``device_ms``,
              CUDA graph replay), the device ops one call dispatches
              (``stage_ops``), and the stage's bound;
-4. analyzer  the fused per-video analyzer (``fvd_tpu_torch.entry``) at full
+4. models    the production bundle's four models at their shipped
+             checkpoints (``providers/factory.py``: the formant ASR and the
+             tone ASR, the v2 OCR on its device and host paths, the CLIP, the
+             text encoder), card f32 against CPU f32 on the same inputs:
+             tokens, OCR texts and masks, similarities and unit embeddings;
+             per model the ms per call (CUDA events, median of 20), the
+             profiler's kernels per call and the largest |d|;
+5. analyzer  the fused per-video analyzer (``fvd_tpu_torch.entry``) at full
              width on the shipped checkpoints, bf16, against the port's own
              f32 path and against the JAX package's f32 result; one C1 launch
              per call; the time of each stage of a call, and the profiler's
              top kernels by device time;
-5. serving   ``ScoringService`` answers 64 concurrent requests, each checked
+6. serving   ``ScoringService`` answers 64 concurrent requests, each checked
              against per-request scoring on the CPU; one C1 launch per
              micro-batch;
-6. dag       the {C1 -> LR} tail of the DAG on the port's ``Scheduler``, one
+7. dag       the {C1 -> LR} tail of the DAG on the port's ``Scheduler``, one
              ``invoke`` per video, for 16 videos of 60 s and one of 10 min at
              30 fps: all at once under the program coalescer (one C1 launch
              per coalesced group, at least one group of several videos), then
@@ -31,7 +38,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``lip_sync_score`` and ``fake_probability`` against the same
              states run on the CPU; group sizes, wall time per video and the
              tracer's node and group spans;
-7. video     the DAG's lip-sync path from a video file, IN -> A1 -> A3,
+8. video     the DAG's lip-sync path from a video file, IN -> A1 -> A3,
              IN -> V1 -> V3, {A3, V3} -> C1 -> LR, on the port's ``Scheduler``
              with the shipped checkpoints, for 4 clips of 10 s at 30 fps and
              240x320 made by ``fvd_tpu_torch.synthetic.make_face_video`` with
@@ -45,7 +52,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              AVI round trip; prints wall times, node and ``v3/*`` span
              medians, PNG seconds, the OneEuro scan's time and a
              ``torch.profiler`` view of one video;
-8. full_dag  all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
+9. full_dag  all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
              clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
              ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
              card bf16 and card f32 one video at a time, card bf16 with all 4
@@ -56,11 +63,17 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              forward per chunk for V3 and V4, and V4's pose samples; prints
              every node's span median, the ``v4/*`` spans, wall time per video,
              the card's busy share over one profiled video, and the landmark
-             forward's time without and with V4's fused pose program;
-9. cli       ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
+             forward's time without and with V4's fused pose program.  Then
+             the same runs with the ``zoo`` bundle, the production bundle's
+             models with the scripted LLM and search, on the clips with
+             tone-coded speech: card f32 against CPU f32 within 1e-5 on the
+             features and 1e-6 on the probability, the same transcript
+             segments, OCR texts, gesture statuses and evidence ranking;
+10. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
              card, then again with label 1: rc 0, a last line
-             ``Fake probability: p`` with 0 <= p <= 1, and the weights file
-             written by the labelled run; prints the cold-start seconds.
+             ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
+             bundle's CLIP, and the weights file written by the labelled run;
+             prints the cold-start seconds.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -256,6 +269,194 @@ def kernel_phase():
           library_call="torch.einsum('nlw,nw->nl') over the lag-shifted z-windows: the lag products only",
           cases=rows)
     return rows[0]
+
+
+#: the models phase, card f32 (TF32 off) against CPU f32 on the same inputs:
+#: CLIP similarities and unit text embeddings (on the CPU the port matched the
+#: JAX package within 3e-8 and 2.4e-6, ``tests/test_torch_encoders.py``)
+MODEL_TOL = 1e-5
+#: the v2 OCR detector computes in bf16 on both sides: the share of mask
+#: pixels that must agree (``tests/test_torch_ocr.py`` holds the port to the
+#: JAX package with the same bar)
+OCR_MASK_AGREE = 0.999
+#: ``tests/test_asr_model.py``'s long-form case
+ASR_TEXT = "the mayor said the city will cut taxes next year"
+#: sentences and segment texts for CLIP and the text encoder
+ZOO_SENTENCES = ["the moon landing happened in 1969", "water boils at 100 degrees", "thanks for watching",
+                 "the mayor said the city will cut taxes next year", "apollo 11 was the first moon landing",
+                 "it was staged", "boiling water at sea level", "phase changes of water"]
+
+
+def _sentences(n):
+    """``n`` sentences: the fixed ones, then words drawn from them by seed."""
+    rng = np.random.RandomState(0)
+    words = " ".join(ZOO_SENTENCES).split()
+    out = list(ZOO_SENTENCES)
+    while len(out) < n:
+        out.append(" ".join(rng.choice(words, rng.randint(1, 20))))
+    return out[:n]
+
+
+def _text_frames():
+    """Three 240x320 frames with large bitmap text (``utils/draw.put_text``)."""
+    from fvd_tpu_torch.utils.draw import put_text
+
+    frames = (np.random.RandomState(5).rand(3, 240, 320, 3) * 80).astype(np.uint8)
+    for f, (text, scale) in zip(frames, (("EAR: 1969", 4), ("2024-10.5", 5), ("AREA 51", 6))):
+        put_text(f, text, (20, 140), scale, (230, 230, 230))
+    return frames
+
+
+def _clip_audio_16k(clip):
+    """A clip's wav as A1 leaves it: mono, resampled to 16 kHz on the CPU."""
+    from fvd_tpu_torch.ops.resample import resample_batch
+    from fvd_tpu_torch.utils.wav import read_wav, to_mono
+
+    samples, sr = read_wav(os.path.splitext(clip)[0] + ".wav")
+    return resample_batch(to_mono(samples)[None], sr, 16000)[0].numpy()
+
+
+def _model_row(fn, calls=20):
+    """ms per call (CUDA-event fenced, median of ``calls`` after warm-up),
+    the profiler's kernels and device time per call, and the aten ops one
+    call dispatches."""
+    from fvd_tpu_torch.c1_timing import count_device_ops, interleaved_ms
+
+    ms = interleaved_ms({"ms": fn}, warmup=3, rounds=calls)["ms"]
+    prof = _profile_top_kernels(fn, (), calls=3)
+    return {"ms": ms, "calls_timed": calls, "device_ops_per_call": prof.get("kernels_per_call"),
+            "aten_ops_per_call": sum(count_device_ops(fn).values()),
+            "device_us_per_call": prof.get("device_us_per_call"), "device_busy_share": prof.get("device_busy_share")}
+
+
+def _ocr_texts(out):
+    return [[(d["text"], d["bbox"]) for d in frame] for frame in out]
+
+
+def models_phase():
+    """The four models of the production bundle at their shipped checkpoints,
+    card f32 against CPU f32 on the same inputs."""
+    import torch
+
+    from fvd_tpu_torch.models.asr import JaxASR
+    from fvd_tpu_torch.models.ocr import detect_packed_mask
+    from fvd_tpu_torch.ops.image import resize
+    from fvd_tpu_torch.providers.factory import production_providers
+    from fvd_tpu_torch.providers.media import VideoReader
+    from fvd_tpu_torch.synthetic import gated_speech
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    card = production_providers(ckpt, device="cuda", compute_dtype=torch.float32)
+    cpu = production_providers(ckpt, device="cpu", compute_dtype=torch.float32)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, _ = _video_clips(os.path.join(tmp, "clips"))
+        keyframes = [VideoReader(use_cache=False).sample(c, range(0, 300, 30))[0] for c in clips]
+        audio = [_clip_audio_16k(c) for c in clips]
+
+    # ASR: asr.npz on gated speech (tests/test_asr_model.py's bars), then the
+    # bundle's asr_formant.npz on the clips' 16 kHz audio; tokens card == CPU
+    tone = {d: JaxASR.from_checkpoint(os.path.join(ckpt, "asr.npz"), device=d) for d in ("cuda", "cpu")}
+    speech = gated_speech(ASR_TEXT, duration=15.0, gate_hz=1.0)
+    got = {d: tone[d].transcribe("", audio=speech) for d in tone}
+    check(got["cuda"] == got["cpu"], f"asr.npz: card {got['cuda']} vs CPU {got['cpu']}")
+    acc = sum(a == b for a, b in zip(got["cuda"]["text"], ASR_TEXT)) / len(ASR_TEXT)
+    covered = sum(sg["end"] - sg["start"] for sg in got["cuda"]["segments"])
+    check(acc >= 0.8 and covered < 10.0, f"asr.npz: char accuracy {acc}, covered {covered} s: {got['cuda']}")
+    _, rows, nf = tone["cuda"].windows(speech)
+    check(np.array_equal(tone["cuda"].decode_windows(rows, nf), tone["cpu"].decode_windows(rows, nf)),
+          "asr.npz: tokens differ between card and CPU")
+    formant = []
+    for a in audio:
+        _, rows, nf = card.asr.windows(a)
+        toks = {d: p.asr.decode_windows(rows, nf) for d, p in (("cuda", card), ("cpu", cpu))}
+        check(np.array_equal(toks["cuda"], toks["cpu"]), "asr_formant.npz: tokens differ between card and CPU")
+        formant.append({"windows": len(rows), "text": card.asr.transcribe("", audio=a)["text"]})
+
+    def logits_gap(models, rows, nf):
+        """Largest |card - CPU| of the decoder logits on the decoded tokens."""
+        from fvd_tpu_torch.models.asr import _mel_masked
+
+        res = {}
+        with torch.no_grad():
+            for d, m in models.items():
+                mel = _mel_masked(torch.from_numpy(rows).to(d), torch.from_numpy(nf).to(d))
+                toks = torch.from_numpy(m.decode_windows(rows, nf)).to(d)
+                res[d] = m.model.decoder(toks, m.model.encoder(mel)).cpu()
+        return float((res["cuda"] - res["cpu"]).abs().max())
+
+    _, rows, nf = tone["cuda"].windows(speech)
+    tone_gap = logits_gap(tone, rows, nf)
+    _, rows, nf = card.asr.windows(audio[0])
+    formant_gap = logits_gap({"cuda": card.asr, "cpu": cpu.asr}, rows, nf)
+    steps = []
+    hook = card.asr.model.decoder.register_forward_pre_hook(lambda *_: steps.append(1))
+    card.asr.decode_windows(rows, nf)
+    hook.remove()
+    out["asr"] = {"checkpoint": "asr_formant.npz", "call": "transcribe() of one clip's 10 s of 16 kHz audio",
+                  **_model_row(lambda: card.asr.transcribe("", audio=audio[0])),
+                  "max_abs_err": formant_gap, "max_abs_err_of": "decoder logits on the decoded tokens",
+                  "windows": len(rows), "decoder_steps": len(steps),
+                  "clips": formant,
+                  "tone": {"checkpoint": "asr.npz", "call": "transcribe() of 15 s of gated speech",
+                           **_model_row(lambda: tone["cuda"].transcribe("", audio=speech)),
+                           "max_abs_err": tone_gap, "char_accuracy": acc, "covered_s": covered,
+                           "text": got["cuda"]["text"]}}
+
+    # OCR: the clips' keyframes and frames of large text, device path and host path
+    frames = np.concatenate(keyframes + [_text_frames()])
+    dev = {"cuda": torch.from_numpy(frames).cuda(), "cpu": torch.from_numpy(frames)}
+    masks = {d: detect_packed_mask(p.ocr.detector, dev[d]).cpu().numpy() for d, p in (("cuda", card),
+                                                                                     ("cpu", cpu))}
+    agree = float((masks["cuda"] == masks["cpu"]).mean())
+    check(agree >= OCR_MASK_AGREE, f"OCR masks agree on {agree} of pixels, card vs CPU bf16")
+    with torch.no_grad():
+        logits = {d: p.ocr.detector(resize(dev[d].float() / 255.0, (256, 256), antialias=False)).cpu()
+                  for d, p in (("cuda", card), ("cpu", cpu))}
+    ocr_gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+    texts = {}
+    for d, p in (("cuda", card), ("cpu", cpu)):
+        texts[(d, "device")] = _ocr_texts(p.ocr.read_text_batch_device(dev[d], list(frames)))
+        texts[(d, "host")] = _ocr_texts(p.ocr.read_text_batch(list(frames)))
+    for path in ("device", "host"):
+        check(texts[("cuda", path)] == texts[("cpu", path)], f"OCR {path} path: card and CPU texts differ")
+    one_clip = list(keyframes[0])
+    out["ocr"] = {"checkpoints": "ocr_det.npz (v2, width 128) + ocr_rec.npz",
+                  "call": "read_text_batch_device() of one clip's 10 keyframes already on the card",
+                  **_model_row(lambda: card.ocr.read_text_batch_device(dev["cuda"][:10], one_clip)),
+                  "host_path": {"call": "read_text_batch() of the same 10 keyframes",
+                                **_model_row(lambda: card.ocr.read_text_batch(one_clip))},
+                  "max_abs_err": ocr_gap, "max_abs_err_of": "detector logits, bf16 on both",
+                  "mask_agreement": agree, "frames": len(frames),
+                  "texts_of_text_frames": [[t for t, _ in f] for f in texts[("cuda", "device")][-3:]],
+                  "regions_read": sum(len(f) for f in texts[("cuda", "device")])}
+
+    # CLIP: keyframe and segment-text pairs
+    images = [im for kf in keyframes for im in kf]
+    captions = _sentences(len(images))
+    sims = {d: p.clip.image_text_similarity_batch(images, captions) for d, p in (("cuda", card), ("cpu", cpu))}
+    gap = float(np.abs(sims["cuda"] - sims["cpu"]).max())
+    check(gap <= MODEL_TOL, f"CLIP similarity card vs CPU: {gap}")
+    out["clip"] = {"checkpoint": "clip.npz", "call": "image_text_similarity_batch() of one clip's 10 keyframes",
+                   **_model_row(lambda: card.clip.image_text_similarity_batch(images[:10], captions[:10])),
+                   "max_abs_err": gap, "pairs": len(images)}
+
+    # text encoder: 64 sentences, unit embeddings and the ranking
+    sentences = _sentences(64)
+    emb = {}
+    for d, p in (("cuda", card), ("cpu", cpu)):
+        e = p.text_encoder.encode_batch(sentences)
+        emb[d] = e / np.linalg.norm(e, axis=-1, keepdims=True)
+    gap = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    check(gap <= MODEL_TOL, f"text encoder, unit embeddings card vs CPU: {gap}")
+    rank = {d: np.argmax(e @ e.T - 2 * np.eye(len(e)), axis=1) for d, e in emb.items()}
+    check(np.array_equal(rank["cuda"], rank["cpu"]), "text encoder: nearest sentences differ")
+    out["text_encoder"] = {"checkpoint": "text_encoder.npz (192/4/256)",
+                           "call": "encode_batch() of E1's call: a claim and 5 results",
+                           **_model_row(lambda: card.text_encoder.encode_batch(sentences[:6])),
+                           "batch_64": _model_row(lambda: card.text_encoder.encode_batch(sentences)),
+                           "max_abs_err": gap, "sentences": len(sentences)}
+    phase("models", tolerance=MODEL_TOL, ocr_mask_agree=OCR_MASK_AGREE, tf32=False, models=out)
 
 
 def _bf16_stages(ssd, lmk, frames):
@@ -615,14 +816,16 @@ VIDEO_SPANS = ("node/IN", "node/A1", "node/A3", "node/V1", "node/V3", "node/C1",
                "v3/decode", "v3/landmark_fwd", "v3/track", "v3/smooth", "v3/emit")
 
 
-def _video_clips(root):
+def _video_clips(root, speech_text=None):
     """4 clips of 10 s at 30 fps and 240x320 with 44.1 kHz audio: two in sync
     (gates of 1.0 and 1.3 Hz), one whose mouth moves at 0.37 Hz against a
-    1 Hz audio gate (a dubbed mouth), one with random audio."""
+    1 Hz audio gate (a dubbed mouth), one with random audio.  The gated audio
+    is a tone, or ``speech_text`` as tone-coded speech in the gate's
+    on-windows."""
     from fvd_tpu_torch.synthetic import make_face_video
     from fvd_tpu_torch.utils.wav import write_wav
 
-    common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=44100)
+    common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=44100, speech_text=speech_text)
     clips = [make_face_video(root, "sync_a", gate_hz=1.0, seed=0, **common),
              make_face_video(root, "sync_b", gate_hz=1.3, seed=1, **common),
              make_face_video(root, "dubbed", gate_hz=1.0, mouth_gate_hz=0.37, seed=2, **common),
@@ -875,26 +1078,42 @@ def _hermetic_providers(det, lmk):
                      face_detector=det, landmarks=lmk)
 
 
-def _full_dag_scheduler(root, device, dtype):
+def _zoo_providers(device, dtype):
+    """The production bundle of ``providers/factory.py`` on the shipped
+    checkpoints (the formant ASR, the v2 OCR, the CLIP, the text encoder and
+    the three vision models), with the hermetic bundle's scripted LLM and
+    search so that C3-E3 have claims."""
+    from fvd_tpu_torch.providers.factory import production_providers
+
+    prov = production_providers(os.path.join(REPO, "checkpoints"), device=device, compute_dtype=dtype)
+    scripted = _hermetic_providers(prov.face_detector, prov.landmarks)
+    return dataclasses.replace(prov, llm=scripted.llm, search=scripted.search)
+
+
+def _full_dag_scheduler(root, device, dtype, zoo=False):
     """``graph.build_graph`` on ``device`` with the shipped face_ssd,
-    landmarks and pose checkpoints and the hermetic bundle; runs write under
-    ``root``."""
+    landmarks and pose checkpoints and the hermetic bundle, or with
+    :func:`_zoo_providers` where ``zoo``; runs write under ``root``."""
     from fvd_tpu_torch.config import default_config
     from fvd_tpu_torch.graph import build_graph
     from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
     from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
     from fvd_tpu_torch.runtime import Scheduler
 
-    ckpt = os.path.join(REPO, "checkpoints")
-    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
-    lmk = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
-                       pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=dtype, device=device)
+    if zoo:
+        prov = _zoo_providers(device, dtype)
+    else:
+        ckpt = os.path.join(REPO, "checkpoints")
+        det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+        lmk = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                           pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=dtype, device=device)
+        prov = _hermetic_providers(det, lmk)
     cfg = default_config()
     cfg = cfg.replace(ingest=dataclasses.replace(cfg.ingest, processed_dir=os.path.join(root, "processed")),
                       fusion=dataclasses.replace(cfg.fusion, weights_path=os.path.join(root, "lr_weights.json"),
                                                  features_dir=os.path.join(root, "features")),
                       evidence=dataclasses.replace(cfg.evidence, rate_limit_s=0.0))
-    return Scheduler(build_graph(cfg, _hermetic_providers(det, lmk), device=device))
+    return Scheduler(build_graph(cfg, prov, device=device))
 
 
 def _full_dag_run(sched, root, clips, coalesced):
@@ -1007,46 +1226,82 @@ def _pose_program_ms(clip, rounds=10):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+#: the zoo bundle's bars, card f32 against CPU f32: the scripted bundle's
+#: measured gaps (5.4e-7 on lip, 5.4e-8 on the probability) with room
+ZOO_FEATURE_TOL, ZOO_PROB_TOL = 1e-5, 1e-6
+#: what the zoo clips say, in the tone alphabet
+ZOO_SPEECH = "the moon landing happened and water boils at sea level"
+
+
+def _zoo_outputs(f):
+    """What the zoo's models decide, compared exactly between card and CPU:
+    the transcript's segments, the OCR texts, the gesture statuses, and E1's
+    ranking of each claim's evidence (E2 hands the items on in completion
+    order, so the ranking is read off the relevance scores)."""
+    return {"segments": [(sg["start"], sg["end"], sg["text"]) for sg in f.segments],
+            "ocr": [[d["text"] for d in r["detections"]] for r in f.ocr_results],
+            "gestures": [(g["frame_id"], g["status"]) for g in f.gesture_check],
+            "evidence": [(c, u) for c, _, u in sorted((e["claim_text"], -e["relevance_score"], e["url"])
+                                                      for e in f.evidence)]}
+
+
 def full_dag_phase():
     import torch
 
     from fvd_tpu_torch.ops.fusion import FEATURE_ORDER
 
+    configs = [("card_bf16", "cuda", torch.bfloat16, (False, True)), ("card_f32", "cuda", torch.float32, (False,)),
+               ("cpu_f32", "cpu", torch.float32, (False,))]
+    result = {}
+    launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        clips, _ = _video_clips(os.path.join(tmp, "clips"))
-        n = len(clips)
-        runs, summary = {}, {}
-        for name, device, dtype, modes in (("card_bf16", "cuda", torch.bfloat16, (False, True)),
-                                           ("card_f32", "cuda", torch.float32, (False,)),
-                                           ("cpu_f32", "cpu", torch.float32, (False,))):
-            root = os.path.join(tmp, name)
-            sched = _full_dag_scheduler(root, device, dtype)
-            if device == "cuda":
-                _full_dag_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
-            for coalesced in modes:
-                mode = "coalesced" if coalesced else "one_at_a_time"
-                r = _full_dag_run(sched, root, clips, coalesced)
-                _check_full_dag_run(r, f"full_dag {name} {mode}")
+        for bundle in ("hermetic", "zoo"):
+            zoo = bundle == "zoo"
+            clips, _ = _video_clips(os.path.join(tmp, bundle, "clips"), ZOO_SPEECH if zoo else None)
+            n = len(clips)
+            runs, summary = {}, {}
+            for name, device, dtype, modes in configs:
+                root = os.path.join(tmp, bundle, name)
+                sched = _full_dag_scheduler(root, device, dtype, zoo=zoo)
                 if device == "cuda":
-                    if coalesced:
-                        check(r["launches"] == len(r["c1_groups"]) and sum(r["c1_groups"]) == n,
-                              f"full_dag {name} {mode}: {r['launches']} launches for C1 groups {r['c1_groups']}")
-                    else:
-                        check(r["launches"] == n, f"full_dag {name}: {r['launches']} launches for {n} videos")
-                runs[(name, mode)] = r
-                summary.setdefault(name, {})[mode] = _full_dag_summary(r)
-            if name == "card_bf16":
-                summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
-                summary[name]["shared_forward_ms"] = _pose_program_ms(clips[0])
-        card, cpu = runs[("card_f32", "one_at_a_time")]["finals"], runs[("cpu_f32", "one_at_a_time")]["finals"]
-        errs = {k: max(abs(a.features[k] - b.features[k]) for a, b in zip(card, cpu)) for k in FEATURE_ORDER}
-        errs["fake_probability"] = max(abs(a.fake_probability - b.fake_probability) for a, b in zip(card, cpu))
-        check(all(v <= DAG_FEATURE_TOL for k, v in errs.items() if k != "fake_probability")
-              and errs["fake_probability"] <= DAG_FULL_PROB_TOL, f"full_dag, card f32 vs CPU f32: {errs}")
-    launches = sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
-    phase("full_dag", clips=[os.path.basename(c) for c in clips], nodes=len(FULL_DAG_NODES),
-          feature_tolerance=DAG_FEATURE_TOL, prob_tolerance=DAG_FULL_PROB_TOL, card_f32_vs_cpu_f32=errs,
-          runs=summary)
+                    _full_dag_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
+                for coalesced in modes:
+                    mode = "coalesced" if coalesced else "one_at_a_time"
+                    r = _full_dag_run(sched, root, clips, coalesced)
+                    _check_full_dag_run(r, f"full_dag {bundle} {name} {mode}")
+                    if device == "cuda":
+                        if coalesced:
+                            check(r["launches"] == len(r["c1_groups"]) and sum(r["c1_groups"]) == n,
+                                  f"full_dag {bundle} {name} {mode}: {r['launches']} launches for C1 groups "
+                                  f"{r['c1_groups']}")
+                        else:
+                            check(r["launches"] == n, f"full_dag {bundle} {name}: {r['launches']} launches for "
+                                                      f"{n} videos")
+                    runs[(name, mode)] = r
+                    summary.setdefault(name, {})[mode] = _full_dag_summary(r)
+                if name == "card_bf16":
+                    summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
+                    if not zoo:
+                        summary[name]["shared_forward_ms"] = _pose_program_ms(clips[0])
+            card, cpu = runs[("card_f32", "one_at_a_time")]["finals"], runs[("cpu_f32", "one_at_a_time")]["finals"]
+            errs = {k: max(abs(a.features[k] - b.features[k]) for a, b in zip(card, cpu)) for k in FEATURE_ORDER}
+            errs["fake_probability"] = max(abs(a.fake_probability - b.fake_probability) for a, b in zip(card, cpu))
+            feature_tol, prob_tol = (ZOO_FEATURE_TOL, ZOO_PROB_TOL) if zoo else (DAG_FEATURE_TOL, DAG_FULL_PROB_TOL)
+            check(all(v <= feature_tol for k, v in errs.items() if k != "fake_probability")
+                  and errs["fake_probability"] <= prob_tol, f"full_dag {bundle}, card f32 vs CPU f32: {errs}")
+            out = {"clips": [os.path.basename(c) for c in clips], "feature_tolerance": feature_tol,
+                   "prob_tolerance": prob_tol, "card_f32_vs_cpu_f32": errs, "runs": summary}
+            if zoo:
+                for a, b in zip(card, cpu):
+                    check(_zoo_outputs(a) == _zoo_outputs(b),
+                          f"full_dag zoo: card f32 and CPU f32 decide differently: {_zoo_outputs(a)} vs "
+                          f"{_zoo_outputs(b)}")
+                models = {(f.metadata.get("transcription_model"), f.metadata.get("ocr_model")) for f in card + cpu}
+                check(models == {("fvd_tpu_asr", "fvd_tpu_ocr")}, f"full_dag zoo: A2 and V2 ran {models}")
+                out["outputs_card_f32"] = [_zoo_outputs(f) for f in card]
+            result[bundle] = out
+            launches += sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
+    phase("full_dag", nodes=len(FULL_DAG_NODES), **result)
     return launches
 
 
@@ -1055,7 +1310,8 @@ def cli_phase():
     from fvd_tpu_torch.synthetic import make_face_video
 
     with tempfile.TemporaryDirectory() as tmp:
-        clip = make_face_video(os.path.join(tmp, "clips"), "clip", duration=10.0, fps=30.0, sr=44100)
+        clip = make_face_video(os.path.join(tmp, "clips"), "clip", duration=10.0, fps=30.0, sr=44100,
+                               speech_text=ZOO_SPEECH)
         cwd = os.path.join(tmp, "run")
         os.makedirs(cwd)
         env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -1071,7 +1327,10 @@ def cli_phase():
             check(last.startswith("Fake probability: "), f"cli {name}: last line {last!r}")
             p = float(last.split(": ", 1)[1])
             check(0.0 <= p <= 1.0, f"cli {name}: probability {p}")
-            out[name] = {"seconds": seconds, "fake_probability": p, "weights_file": os.path.exists(weights)}
+            # the production bundle loads the four npz models: C2 scores with the CLIP
+            check("C2: no CLIP model available" not in proc.stdout, f"cli {name}: C2 found no CLIP")
+            out[name] = {"seconds": seconds, "fake_probability": p, "weights_file": os.path.exists(weights),
+                         "providers": [ln for ln in proc.stdout.splitlines() if ln.startswith("providers:")]}
         check(not out["unlabelled"]["weights_file"] and out["label_1"]["weights_file"],
               f"cli: the labelled run did not write {weights}: {out}")
         with open(weights) as f, open(os.path.join(REPO, "assets", "lr_weights_pretrained.json")) as g:
@@ -1091,6 +1350,7 @@ def main() -> int:
     smi_line = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
+    models_phase()  # the model zoo launches no kernel of the repo's
     launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase() + full_dag_phase()
     cli_phase()  # its launches happen in the CLI's own processes and are not counted here
 

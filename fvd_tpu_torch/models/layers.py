@@ -4,6 +4,7 @@
   spatial axis of size ``n`` is ``max((ceil(n/s) - 1) * s + k - n, 0)``, with
   the smaller half first.  It depends on the input size, so it is computed in
   ``forward`` (a stride-2 3x3 conv pads (0, 1) on 300 but (1, 1) on 75).
+  :class:`SameConv1d` is the same for a 1-D conv over [B, C, T].
 * :func:`group_norm` is flax's ``GroupNorm(num_groups=8)``: eps 1e-6, where
   torch defaults to 1e-5.
 * :func:`in_dtype` is the model with every parameter cast to the compute
@@ -51,12 +52,27 @@ class SameConv2d(nn.Conv2d):
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, bias: bool = True):
         super().__init__(in_ch, out_ch, k, stride=stride, padding=0, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pad_same(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [B, C, H, W] padded as flax "SAME" pads it for this conv."""
         k, s = self.kernel_size[0], self.stride[0]
         top, bottom = same_pads(x.shape[-2], k, s)
         left, right = same_pads(x.shape[-1], k, s)
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(self.pad_same(x))
+
+
+class SameConv1d(nn.Conv1d):
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, k, stride=stride, padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        left, right = same_pads(x.shape[-1], self.kernel_size[0], self.stride[0])
+        if left or right:
+            x = F.pad(x, (left, right))
         return super().forward(x)
 
 

@@ -7,7 +7,8 @@ over ``audio_16k.wav`` -> ``transcript``, ``segments``, ``word_count``,
 
 The model is a provider (``providers/asr.py``): NullASR makes the node a
 no-op; ScriptedASR gives a fixed transcript; EnergyVAD gives real speech
-segments from the device-resident 16 kHz signal.
+segments from the device-resident 16 kHz signal; ``models/asr.py``'s
+JaxASR transcribes it.
 """
 
 from __future__ import annotations

@@ -5,10 +5,9 @@ each keyframe; keeps ``{text, confidence, bbox}`` per detection; frames with
 no text are omitted; no keyframes -> no-op; writes
 ``metadata.ocr_model``.
 
-The OCR engine is a provider; hermetic runs use Null/Scripted (exactly how
-the reference's tests run, ``tests/test_v2_ocr_overlays.py``).  The OCR
-models and their detection straight off the device frame tensor are not
-ported yet: keyframes come from the host frame cache.
+The OCR engine is a provider; production wires the detection + recognition
+models of ``models/ocr.py``, hermetic runs use Null/Scripted (exactly how
+the reference's tests run, ``tests/test_v2_ocr_overlays.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from typing import List, Optional
 
 from fvd_tpu_torch.config import Config, default_config
 from fvd_tpu_torch.providers import Providers, get_providers
-from fvd_tpu_torch.providers.media import cached_keyframe_images
+from fvd_tpu_torch.providers.media import cached_keyframe_images, keyframe_device_frames
 from fvd_tpu_torch.runtime.debug import dump_node_debug
 from fvd_tpu_torch.state import State, StateDelta
 
@@ -36,9 +35,16 @@ def run(
     loaded = [(kf, im) for kf, im in zip(keyframes, cached_keyframe_images(keyframes))
               if im is not None]
 
-    # One batched forward where the provider has one, else per-frame reads.
+    # Preferred: detection straight off the frame tensor V1 put on the
+    # device (a gather there, no second upload of the frames).  Falls back
+    # to one batched host forward, then to per-frame reads.
     batch_fn = getattr(providers.ocr, "read_text_batch", None)
-    if batch_fn is not None and loaded:
+    dev_fn = getattr(providers.ocr, "read_text_batch_device", None)
+    dev = keyframe_device_frames([kf for kf, _ in loaded], device=providers.ocr.device) \
+        if (dev_fn is not None and loaded) else None
+    if dev is not None:
+        all_detections = dev_fn(dev, [im for _, im in loaded])
+    elif batch_fn is not None and loaded:
         all_detections = batch_fn([im for _, im in loaded])
     else:
         all_detections = [providers.ocr.read_text(im) for _, im in loaded]

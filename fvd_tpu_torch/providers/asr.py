@@ -7,8 +7,8 @@ returns the Whisper result shape: ``{"text": str, "segments":
 [{start, end, text}]}``.  NullASR makes A2 a no-op; ScriptedASR is the
 test/hermetic implementation; EnergyVAD produces real speech segments (no
 words) from the RMS envelope on the device, so downstream pause-ratio
-features stay meaningful without a model.  The Whisper and JAX ASR models
-are not ported yet.
+features stay meaningful without a model.  The model that transcribes is
+``fvd_tpu_torch.models.asr.JaxASR``; the HF Whisper drop-in is not ported.
 """
 
 from __future__ import annotations

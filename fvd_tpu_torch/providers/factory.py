@@ -1,22 +1,30 @@
-"""Provider bundle factories: the port's subset of
-``fvd_tpu/providers/factory.py``.
+"""Provider bundle factories: the port of ``fvd_tpu/providers/factory.py``.
 
-``production_providers`` assembles the implementation of each seam that the
-port has:
+``production_providers`` assembles the implementation of each seam, on
+``device``:
 
 * the SSD detector, the hourglass landmarks and the pose head from
-  ``checkpoints/{face_ssd,landmarks,pose}.npz``, on ``device``;
-* EnergyVAD for speech segments, on ``device``;
-* the hashing text encoder for evidence ranking, no OCR, no CLIP (C2 then
-  skips, as the JAX package does without a CLIP), no LLM and no search.
+  ``checkpoints/{face_ssd,landmarks,pose}.npz``, and the OCR detector and
+  recognizer from ``checkpoints/{ocr_det,ocr_rec}.npz`` (all required: the
+  port has no random-init model);
+* the text encoder from ``text_encoder.npz`` (dims from its sidecar), else
+  the hashing encoder; the CLIP from ``clip.npz`` (calibration from its
+  sidecar), else none, and C2 skips; the ASR from ``asr_formant.npz``, else
+  ``asr.npz``, else EnergyVAD segments with no words;
+* no LLM and no search.
 
 On a machine with no network and no API keys the JAX package's bundle gives
-the same empty LLM and search results.  Each seam whose model or backend is
-ported later prints one line naming its ROADMAP item.
+the same empty LLM and search results.  Where ``checkpoints/hf`` exists, the
+JAX package loads its HF drop-ins first; the port loads the npz models and
+says so.  Each seam that a later slice of the port fills prints one line
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
+import json
 import os
 
 import torch
@@ -27,21 +35,17 @@ from fvd_tpu_torch.providers.asr import EnergyVAD
 from fvd_tpu_torch.providers.encoders import HashingTextEncoder
 from fvd_tpu_torch.providers.llm import NullLLM
 from fvd_tpu_torch.providers.search import NullSearch
-from fvd_tpu_torch.providers.vision import NullOCR
 
 KNOWN_CHECKPOINTS = (
     "face_ssd.npz", "landmarks.npz", "pose.npz", "clip.npz", "asr.npz",
     "ocr_rec.npz", "ocr_det.npz", "text_encoder.npz", "hf",
 )
 
-#: the seams whose models or backends wait for a later slice of the port
-_NOT_PORTED = (
-    "text encoder: the hashing encoder stands in for MiniLM (ROADMAP §1 item 12)",
-    "CLIP: none, C2 skips (ROADMAP §1 item 12)",
-    "ASR model: EnergyVAD segments, no words (ROADMAP §1 item 10)",
-    "OCR: none (ROADMAP §1 item 11)",
-    "LLM and search: none, no networked backend (ROADMAP §1 item 13)",
-)
+#: the seams whose backends wait for a later slice of the port
+_NOT_PORTED = "LLM and search: none, no networked backend (ROADMAP §1 item 13)"
+#: printed where ``checkpoints/hf`` exists
+_HF_NOT_PORTED = ("HF drop-ins (Whisper, HFClip, HFTextEncoder) not ported: the npz models "
+                  "run instead (ROADMAP §1 items 10 and 12)")
 
 
 def _has_checkpoints(path: str) -> bool:
@@ -63,6 +67,30 @@ def default_checkpoint_dir() -> str:
     return os.path.join(repo_root, "checkpoints")
 
 
+def asr_speech_domain(checkpoint_dir: str) -> str:
+    """The speech domain ("formant" | "tone") of the ASR checkpoint
+    production_providers will load: synthetic-media generators use this to
+    render audio the shipped ASR can actually transcribe."""
+    for name in ("asr_formant", "asr"):
+        npz = os.path.join(checkpoint_dir, name + ".npz")
+        meta = os.path.join(checkpoint_dir, name + ".json")
+        if os.path.exists(npz):
+            try:
+                with open(meta) as f:
+                    return json.load(f).get("domain", "tone")
+            except (OSError, ValueError):
+                return "tone"
+    return "tone"
+
+
+def _sidecar(npz: str) -> dict:
+    path = npz.replace(".npz", ".json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
 def bootstrap_production(device=None) -> Providers:
     """Install the production bundle on ``device`` as the process default
     unless a caller already installed one via set_providers() (entry points
@@ -79,26 +107,57 @@ def bootstrap_production(device=None) -> Providers:
 def production_providers(checkpoint_dir: str = "checkpoints", device=None,
                          compute_dtype: torch.dtype = torch.bfloat16) -> Providers:
     """The port's production bundle on ``device`` (default the card), the
-    vision backbones in ``compute_dtype``.  The three vision checkpoints are
-    required: the port has no random-init detector or landmark model."""
+    face and landmark backbones in ``compute_dtype``; the OCR, CLIP, text
+    encoder and ASR compute as their JAX counterparts do (the v2 OCR
+    detector in bf16, the rest in float32).  A checkpoint that exists but
+    does not load raises."""
+    from fvd_tpu_torch.models.asr import JaxASR
+    from fvd_tpu_torch.models.encoders import JaxClip, JaxTextEncoder
     from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
     from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.models.ocr import JaxOCR
 
     dev = resolve_device(device)
-    detector = SSDFaceDetector(checkpoint=os.path.join(checkpoint_dir, "face_ssd.npz"),
-                               compute_dtype=compute_dtype, device=dev)
-    landmarks = FANLandmarks(detector, checkpoint=os.path.join(checkpoint_dir, "landmarks.npz"),
-                             pose_checkpoint=os.path.join(checkpoint_dir, "pose.npz"),
+    ckpt = functools.partial(os.path.join, checkpoint_dir)
+    detector = SSDFaceDetector(checkpoint=ckpt("face_ssd.npz"), compute_dtype=compute_dtype, device=dev)
+    landmarks = FANLandmarks(detector, checkpoint=ckpt("landmarks.npz"), pose_checkpoint=ckpt("pose.npz"),
                              compute_dtype=compute_dtype, device=dev)
-    for line in _NOT_PORTED:
-        print(f"providers: {line}")
+    ocr = JaxOCR.from_checkpoints(ckpt("ocr_det.npz"), ckpt("ocr_rec.npz"), device=dev)
+    if os.path.isdir(ckpt("hf")):
+        print(f"providers: {_HF_NOT_PORTED}")
+
+    # Without trained weights, the lexical hashing encoder ranks evidence
+    # better than random weights would, and C2 skips (the reference's
+    # model-load-failure behavior) rather than score with a random CLIP.
+    text_encoder = HashingTextEncoder()
+    if os.path.exists(ckpt("text_encoder.npz")):
+        meta = _sidecar(ckpt("text_encoder.npz"))
+        text_encoder = JaxTextEncoder(checkpoint=ckpt("text_encoder.npz"), dim=int(meta.get("dim", 192)),
+                                      depth=int(meta.get("depth", 6)), out_dim=int(meta.get("out_dim", 256)),
+                                      device=dev)
+    clip = None
+    if os.path.exists(ckpt("clip.npz")):
+        # sidecars may carry extra bookkeeping fields; take only what the
+        # constructor knows
+        accepted = set(inspect.signature(JaxClip.__init__).parameters) - {"self", "params", "checkpoint",
+                                                                          "device"}
+        kwargs = {k: v for k, v in _sidecar(ckpt("clip.npz")).items() if k in accepted}
+        clip = JaxClip(checkpoint=ckpt("clip.npz"), device=dev, **kwargs)
+    # the formant-domain checkpoint first: speech-structured audio over the
+    # tone-coded alphabet; both decode through the same VAD-windowed stack
+    asr = EnergyVAD(device=dev)
+    for name in ("asr_formant.npz", "asr.npz"):
+        if os.path.exists(ckpt(name)):
+            asr = JaxASR.from_checkpoint(ckpt(name), device=dev)
+            break
+    print(f"providers: {_NOT_PORTED}")
     return Providers(
         llm=NullLLM(),
         search=NullSearch(),
-        text_encoder=HashingTextEncoder(),
-        clip=None,
-        asr=EnergyVAD(device=dev),
-        ocr=NullOCR(),
+        text_encoder=text_encoder,
+        clip=clip,
+        asr=asr,
+        ocr=ocr,
         face_detector=detector,
         landmarks=landmarks,
     )

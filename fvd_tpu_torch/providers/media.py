@@ -350,6 +350,16 @@ def shared_landmarks_pose(path: str, ids: Sequence[int], provider, frames: np.nd
     return lm, None
 
 
+def _keyframe_source(path: str) -> Optional[Tuple[str, int]]:
+    """``(video, frame id)`` of a V1 keyframe artifact
+    ``<dir>/keyframes/frame_<id>.png`` (the run's video is ``<dir>/video.mp4``),
+    or None for a name without a frame id."""
+    digits = [t for t in os.path.basename(path).replace(".", "_").split("_") if t.isdigit()]
+    if not digits:
+        return None
+    return os.path.join(os.path.dirname(os.path.dirname(path)), "video.mp4"), int(digits[0])
+
+
 def cached_keyframe_images(paths: Sequence[str]) -> List[Optional[np.ndarray]]:
     """Raw frames for V1's keyframe artifacts (``<dir>/keyframes/frame_<id>.png``).
 
@@ -360,11 +370,9 @@ def cached_keyframe_images(paths: Sequence[str]) -> List[Optional[np.ndarray]]:
     out: List[Optional[np.ndarray]] = []
     for p in paths:
         frame = None
-        base = os.path.basename(p)
-        digits = [t for t in base.replace(".", "_").split("_") if t.isdigit()]
-        if digits:
-            fid = int(digits[0])
-            video = os.path.join(os.path.dirname(os.path.dirname(p)), "video.mp4")
+        source = _keyframe_source(p)
+        if source is not None:
+            video, fid = source
             found, _ = _frame_cache.lookup(video, [fid])
             frame = found.get(fid)
         if frame is None and os.path.exists(p):
@@ -372,6 +380,19 @@ def cached_keyframe_images(paths: Sequence[str]) -> List[Optional[np.ndarray]]:
                 frame = decode_png(f.read())[..., :3]
         out.append(frame)
     return out
+
+
+def keyframe_device_frames(paths: Sequence[str], device=None):
+    """Device-resident native frames for V1's keyframe artifacts, or None.
+
+    Served by a gather on ``device`` (default the card) from the union grid V1
+    uploaded (see ``_DeviceFrameCache``); never uploads.  Returns None unless
+    every path maps into one cached video: callers then take the host batch
+    path."""
+    sources = [_keyframe_source(p) for p in paths]
+    if not sources or None in sources or len({v for v, _ in sources}) != 1:
+        return None
+    return _device_frames.get(sources[0][0], [fid for _, fid in sources], device=device)
 
 
 def clear_frame_cache() -> None:

@@ -1,0 +1,108 @@
+"""OpenCV-exact host image helpers: the three calls of ``cv2`` that the JAX
+package's OCR and CLIP make on the host, for a machine without OpenCV.
+
+* :func:`resize_linear_u8` is ``cv2.resize(img, (w, h))`` (INTER_LINEAR) on
+  uint8: 11-bit fixed-point tap weights, a horizontal pass kept as integers
+  and a vertical pass that rounds, as OpenCV's generic resize does for 8-bit
+  images; not float bilinear.
+* :func:`rgb_to_gray_u8` is ``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)``: 15-bit
+  fixed-point luma weights, rounded.
+* :func:`component_boxes` is the stats table of
+  ``cv2.connectedComponentsWithStats(mask)`` (8-connectivity) without the
+  background row, in OpenCV's label order, on ``scipy.ndimage.label``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _linear_taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's first source tap of each output pixel of one axis and the
+    float32 fraction towards the next tap."""
+    scale = 1.0 / (dst / src)  # OpenCV: scale = 1 / inv_scale, inv_scale = dst / src
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    return s, f
+
+
+def _round_weights(f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    # saturate_cast<short>(x * 2048) rounds half to even, as np.rint does
+    w0 = np.rint((np.float32(1.0) - f).astype(np.float32) * np.float32(_COEF_SCALE)).astype(np.int64)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64)
+    return w0, w1
+
+
+def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height))`` for a uint8 ``[H, W]`` or
+    ``[H, W, C]`` image, bit for bit."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_linear_u8 takes uint8, got {img.dtype}")
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img.copy()
+    # horizontal: a source column left of 0 or at/after the last one takes
+    # one tap at full weight (OpenCV zeroes the fraction there)
+    sx, fx = _linear_taps(w, width)
+    low, high = sx < 0, sx >= w - 1
+    sx = np.where(low, 0, np.where(high, w - 1, sx))
+    fx = np.where(low | high, np.float32(0.0), fx).astype(np.float32)
+    ax0, ax1 = _round_weights(fx)
+    x = img.astype(np.int64)
+    rows = x[:, sx] * ax0.reshape((-1,) + (1,) * (x.ndim - 2)) \
+        + x[:, np.minimum(sx + 1, w - 1)] * ax1.reshape((-1,) + (1,) * (x.ndim - 2))
+    # vertical: rows are clamped to the image, the fraction is kept
+    sy, fy = _linear_taps(h, height)
+    by0, by1 = _round_weights(fy)
+    r0 = rows[np.clip(sy, 0, h - 1)]
+    r1 = rows[np.clip(sy + 1, 0, h - 1)]
+    shape = (-1,) + (1,) * (rows.ndim - 1)
+    out = (((by0.reshape(shape) * (r0 >> 4)) >> 16) + ((by1.reshape(shape) * (r1 >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+#: ``cv2.COLOR_RGB2GRAY``'s weights of R, G and B, scaled by 2**15
+_GRAY_R, _GRAY_G, _GRAY_B = 9798, 19235, 3735
+
+
+def rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` for a uint8 ``[H, W, 3]``
+    image, bit for bit."""
+    x = np.asarray(img).astype(np.int32)
+    y = x[..., 0] * _GRAY_R + x[..., 1] * _GRAY_G + x[..., 2] * _GRAY_B
+    return ((y + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def component_boxes(mask: np.ndarray) -> List[Tuple[int, int, int, int, int]]:
+    """``(x, y, w, h, area)`` of each 8-connected component of ``mask != 0``,
+    in ``cv2.connectedComponentsWithStats``' label order.
+
+    OpenCV labels 2x2 pixel blocks in raster order of the blocks, so its
+    labels follow each component's first block in that order (a block lies
+    in one component at most: its pixels are 8-connected); ``scipy`` numbers
+    components by their first pixel in raster order, and the two differ
+    where a component starts on the odd row of a block row."""
+    from scipy import ndimage
+
+    labels, n = ndimage.label(np.asarray(mask) != 0, structure=np.ones((3, 3), bool))
+    if n == 0:
+        return []
+    ys, xs = np.nonzero(labels)
+    lab = labels[ys, xs]
+    h, w = labels.shape
+    block = (ys // 2) * ((w + 1) // 2) + xs // 2
+    first_block = np.full(n + 1, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(first_block, lab, block)
+    area = np.bincount(lab, minlength=n + 1)
+    boxes = []
+    for i, sl in enumerate(ndimage.find_objects(labels), start=1):
+        y, x = sl[0].start, sl[1].start
+        boxes.append((first_block[i], (x, y, sl[1].stop - x, sl[0].stop - y, int(area[i]))))
+    return [b for _, b in sorted(boxes)]

@@ -7,10 +7,18 @@ their submodules after the flax auto-names (``ConvBlock_0``, ``Conv_0``,
 ``GroupNorm_0``), so a key maps to a state-dict key by joining the path with
 dots and renaming the leaf:
 
-* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
+* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W], and a 1-D conv's
+  [K, I, O] -> [O, I, K];
 * ``Dense`` ``kernel`` [I, O] -> ``nn.Linear`` ``weight`` [O, I];
-* GroupNorm ``scale`` -> ``weight``;
-* ``bias`` stays ``bias``.
+* the ``DenseGeneral`` projections of a ``MultiHeadDotProductAttention_*``:
+  ``query``/``key``/``value`` kernels [D, H, Dh] -> ``nn.Linear`` weights
+  [H * Dh, D] and their biases [H, Dh] -> [H * Dh]; ``out``'s kernel
+  [H, Dh, D] -> [D, H * Dh].  These kernels are 3-D like a 1-D conv's, so
+  the module name decides;
+* GroupNorm and LayerNorm ``scale`` -> ``weight``; ``Embed`` ``embedding``
+  -> ``nn.Embedding`` ``weight``;
+* ``bias`` stays ``bias``, and the raw params ``cls`` and ``logit_scale``
+  keep their names.
 """
 
 from __future__ import annotations
@@ -48,18 +56,33 @@ def flatten(tree: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+#: the raw ``self.param`` leaves of the port's models, kept as they are
+_RAW_PARAMS = ("cls", "logit_scale")
+
+
 def _leaf(path, value: np.ndarray):
     *mods, leaf = path
+    attention = len(mods) >= 2 and mods[-2].startswith("MultiHeadDotProductAttention")
+    if attention and mods[-1] in ("query", "key", "value"):
+        if leaf == "kernel":                      # [D, H, Dh]
+            return mods + ["weight"], value.reshape(value.shape[0], -1).T
+        if leaf == "bias":                        # [H, Dh]
+            return mods + ["bias"], value.reshape(-1)
+    if attention and mods[-1] == "out" and leaf == "kernel":   # [H, Dh, D]
+        return mods + ["weight"], value.reshape(-1, value.shape[-1]).T
     if leaf == "kernel":
         if value.ndim == 4:
             return mods + ["weight"], value.transpose(3, 2, 0, 1)
+        if value.ndim == 3 and mods and mods[-1].startswith("Conv"):
+            return mods + ["weight"], value.transpose(2, 1, 0)
         if value.ndim == 2:
             return mods + ["weight"], value.T
-        raise ValueError(f"{'.'.join(path)}: only conv [H,W,I,O] and Dense [I,O] kernels are supported")
-    if leaf == "scale":
+        raise ValueError(f"{'.'.join(path)}: only conv [H,W,I,O] or [K,I,O], Dense [I,O] and attention "
+                         f"kernels are supported, not {value.shape}")
+    if leaf in ("scale", "embedding"):
         return mods + ["weight"], value
-    if leaf == "bias":
-        return mods + ["bias"], value
+    if leaf == "bias" or leaf in _RAW_PARAMS:
+        return mods + [leaf], value
     raise ValueError(f"unexpected parameter leaf {'.'.join(path)}")
 
 

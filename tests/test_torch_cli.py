@@ -48,8 +48,10 @@ def test_cli_prints_fake_probability_and_trains_with_a_label(workdir, clip, caps
     assert line.startswith("Fake probability: ")
     p = float(line.split(": ")[1])
     assert 0.0 <= p <= 1.0
-    assert "providers: CLIP: none, C2 skips (ROADMAP §1 item 12)" in out
+    assert "providers: LLM and search: none, no networked backend (ROADMAP §1 item 13)" in out
+    assert "(ROADMAP §1 items 10 and 12)" in out  # checkpoints/hf is there; the npz models run
     assert tprov.get_providers().landmarks.device == torch.device("cpu")
+    assert tprov.get_providers().asr.model_name == "fvd_tpu_asr"
     assert not os.path.exists("lr_weights.json")  # no label, no update
 
     assert cli.main([clip, "1", "--cpu"]) == 0
@@ -81,10 +83,13 @@ def test_cli_without_a_card_and_without_cpu_raises(workdir, clip):
 
 def test_production_bundle_on_the_shipped_checkpoints():
     prov = factory.production_providers(os.path.join(ROOT, "checkpoints"), device="cpu")
-    assert prov.clip is None and prov.llm.available is False
+    assert prov.llm.available is False
     assert prov.search.search("anything") == []
-    assert prov.asr.model_name == "energy_vad" and prov.asr.device == torch.device("cpu")
-    assert prov.ocr.model_name == "null"
+    assert prov.clip.device == torch.device("cpu") and prov.clip.cal_scale != 1.0
+    assert prov.asr.model_name == "fvd_tpu_asr" and prov.asr.device == torch.device("cpu")
+    assert prov.asr.dim == 192 and prov.asr.dither == 0.002  # asr_formant.npz before asr.npz
+    assert prov.ocr.model_name == "fvd_tpu_ocr" and prov.ocr.det_arch == "v2"
+    assert (prov.text_encoder.dim, prov.text_encoder.depth) == (192, 4)
     assert prov.landmarks.pose_model.width == 32
     assert prov.landmarks.compute_dtype == torch.bfloat16
     assert factory.default_checkpoint_dir().endswith("checkpoints")

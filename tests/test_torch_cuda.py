@@ -342,3 +342,84 @@ def test_pose_head_runs_in_f32_under_a_bf16_bundle(cuda, tmp_path):
     assert len(got) >= 14
     ref = prov.pose_boxes_batch(torch.from_numpy(frames).to(cuda), boxes, owners)
     np.testing.assert_allclose(np.asarray(got), ref, atol=1e-3, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def zoo():
+    """The production bundle's four models at their shipped checkpoints, on
+    the card and on the CPU, with TF32 off while the module's tests run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the models are compared card against CPU")
+    import os
+
+    from fvd_tpu_torch.providers.factory import production_providers
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield {d: production_providers(ckpt, device=d, compute_dtype=torch.float32) for d in ("cuda", "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_text_encoder_on_card_matches_cpu(zoo):
+    sentences = _chip_smoke()._sentences(64)
+    e = {d: p.text_encoder.encode_batch(sentences) for d, p in zoo.items()}
+    e = {d: v / np.linalg.norm(v, axis=-1, keepdims=True) for d, v in e.items()}
+    np.testing.assert_allclose(e["cuda"], e["cpu"], atol=1e-5, rtol=0)
+    assert np.array_equal(np.argsort(-(e["cuda"] @ e["cuda"].T), 1)[:, :3], np.argsort(-(e["cpu"] @ e["cpu"].T), 1)[:, :3])
+
+
+def test_clip_on_card_matches_cpu(zoo):
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, (240, 320, 3)).astype(np.uint8) for _ in range(8)]
+    texts = _chip_smoke()._sentences(8)
+    s = {d: p.clip.image_text_similarity_batch(images, texts) for d, p in zoo.items()}
+    np.testing.assert_allclose(s["cuda"], s["cpu"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("checkpoint", ["asr.npz", "asr_formant.npz"])
+def test_asr_tokens_on_card_equal_cpu(zoo, checkpoint):
+    import os
+
+    from fvd_tpu_torch.models.asr import JaxASR
+    from fvd_tpu_torch.synthetic import gated_speech
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints", checkpoint)
+    asr = {d: JaxASR.from_checkpoint(ckpt, device=d) for d in zoo}
+    speech = gated_speech(_chip_smoke().ASR_TEXT, duration=15.0, gate_hz=1.0)
+    _, rows, nf = asr["cuda"].windows(speech)
+    assert np.array_equal(asr["cuda"].decode_windows(rows, nf), asr["cpu"].decode_windows(rows, nf))
+    assert asr["cuda"].transcribe("", audio=speech) == asr["cpu"].transcribe("", audio=speech)
+
+
+def test_ocr_device_path_on_card_matches_the_cpu_and_the_host_path(zoo):
+    """``detect_packed_mask`` on the card against the CPU's bf16 masks, and
+    the device path's texts against the host path's on 256x256 frames (both
+    resizes are the identity there)."""
+    from fvd_tpu_torch.models.ocr import detect_packed_mask
+
+    frames = _chip_smoke()._text_frames()
+    masks = {d: detect_packed_mask(p.ocr.detector, torch.from_numpy(frames).to(d)).cpu().numpy()
+             for d, p in zoo.items()}
+    assert masks["cuda"].sum() > 1000 and (masks["cuda"] == masks["cpu"]).mean() >= 0.999
+    square = np.ascontiguousarray(frames[:, :, 32:288])[:, :256]
+    square = np.concatenate([square, np.zeros((3, 16, 256, 3), np.uint8)], axis=1)
+    card = zoo["cuda"].ocr
+    dev = card.read_text_batch_device(torch.from_numpy(square).cuda(), list(square))
+    host = card.read_text_batch(list(square))
+    assert [[d["text"] for d in f] for f in dev] == [[d["text"] for d in f] for f in host]
+    assert [[d["text"] for d in f] for f in dev] == \
+        [[d["text"] for d in f] for f in zoo["cpu"].ocr.read_text_batch_device(torch.from_numpy(square),
+                                                                                list(square))]

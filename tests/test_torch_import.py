@@ -37,7 +37,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.nodes.a2_asr", "fvd_tpu_torch.nodes.v2_ocr", "fvd_tpu_torch.nodes.v4_dynamics",
             "fvd_tpu_torch.nodes.v5_forensics", "fvd_tpu_torch.nodes.c2_gesture", "fvd_tpu_torch.nodes.c3_claims",
             "fvd_tpu_torch.nodes.e1_evidence", "fvd_tpu_torch.nodes.e2_reliability",
-            "fvd_tpu_torch.nodes.e3_scorer"} <= set(mods)
+            "fvd_tpu_torch.nodes.e3_scorer", "fvd_tpu_torch.models.transformer", "fvd_tpu_torch.models.encoders",
+            "fvd_tpu_torch.models.ocr", "fvd_tpu_torch.models.asr", "fvd_tpu_torch.utils.cv"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
