@@ -5,7 +5,8 @@
 
 Phases, each printed as one JSON line with its seconds before the next starts:
 
-1. env       card name and power limit, torch and CUDA versions;
+1. env       card name and power limit, torch and CUDA versions, the MiB of
+             the copy the run started from and which HF msgpacks it holds;
 2. build     nvcc builds every CUDA kernel of the main path, all at once;
 3. kernel    the C1 stage kernel against its plain PyTorch version, both on
              the card from the same raw signals, at the shapes of
@@ -15,22 +16,34 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              library call's ``library_ms``), the kernel alone (``device_ms``,
              CUDA graph replay), the device ops one call dispatches
              (``stage_ops``), and the stage's bound;
-4. models    the production bundle's four models at their shipped
-             checkpoints (``providers/factory.py``: the formant ASR and the
-             tone ASR, the v2 OCR on its device and host paths, the CLIP, the
-             text encoder), card f32 against CPU f32 on the same inputs:
-             tokens, OCR texts and masks, similarities and unit embeddings;
-             per model the ms per call (CUDA events, median of 20), the
-             profiler's kernels per call and the largest |d|;
-5. analyzer  the fused per-video analyzer (``fvd_tpu_torch.entry``) at full
+4. models    the production bundle's four npz models at their shipped
+             checkpoints (``providers/factory.py`` on the checkpoints less
+             ``hf/``: the formant ASR and the tone ASR, the v2 OCR on its
+             device and host paths, the CLIP, the text encoder), card f32
+             against CPU f32 on the same inputs: tokens, OCR texts and masks,
+             similarities and unit embeddings; per model the ms per call (CUDA
+             events, median of 20), the profiler's kernels per call and the
+             largest |d|;
+5. hf        the HF lineup of ``checkpoints/hf`` (``providers/hf_models.py``),
+             card f32 against CPU f32: MiniLM-L6 on its real weights (64
+             sentences, the embeddings' largest |d|), Whisper base on its
+             real weights (one 30 s window of each of 4 clips with formant
+             speech: tokens equal up to the CPU's first step whose top-2
+             logit margin is under ``HF_MARGIN``, that step reported, the
+             teacher-forced logits' largest |d| on the CPU's tokens, encoder
+             ms, decode steps, ms and kernels per step), CLIP ViT-B/32 at its
+             ``config.json``'s geometry with seeded weights (the copy leaves
+             its msgpack out; 40 keyframe/caption pairs, the calibrated
+             similarities' largest |d|); ms and kernels per call of each;
+6. analyzer  the fused per-video analyzer (``fvd_tpu_torch.entry``) at full
              width on the shipped checkpoints, bf16, against the port's own
              f32 path and against the JAX package's f32 result; one C1 launch
              per call; the time of each stage of a call, and the profiler's
              top kernels by device time;
-6. serving   ``ScoringService`` answers 64 concurrent requests, each checked
+7. serving   ``ScoringService`` answers 64 concurrent requests, each checked
              against per-request scoring on the CPU; one C1 launch per
              micro-batch;
-7. dag       the {C1 -> LR} tail of the DAG on the port's ``Scheduler``, one
+8. dag       the {C1 -> LR} tail of the DAG on the port's ``Scheduler``, one
              ``invoke`` per video, for 16 videos of 60 s and one of 10 min at
              30 fps: all at once under the program coalescer (one C1 launch
              per coalesced group, at least one group of several videos), then
@@ -38,7 +51,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``lip_sync_score`` and ``fake_probability`` against the same
              states run on the CPU; group sizes, wall time per video and the
              tracer's node and group spans;
-8. video     the DAG's lip-sync path from a video file, IN -> A1 -> A3,
+9. video     the DAG's lip-sync path from a video file, IN -> A1 -> A3,
              IN -> V1 -> V3, {A3, V3} -> C1 -> LR, on the port's ``Scheduler``
              with the shipped checkpoints, for 4 clips of 10 s at 30 fps and
              240x320 made by ``fvd_tpu_torch.synthetic.make_face_video`` with
@@ -52,7 +65,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              AVI round trip; prints wall times, node and ``v3/*`` span
              medians, PNG seconds, the OneEuro scan's time and a
              ``torch.profiler`` view of one video;
-9. full_dag  all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
+10. full_dag all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
              clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
              ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
              card bf16 and card f32 one video at a time, card bf16 with all 4
@@ -68,11 +81,18 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              models with the scripted LLM and search, on the clips with
              tone-coded speech: card f32 against CPU f32 within 1e-5 on the
              features and 1e-6 on the probability, the same transcript
-             segments, OCR texts, gesture statuses and evidence ranking;
-10. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
+             segments, OCR texts, gesture statuses and evidence ranking.
+             Last the ``hf`` bundle, the production bundle on the checkpoint
+             tree as shipped (the HF text encoder and Whisper; the npz CLIP
+             where the copy left the HF CLIP's msgpack out, as the JAX
+             package's factory would pick: checked), on clips with formant
+             speech: card f32 one at a time and 4 at once, CPU f32, the zoo
+             bundle's bars;
+11. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
              card, then again with label 1: rc 0, a last line
              ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
-             bundle's CLIP, and the weights file written by the labelled run;
+             bundle's CLIP, a ``providers:`` line naming the HF text encoder
+             and Whisper, and the weights file written by the labelled run;
              prints the cold-start seconds.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -163,11 +183,45 @@ def env_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     import ctypes.util
 
+    hf = os.path.join(REPO, "checkpoints", "hf")
     phase("env", nvidia_smi=smi_line, torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           python=sys.version.split()[0], libavcodec=ctypes.util.find_library("avcodec"),
-          ffmpeg=shutil.which("ffmpeg"))
+          ffmpeg=shutil.which("ffmpeg"), copy_mib=_tree_mib(REPO),
+          hf_msgpacks={k: os.path.exists(os.path.join(hf, k, "flax_model.msgpack"))
+                       for k in ("minilm", "clip", "whisper")})
     return smi_line
+
+
+#: what runs add to the tree they start from
+_RUN_OUTPUTS = {"build", "__pycache__", ".git", "_archive", ".pytest_cache", ".hypothesis"}
+
+
+def _tree_mib(root):
+    """MiB of the files under ``root``, less what runs write there: the size
+    of the checkout this run was given."""
+    total = 0
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in _RUN_OUTPUTS]
+        total += sum(os.path.getsize(os.path.join(dirpath, f)) for f in files
+                     if not os.path.islink(os.path.join(dirpath, f)))
+    return total / 2 ** 20
+
+
+@functools.lru_cache(maxsize=None)
+def _npz_checkpoints():
+    """A directory of links to every shipped checkpoint but ``hf/``: where
+    the production bundle loads the npz model zoo (made once, removed at
+    exit)."""
+    import atexit
+
+    view = tempfile.mkdtemp(prefix="npz_checkpoints_")
+    atexit.register(shutil.rmtree, view, True)
+    ckpt = os.path.join(REPO, "checkpoints")
+    for name in os.listdir(ckpt):
+        if name != "hf":
+            os.symlink(os.path.join(ckpt, name), os.path.join(view, name))
+    return view
 
 
 def build_phase():
@@ -334,8 +388,9 @@ def _ocr_texts(out):
 
 
 def models_phase():
-    """The four models of the production bundle at their shipped checkpoints,
-    card f32 against CPU f32 on the same inputs."""
+    """The four npz models of the production bundle at their shipped
+    checkpoints (the bundle without ``hf/``), card f32 against CPU f32 on the
+    same inputs."""
     import torch
 
     from fvd_tpu_torch.models.asr import JaxASR
@@ -346,8 +401,8 @@ def models_phase():
     from fvd_tpu_torch.synthetic import gated_speech
 
     ckpt = os.path.join(REPO, "checkpoints")
-    card = production_providers(ckpt, device="cuda", compute_dtype=torch.float32)
-    cpu = production_providers(ckpt, device="cpu", compute_dtype=torch.float32)
+    card = production_providers(_npz_checkpoints(), device="cuda", compute_dtype=torch.float32)
+    cpu = production_providers(_npz_checkpoints(), device="cpu", compute_dtype=torch.float32)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         clips, _ = _video_clips(os.path.join(tmp, "clips"))
@@ -457,6 +512,151 @@ def models_phase():
                            "batch_64": _model_row(lambda: card.text_encoder.encode_batch(sentences)),
                            "max_abs_err": gap, "sentences": len(sentences)}
     phase("models", tolerance=MODEL_TOL, ocr_mask_agree=OCR_MASK_AGREE, tf32=False, models=out)
+
+
+#: the hf phase, card f32 (TF32 off) against CPU f32 on the same inputs:
+#: MiniLM embeddings and CLIP's calibrated similarities (on the CPU the port
+#: is within 7.2e-7 and 2.6e-6 of the JAX package, tests/test_torch_hf_models.py)
+HF_TOL = 1e-5
+#: Whisper's teacher-forced logits, card against CPU on the CPU's sequence
+#: of up to 320 tokens (the CPU holds the port to the JAX package within
+#: 1e-4 on a 24-token sequence, tests/test_torch_hf_whisper.py; here the
+#: sequences run ten times as long and the logits reach ~25)
+HF_LOGIT_TOL = 1e-3
+#: greedy decoding may take another token where the CPU's two best logits
+#: are closer than this: card and CPU tokens must agree up to that step
+HF_MARGIN = 1e-3
+
+
+def _seeded_clip(cfg, seed=0):
+    """``CLIPModel`` at ``cfg``'s geometry with weights drawn from a seeded
+    ``torch.Generator`` (normal, std 0.02; LayerNorms at 1 and 0)."""
+    import torch
+
+    from fvd_tpu_torch.models.hf_clip import CLIPModel
+
+    model = CLIPModel(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if "norm" in name or "layrnorm" in name:
+                prm.fill_(1.0 if name.endswith("weight") else 0.0)
+            else:
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.02)
+    return model
+
+
+def _whisper_window(card, cpu, audio):
+    """One 30 s window of ``audio`` decoded greedily on the card and on the
+    CPU: features, tokens up to the CPU's first near-tie, teacher-forced
+    logits on the CPU's sequence, and the card's encoder and decode times."""
+    import torch
+
+    from fvd_tpu_torch.c1_timing import interleaved_ms
+    from fvd_tpu_torch.models.hf_whisper import greedy_generate
+    from fvd_tpu_torch.utils.hf_tokenizers import whisper_decode
+
+    max_len = min(cpu.max_new_tokens, cpu.model.config["max_target_positions"])
+    feats, ids, steps = {}, {}, {}
+    with torch.no_grad():
+        for d, asr in (("cuda", card), ("cpu", cpu)):
+            feats[d] = asr._features(torch.from_numpy(audio).to(d), 16000)
+            steps[d] = []
+            ids[d] = greedy_generate(asr.model, feats[d], max_len, asr.start_id, asr.eos_id, asr.pad_id,
+                                     steps[d]).cpu().numpy()[0]
+        top2 = torch.stack(steps["cpu"])[:, 0].topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).numpy()
+        ties = np.flatnonzero(margin < HF_MARGIN)
+        # step t writes token t + 1: tokens agree up to the first near-tie's step
+        agree = int(ties[0]) + 1 if len(ties) else len(ids["cpu"])
+        check(np.array_equal(ids["cuda"][:agree], ids["cpu"][:agree]),
+              f"whisper: card tokens {ids['cuda'][:agree].tolist()} vs CPU {ids['cpu'][:agree].tolist()}")
+        n = len(steps["cpu"]) + 1
+        seq = torch.from_numpy(ids["cpu"][:n][None].copy())
+        logits = {d: asr.model(feats[d], seq.to(d)).cpu() for d, asr in (("cuda", card), ("cpu", cpu))}
+    gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+    check(gap <= HF_LOGIT_TOL, f"whisper teacher-forced logits card vs CPU: {gap}")
+    f = feats["cuda"]
+    with torch.no_grad():
+        encoder_ms = interleaved_ms({"ms": lambda: card.model.encode(f)}, warmup=2, rounds=10)["ms"]
+        t0 = time.perf_counter()
+        card_steps = []
+        greedy_generate(card.model, f, max_len, card.start_id, card.eos_id, card.pad_id, card_steps)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        prof = _profile_top_kernels(lambda: greedy_generate(card.model, f, max_len, card.start_id, card.eos_id,
+                                                            card.pad_id), (), calls=1)
+    return {"tokens": int((ids["cpu"] != cpu.pad_id).sum()), "decode_steps": len(card_steps),
+            "first_near_tie_step": int(ties[0]) if len(ties) else None, "smallest_margin": float(margin.min()),
+            "tokens_equal": bool(np.array_equal(ids["cuda"], ids["cpu"])),
+            "feature_max_abs_err": float((feats["cuda"].cpu() - feats["cpu"]).abs().max()),
+            "logits_max_abs_err": gap, "encoder_ms": encoder_ms, "decode_ms": decode_ms,
+            "ms_per_step": decode_ms / max(len(card_steps), 1),
+            "kernels_per_step": (prof["kernels_per_call"] / max(len(card_steps), 1)
+                                 if "kernels_per_call" in prof else prof),
+            "text": whisper_decode(card.tokenizer, ids["cuda"]).strip()}
+
+
+def hf_phase():
+    """The HF model lineup of ``checkpoints/hf``, card f32 (TF32 off) against
+    CPU f32 on the same inputs: MiniLM and Whisper on their shipped weights,
+    CLIP ViT-B/32 at its ``config.json``'s geometry with seeded weights (the
+    copy leaves out its 303 MB msgpack)."""
+    import torch
+
+    from fvd_tpu_torch.providers.hf_models import HFClip, HFTextEncoder, HFWhisperASR
+    from fvd_tpu_torch.providers.media import VideoReader
+    from fvd_tpu_torch.utils.hf_tokenizers import Tokenizer
+
+    hf = os.path.join(REPO, "checkpoints", "hf")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, _ = _video_clips(os.path.join(tmp, "clips"), ZOO_SPEECH, speech="formant")
+        keyframes = [VideoReader(use_cache=False).sample(c, range(0, 300, 30))[0] for c in clips]
+        audio = [_clip_audio_16k(c) for c in clips]
+
+    # MiniLM: 64 sentences
+    enc = {d: HFTextEncoder.from_local(os.path.join(hf, "minilm"), device=d) for d in ("cuda", "cpu")}
+    sentences = _sentences(64)
+    emb = {d: e.encode_batch(sentences) for d, e in enc.items()}
+    gap = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    check(gap <= HF_TOL, f"MiniLM embeddings card vs CPU: {gap}")
+    out["minilm"] = {"checkpoint": "hf/minilm (6 x 384, real weights)",
+                     "call": "encode_batch() of E1's call: a claim and 5 results",
+                     **_model_row(lambda: enc["cuda"].encode_batch(sentences[:6])),
+                     "batch_64": _model_row(lambda: enc["cuda"].encode_batch(sentences)),
+                     "max_abs_err": gap, "sentences": len(sentences)}
+    del enc
+
+    # Whisper: one 30 s window of each clip's 16 kHz audio
+    asr = {d: HFWhisperASR.from_local(os.path.join(hf, "whisper"), device=d) for d in ("cuda", "cpu")}
+    windows = [_whisper_window(asr["cuda"], asr["cpu"], a) for a in audio]
+    out["whisper"] = {"checkpoint": "hf/whisper (base, 6 + 6 x 512, real weights)",
+                      "call": "transcribe() of one clip's 10 s of 16 kHz audio (one 30 s window)",
+                      **_model_row(lambda: asr["cuda"].transcribe("", audio=audio[0]), calls=3),
+                      "max_abs_err": max(w["logits_max_abs_err"] for w in windows),
+                      "max_abs_err_of": "teacher-forced logits on the CPU's tokens", "windows": windows}
+    del asr
+
+    # CLIP ViT-B/32 at its config's geometry, seeded weights, the shipped tokenizer and calibration
+    with open(os.path.join(hf, "clip", "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(hf, "clip", "fvd_train_meta.json")) as f:
+        meta = json.load(f)
+    tok = Tokenizer.from_dir(os.path.join(hf, "clip"))
+    n_text = cfg["text_config"]["max_position_embeddings"]
+    clip = {d: HFClip(_seeded_clip(cfg), lambda t: tok(t, n_text), cfg["vision_config"]["image_size"],
+                      meta["cal_offset"], meta["cal_scale"], device=d) for d in ("cuda", "cpu")}
+    images = [im for kf in keyframes for im in kf]
+    captions = _sentences(len(images))
+    sims = {d: c.image_text_similarity_batch(images, captions) for d, c in clip.items()}
+    gap = float(np.abs(sims["cuda"] - sims["cpu"]).max())
+    check(gap <= HF_TOL and np.isfinite(sims["cuda"]).all(), f"CLIP similarity card vs CPU: {gap}")
+    out["clip"] = {"checkpoint": "hf/clip config.json geometry (ViT-B/32 768 x 12, text 512 x 12), "
+                                 "weights from torch.Generator seed 0",
+                   "call": "image_text_similarity_batch() of one clip's 10 keyframes",
+                   **_model_row(lambda: clip["cuda"].image_text_similarity_batch(images[:10], captions[:10])),
+                   "max_abs_err": gap, "pairs": len(images)}
+    phase("hf", tolerance=HF_TOL, logit_tolerance=HF_LOGIT_TOL, margin=HF_MARGIN, tf32=False, models=out)
 
 
 def _bf16_stages(ssd, lmk, frames):
@@ -816,22 +1016,24 @@ VIDEO_SPANS = ("node/IN", "node/A1", "node/A3", "node/V1", "node/V3", "node/C1",
                "v3/decode", "v3/landmark_fwd", "v3/track", "v3/smooth", "v3/emit")
 
 
-def _video_clips(root, speech_text=None):
+def _video_clips(root, speech_text=None, speech="tone"):
     """4 clips of 10 s at 30 fps and 240x320 with 44.1 kHz audio: two in sync
     (gates of 1.0 and 1.3 Hz), one whose mouth moves at 0.37 Hz against a
     1 Hz audio gate (a dubbed mouth), one with random audio.  The gated audio
     is a tone, or ``speech_text`` as tone-coded speech in the gate's
-    on-windows."""
+    on-windows; with ``speech="formant"``, ``speech_text`` as one formant
+    utterance at 16 kHz (Whisper's domain)."""
     from fvd_tpu_torch.synthetic import make_face_video
     from fvd_tpu_torch.utils.wav import write_wav
 
-    common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=44100, speech_text=speech_text)
+    sr = 16000 if speech == "formant" else 44100
+    common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=sr, speech_text=speech_text, speech=speech)
     clips = [make_face_video(root, "sync_a", gate_hz=1.0, seed=0, **common),
              make_face_video(root, "sync_b", gate_hz=1.3, seed=1, **common),
              make_face_video(root, "dubbed", gate_hz=1.0, mouth_gate_hz=0.37, seed=2, **common),
              make_face_video(root, "random_audio", gate_hz=1.0, seed=3, **common)]
-    noise = np.random.RandomState(3).uniform(-0.5, 0.5, int(10.0 * 44100))
-    write_wav(os.path.join(root, "random_audio.wav"), noise, 44100)
+    noise = np.random.RandomState(3).uniform(-0.5, 0.5, int(10.0 * sr))
+    write_wav(os.path.join(root, "random_audio.wav"), noise, sr)
     return clips, ["sync", "sync", "broken", "broken"]
 
 
@@ -1078,30 +1280,47 @@ def _hermetic_providers(det, lmk):
                      face_detector=det, landmarks=lmk)
 
 
-def _zoo_providers(device, dtype):
-    """The production bundle of ``providers/factory.py`` on the shipped
+def _zoo_providers(device, dtype, hf=False):
+    """The production bundle of ``providers/factory.py`` with the hermetic
+    bundle's scripted LLM and search so that C3-E3 have claims: on the npz
     checkpoints (the formant ASR, the v2 OCR, the CLIP, the text encoder and
-    the three vision models), with the hermetic bundle's scripted LLM and
-    search so that C3-E3 have claims."""
+    the three vision models), or, where ``hf``, on the checkpoint tree as
+    shipped here, whose ``hf/`` gives the HF text encoder and Whisper (and
+    CLIP where its msgpack is there)."""
     from fvd_tpu_torch.providers.factory import production_providers
 
-    prov = production_providers(os.path.join(REPO, "checkpoints"), device=device, compute_dtype=dtype)
+    ckpt = os.path.join(REPO, "checkpoints") if hf else _npz_checkpoints()
+    prov = production_providers(ckpt, device=device, compute_dtype=dtype)
     scripted = _hermetic_providers(prov.face_detector, prov.landmarks)
     return dataclasses.replace(prov, llm=scripted.llm, search=scripted.search)
 
 
-def _full_dag_scheduler(root, device, dtype, zoo=False):
+def _hf_kinds():
+    """The providers the JAX package's factory picks on this checkpoint tree:
+    the HF models whose directory loads (a CLIP whose msgpack the copy left
+    out does not), the npz ones otherwise."""
+    hf = os.path.join(REPO, "checkpoints", "hf")
+    has = {k: os.path.exists(os.path.join(hf, k, "flax_model.msgpack")) for k in ("minilm", "clip", "whisper")}
+    return ("HFTextEncoder" if has["minilm"] else "JaxTextEncoder", "HFClip" if has["clip"] else "JaxClip",
+            "HFWhisperASR" if has["whisper"] else "JaxASR")
+
+
+def _full_dag_scheduler(root, device, dtype, bundle="hermetic"):
     """``graph.build_graph`` on ``device`` with the shipped face_ssd,
     landmarks and pose checkpoints and the hermetic bundle, or with
-    :func:`_zoo_providers` where ``zoo``; runs write under ``root``."""
+    :func:`_zoo_providers` for the ``zoo`` and ``hf`` bundles; runs write
+    under ``root``."""
     from fvd_tpu_torch.config import default_config
     from fvd_tpu_torch.graph import build_graph
     from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
     from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
     from fvd_tpu_torch.runtime import Scheduler
 
-    if zoo:
-        prov = _zoo_providers(device, dtype)
+    if bundle != "hermetic":
+        prov = _zoo_providers(device, dtype, hf=bundle == "hf")
+        kinds = tuple(type(getattr(prov, k)).__name__ for k in ("text_encoder", "clip", "asr"))
+        check(bundle != "hf" or kinds == _hf_kinds(),
+              f"full_dag hf: the factory picked {kinds}, the JAX package's picks {_hf_kinds()} on this tree")
     else:
         ckpt = os.path.join(REPO, "checkpoints")
         det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
@@ -1250,19 +1469,24 @@ def full_dag_phase():
 
     from fvd_tpu_torch.ops.fusion import FEATURE_ORDER
 
-    configs = [("card_bf16", "cuda", torch.bfloat16, (False, True)), ("card_f32", "cuda", torch.float32, (False,)),
-               ("cpu_f32", "cpu", torch.float32, (False,))]
+    bf16, f32 = torch.bfloat16, torch.float32
+    standard = [("card_bf16", "cuda", bf16, (False, True)), ("card_f32", "cuda", f32, (False,)),
+                ("cpu_f32", "cpu", f32, (False,))]
+    configs = {"hermetic": standard, "zoo": standard,
+               "hf": [("card_f32", "cuda", f32, (False, True)), ("cpu_f32", "cpu", f32, (False,))]}
+    # the hf bundle's clips say the zoo's sentence as one formant utterance (Whisper's domain)
+    speech = {"hermetic": (None, "tone"), "zoo": (ZOO_SPEECH, "tone"), "hf": (ZOO_SPEECH, "formant")}
     result = {}
     launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        for bundle in ("hermetic", "zoo"):
-            zoo = bundle == "zoo"
-            clips, _ = _video_clips(os.path.join(tmp, bundle, "clips"), ZOO_SPEECH if zoo else None)
+        for bundle in ("hermetic", "zoo", "hf"):
+            models = bundle != "hermetic"
+            clips, _ = _video_clips(os.path.join(tmp, bundle, "clips"), *speech[bundle])
             n = len(clips)
             runs, summary = {}, {}
-            for name, device, dtype, modes in configs:
+            for name, device, dtype, modes in configs[bundle]:
                 root = os.path.join(tmp, bundle, name)
-                sched = _full_dag_scheduler(root, device, dtype, zoo=zoo)
+                sched = _full_dag_scheduler(root, device, dtype, bundle)
                 if device == "cuda":
                     _full_dag_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
                 for coalesced in modes:
@@ -1279,26 +1503,31 @@ def full_dag_phase():
                                                       f"{n} videos")
                     runs[(name, mode)] = r
                     summary.setdefault(name, {})[mode] = _full_dag_summary(r)
-                if name == "card_bf16":
+                if name == "card_bf16" or (bundle == "hf" and name == "card_f32"):
                     summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
-                    if not zoo:
+                    if bundle == "hermetic":
                         summary[name]["shared_forward_ms"] = _pose_program_ms(clips[0])
             card, cpu = runs[("card_f32", "one_at_a_time")]["finals"], runs[("cpu_f32", "one_at_a_time")]["finals"]
             errs = {k: max(abs(a.features[k] - b.features[k]) for a, b in zip(card, cpu)) for k in FEATURE_ORDER}
             errs["fake_probability"] = max(abs(a.fake_probability - b.fake_probability) for a, b in zip(card, cpu))
-            feature_tol, prob_tol = (ZOO_FEATURE_TOL, ZOO_PROB_TOL) if zoo else (DAG_FEATURE_TOL, DAG_FULL_PROB_TOL)
+            feature_tol, prob_tol = (ZOO_FEATURE_TOL, ZOO_PROB_TOL) if models else (DAG_FEATURE_TOL,
+                                                                                     DAG_FULL_PROB_TOL)
             check(all(v <= feature_tol for k, v in errs.items() if k != "fake_probability")
                   and errs["fake_probability"] <= prob_tol, f"full_dag {bundle}, card f32 vs CPU f32: {errs}")
             out = {"clips": [os.path.basename(c) for c in clips], "feature_tolerance": feature_tol,
                    "prob_tolerance": prob_tol, "card_f32_vs_cpu_f32": errs, "runs": summary}
-            if zoo:
+            if models:
                 for a, b in zip(card, cpu):
                     check(_zoo_outputs(a) == _zoo_outputs(b),
-                          f"full_dag zoo: card f32 and CPU f32 decide differently: {_zoo_outputs(a)} vs "
+                          f"full_dag {bundle}: card f32 and CPU f32 decide differently: {_zoo_outputs(a)} vs "
                           f"{_zoo_outputs(b)}")
-                models = {(f.metadata.get("transcription_model"), f.metadata.get("ocr_model")) for f in card + cpu}
-                check(models == {("fvd_tpu_asr", "fvd_tpu_ocr")}, f"full_dag zoo: A2 and V2 ran {models}")
+                asr = "hf_whisper_flax" if bundle == "hf" and _hf_kinds()[2] == "HFWhisperASR" else "fvd_tpu_asr"
+                ran = {(f.metadata.get("transcription_model"), f.metadata.get("ocr_model")) for f in card + cpu}
+                check(ran == {(asr, "fvd_tpu_ocr")}, f"full_dag {bundle}: A2 and V2 ran {ran}")
                 out["outputs_card_f32"] = [_zoo_outputs(f) for f in card]
+                out["transcripts_card_f32"] = [f.transcript for f in card]
+            if bundle == "hf":
+                out["providers"] = dict(zip(("text_encoder", "clip", "asr"), _hf_kinds()))
             result[bundle] = out
             launches += sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
     phase("full_dag", nodes=len(FULL_DAG_NODES), **result)
@@ -1327,8 +1556,11 @@ def cli_phase():
             check(last.startswith("Fake probability: "), f"cli {name}: last line {last!r}")
             p = float(last.split(": ", 1)[1])
             check(0.0 <= p <= 1.0, f"cli {name}: probability {p}")
-            # the production bundle loads the four npz models: C2 scores with the CLIP
+            # C2 scores with a CLIP, and the bundle names the HF models this tree loads
             check("C2: no CLIP model available" not in proc.stdout, f"cli {name}: C2 found no CLIP")
+            picked = "providers: text encoder {}, CLIP {}, ASR {}".format(*_hf_kinds())
+            check(picked in proc.stdout and "HFTextEncoder" in picked and "HFWhisperASR" in picked,
+                  f"cli {name}: no line {picked!r} naming the HF text encoder and Whisper: {proc.stdout[-3000:]}")
             out[name] = {"seconds": seconds, "fake_probability": p, "weights_file": os.path.exists(weights),
                          "providers": [ln for ln in proc.stdout.splitlines() if ln.startswith("providers:")]}
         check(not out["unlabelled"]["weights_file"] and out["label_1"]["weights_file"],
@@ -1351,6 +1583,7 @@ def main() -> int:
     build_s = build_phase()
     entry_row = kernel_phase()
     models_phase()  # the model zoo launches no kernel of the repo's
+    hf_phase()  # nor do the HF models
     launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase() + full_dag_phase()
     cli_phase()  # its launches happen in the CLI's own processes and are not counted here
 

@@ -34,6 +34,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+#: the ``hidden_act`` names of the HF checkpoints, as transformers' Flax
+#: ``ACT2FN`` defines them: "gelu" is the exact erf GELU, not flax's default
+HF_ACTIVATIONS = {"gelu": F.gelu, "quick_gelu": quick_gelu}
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax's ``dot_product_attention`` as the Hugging Face Flax models call
+    it: ``q`` [B, Tq, H, Dh] divided by ``sqrt(Dh)``, scores plus the additive
+    ``bias`` (broadcastable to [B, H, Tq, Tk]), a float32 softmax, the
+    weighted sum of ``v`` [B, Tk, H, Dh] -> [B, Tq, H, Dh]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(q.shape[-1]), k)
+    if bias is not None:
+        s = s + bias
+    w = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def attention_bias(allowed: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The Flax models' bias of a boolean mask: 0 where attention is allowed,
+    the dtype's smallest finite value where it is not."""
+    return torch.where(allowed, torch.zeros((), dtype=dtype, device=allowed.device),
+                       torch.full((), torch.finfo(dtype).min, dtype=dtype, device=allowed.device))
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention(num_heads)`` with the query,
     key, value and output projections as ``nn.Linear`` over all heads."""
@@ -53,16 +82,11 @@ class MultiHeadDotProductAttention(nn.Module):
         allowed."""
         b, tq, d = x.shape
         h = self.heads
-        dh = d // h
-        q = self.query(x).view(b, tq, h, dh) / math.sqrt(dh)
-        k = self.key(context).view(b, context.shape[1], h, dh)
-        v = self.value(context).view(b, context.shape[1], h, dh)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        if mask is not None:
-            s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
-        w = torch.softmax(s.float(), dim=-1).to(v.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, tq, d)
-        return self.out(o)
+        q = self.query(x).view(b, tq, h, d // h)
+        k = self.key(context).view(b, context.shape[1], h, d // h)
+        v = self.value(context).view(b, context.shape[1], h, d // h)
+        bias = None if mask is None else attention_bias(mask, q.dtype)
+        return self.out(dot_product_attention(q, k, v, bias).reshape(b, tq, d))
 
 
 def causal_mask(t: int, device=None) -> torch.Tensor:

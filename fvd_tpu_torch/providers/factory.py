@@ -7,17 +7,20 @@
   ``checkpoints/{face_ssd,landmarks,pose}.npz``, and the OCR detector and
   recognizer from ``checkpoints/{ocr_det,ocr_rec}.npz`` (all required: the
   port has no random-init model);
-* the text encoder from ``text_encoder.npz`` (dims from its sidecar), else
-  the hashing encoder; the CLIP from ``clip.npz`` (calibration from its
+* the HF drop-ins of ``checkpoints/hf/{minilm,clip,whisper}`` first
+  (``providers/hf_models.py``), as the JAX package's ``_try`` loads them: a
+  missing directory gives the npz model, and one that fails to load prints
+  ``providers: failed to load HF <kind>: <error>`` and gives the npz model;
+* else the text encoder from ``text_encoder.npz`` (dims from its sidecar),
+  else the hashing encoder; the CLIP from ``clip.npz`` (calibration from its
   sidecar), else none, and C2 skips; the ASR from ``asr_formant.npz``, else
   ``asr.npz``, else EnergyVAD segments with no words;
 * no LLM and no search.
 
 On a machine with no network and no API keys the JAX package's bundle gives
-the same empty LLM and search results.  Where ``checkpoints/hf`` exists, the
-JAX package loads its HF drop-ins first; the port loads the npz models and
-says so.  Each seam that a later slice of the port fills prints one line
-naming its ROADMAP item.
+the same empty LLM and search results.  One ``providers:`` line names the
+classes picked for the text encoder, the CLIP and the ASR; the seams that a
+later slice of the port fills print one line naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,9 +46,6 @@ KNOWN_CHECKPOINTS = (
 
 #: the seams whose backends wait for a later slice of the port
 _NOT_PORTED = "LLM and search: none, no networked backend (ROADMAP §1 item 13)"
-#: printed where ``checkpoints/hf`` exists
-_HF_NOT_PORTED = ("HF drop-ins (Whisper, HFClip, HFTextEncoder) not ported: the npz models "
-                  "run instead (ROADMAP §1 items 10 and 12)")
 
 
 def _has_checkpoints(path: str) -> bool:
@@ -109,8 +109,9 @@ def production_providers(checkpoint_dir: str = "checkpoints", device=None,
     """The port's production bundle on ``device`` (default the card), the
     face and landmark backbones in ``compute_dtype``; the OCR, CLIP, text
     encoder and ASR compute as their JAX counterparts do (the v2 OCR
-    detector in bf16, the rest in float32).  A checkpoint that exists but
-    does not load raises."""
+    detector in bf16, the rest in float32).  An npz checkpoint that exists
+    but does not load raises; an HF directory that does not load is named
+    and passed over, as in the JAX package."""
     from fvd_tpu_torch.models.asr import JaxASR
     from fvd_tpu_torch.models.encoders import JaxClip, JaxTextEncoder
     from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
@@ -123,20 +124,35 @@ def production_providers(checkpoint_dir: str = "checkpoints", device=None,
     landmarks = FANLandmarks(detector, checkpoint=ckpt("landmarks.npz"), pose_checkpoint=ckpt("pose.npz"),
                              compute_dtype=compute_dtype, device=dev)
     ocr = JaxOCR.from_checkpoints(ckpt("ocr_det.npz"), ckpt("ocr_rec.npz"), device=dev)
-    if os.path.isdir(ckpt("hf")):
-        print(f"providers: {_HF_NOT_PORTED}")
+
+    # The weight-compatible HF models take precedence where their
+    # checkpoint directories exist.
+    from fvd_tpu_torch.providers import hf_models
+
+    def _try(kind, loader):
+        path = ckpt("hf", kind)
+        if os.path.isdir(path):
+            try:
+                return loader(path, device=dev)
+            except Exception as e:
+                print(f"providers: failed to load HF {kind}: {e}")
+        return None
+
+    text_encoder = _try("minilm", hf_models.HFTextEncoder.from_local)
+    clip = _try("clip", hf_models.HFClip.from_local)
+    asr = _try("whisper", hf_models.HFWhisperASR.from_local)
 
     # Without trained weights, the lexical hashing encoder ranks evidence
     # better than random weights would, and C2 skips (the reference's
     # model-load-failure behavior) rather than score with a random CLIP.
-    text_encoder = HashingTextEncoder()
-    if os.path.exists(ckpt("text_encoder.npz")):
+    if text_encoder is None and os.path.exists(ckpt("text_encoder.npz")):
         meta = _sidecar(ckpt("text_encoder.npz"))
         text_encoder = JaxTextEncoder(checkpoint=ckpt("text_encoder.npz"), dim=int(meta.get("dim", 192)),
                                       depth=int(meta.get("depth", 6)), out_dim=int(meta.get("out_dim", 256)),
                                       device=dev)
-    clip = None
-    if os.path.exists(ckpt("clip.npz")):
+    if text_encoder is None:
+        text_encoder = HashingTextEncoder()
+    if clip is None and os.path.exists(ckpt("clip.npz")):
         # sidecars may carry extra bookkeeping fields; take only what the
         # constructor knows
         accepted = set(inspect.signature(JaxClip.__init__).parameters) - {"self", "params", "checkpoint",
@@ -145,11 +161,13 @@ def production_providers(checkpoint_dir: str = "checkpoints", device=None,
         clip = JaxClip(checkpoint=ckpt("clip.npz"), device=dev, **kwargs)
     # the formant-domain checkpoint first: speech-structured audio over the
     # tone-coded alphabet; both decode through the same VAD-windowed stack
-    asr = EnergyVAD(device=dev)
     for name in ("asr_formant.npz", "asr.npz"):
-        if os.path.exists(ckpt(name)):
+        if asr is None and os.path.exists(ckpt(name)):
             asr = JaxASR.from_checkpoint(ckpt(name), device=dev)
-            break
+    if asr is None:
+        asr = EnergyVAD(device=dev)
+    print(f"providers: text encoder {type(text_encoder).__name__}, CLIP {type(clip).__name__}, "
+          f"ASR {type(asr).__name__}")
     print(f"providers: {_NOT_PORTED}")
     return Providers(
         llm=NullLLM(),

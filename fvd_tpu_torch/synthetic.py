@@ -7,11 +7,17 @@ The clip is an elliptical face whose mouth aperture follows the same gate as
 its audio track, with a slow centre drift that exercises IoU tracking; it is
 written as a raw-RGBA AVI with a sibling ``.wav``.  The pixels are not
 OpenCV's: the face outline and the background blur differ a little.
+
+:func:`formant_speech` is the port's copy of
+``fvd_tpu/models/synthetic_speech.py``'s source-filter synthesizer (the
+domain of the shipped Whisper checkpoint), the same samples for the same
+seed.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -143,6 +149,193 @@ def gated_speech(text: str, duration: float, gate_hz: float = 1.0, sr: int = TON
     return audio
 
 
+FORMANT_SR = 16000
+F0 = 115.0          # glottal pitch (Hz); jittered per utterance
+PHONE_S = 0.095     # nominal per-letter duration
+
+#: vowels: (F1, F2, F3) steady-state targets (classic Peterson-Barney-ish)
+_VOWELS: Dict[str, Tuple[float, float, float]] = {
+    "a": (730.0, 1090.0, 2440.0),
+    "e": (530.0, 1840.0, 2480.0),
+    "i": (270.0, 2290.0, 3010.0),
+    "o": (570.0, 840.0, 2410.0),
+    "u": (300.0, 870.0, 2240.0),
+    "y": (300.0, 2100.0, 2900.0),
+}
+
+#: approximants/nasals: voiced, with their own formant targets
+_SONORANTS: Dict[str, Tuple[float, float, float]] = {
+    "l": (360.0, 1300.0, 2700.0),
+    "r": (420.0, 1300.0, 1600.0),
+    "m": (250.0, 1000.0, 2200.0),
+    "n": (250.0, 1700.0, 2600.0),
+    "w": (290.0, 700.0, 2300.0),
+    "h": (500.0, 1500.0, 2500.0),
+}
+
+#: fricatives: (noise band center, bandwidth, voiced?)
+_FRICATIVES: Dict[str, Tuple[float, float, bool]] = {
+    "s": (5500.0, 2500.0, False),
+    "z": (5500.0, 2500.0, True),
+    "f": (4200.0, 3500.0, False),
+    "v": (4200.0, 3500.0, True),
+    "x": (3400.0, 2400.0, False),
+    "j": (2800.0, 1800.0, True),
+    "c": (3000.0, 2000.0, False),
+    "q": (2200.0, 1500.0, False),
+}
+
+#: stops: (burst band center, voiced?) — closure gap then a noise burst
+_STOPS: Dict[str, Tuple[float, bool]] = {
+    "p": (1200.0, False),
+    "b": (1200.0, True),
+    "t": (4000.0, False),
+    "d": (4000.0, True),
+    "k": (2200.0, False),
+    "g": (2200.0, True),
+}
+
+
+def _resonator(x: np.ndarray, freq: float, bw: float, sr: int = FORMANT_SR) -> np.ndarray:
+    """Second-order all-pole resonator (the formant filter of a classic
+    Klatt-style synthesizer), streamed with scipy's lfilter."""
+    from scipy.signal import lfilter
+
+    r = np.exp(-np.pi * bw / sr)
+    theta = 2.0 * np.pi * freq / sr
+    a = [1.0, -2.0 * r * np.cos(theta), r * r]
+    gain = (1.0 - r) * np.sqrt(1.0 - 2.0 * r * np.cos(2 * theta) + r * r)
+    return lfilter([gain], a, x)
+
+
+def _glottal_source(n: int, f0: float, rng: np.random.RandomState,
+                    f0_track: np.ndarray | None = None) -> np.ndarray:
+    """Impulse-ish train with shimmer/jitter — the voiced excitation.
+
+    ``f0_track`` (optional, [n]): per-sample pitch for prosodic drift —
+    each pulse period is read from the local track value."""
+    out = np.zeros(n, np.float32)
+    t = 0.0
+    while t < n:
+        i = int(t)
+        if i < n:
+            out[i] = 1.0 + 0.1 * rng.randn()
+        local_f0 = float(f0_track[min(i, n - 1)]) if f0_track is not None else f0
+        t += (FORMANT_SR / max(local_f0, 40.0)) * (1.0 + 0.01 * rng.randn())
+    # one-pole lowpass to soften the pulses (glottal rolloff)
+    from scipy.signal import lfilter
+
+    return lfilter([1.0], [1.0, -0.9], out).astype(np.float32)
+
+
+def _segments(text: str) -> List[Tuple[str, str]]:
+    """letters -> (kind, char) segment list; kinds: vowel / sonorant /
+    fricative / stop / space."""
+    segs = []
+    for ch in text:
+        if ch in _VOWELS:
+            segs.append(("vowel", ch))
+        elif ch in _SONORANTS:
+            segs.append(("sonorant", ch))
+        elif ch in _FRICATIVES:
+            segs.append(("fricative", ch))
+        elif ch in _STOPS:
+            segs.append(("stop", ch))
+        else:
+            segs.append(("space", ch))
+    return segs
+
+
+def formant_speech(text: str, rng: np.random.RandomState | None = None,
+                   f0: float | None = None) -> np.ndarray:
+    """Synthesize ``text`` (lowercase letters + spaces) -> float32 PCM at
+    16 kHz.  Voiced segments share one continuous glottal source filtered
+    through formant tracks that interpolate across segment boundaries;
+    consonants contribute closures and shaped noise."""
+    rng = rng or np.random.RandomState(0)
+    f0 = f0 or F0 * (1.0 + 0.15 * (rng.rand() - 0.5))
+    segs = _segments(text.lower())
+    if not segs:
+        return np.zeros(int(PHONE_S * FORMANT_SR), np.float32)
+
+    n_seg = int(PHONE_S * FORMANT_SR)
+    total = n_seg * len(segs)
+
+    # formant target track per segment (NaN: unvoiced/silent)
+    targets = np.full((len(segs), 3), np.nan)
+    voiced_amp = np.zeros(len(segs))
+    for i, (kind, ch) in enumerate(segs):
+        if kind == "vowel":
+            targets[i] = _VOWELS[ch]
+            voiced_amp[i] = 1.0
+        elif kind == "sonorant":
+            targets[i] = _SONORANTS[ch]
+            voiced_amp[i] = 0.7
+        elif kind == "fricative" and _FRICATIVES[ch][2]:
+            voiced_amp[i] = 0.25  # voiced fricatives keep some buzz
+
+    # continuous formant tracks: linear interp between voiced segment
+    # centers (coarticulation); unvoiced gaps inherit neighbors
+    centers = (np.arange(len(segs)) + 0.5) * n_seg
+    sample_t = np.arange(total)
+    tracks = np.zeros((3, total), np.float32)
+    voiced_idx = np.where(~np.isnan(targets[:, 0]))[0]
+    for k in range(3):
+        if len(voiced_idx) == 0:
+            tracks[k] = 500.0 * (k + 1)
+        else:
+            tracks[k] = np.interp(sample_t, centers[voiced_idx],
+                                  targets[voiced_idx, k])
+
+    # voiced amplitude envelope with soft onsets/offsets
+    amp = np.repeat(voiced_amp, n_seg).astype(np.float32)
+    ramp = np.ones(n_seg, np.float32)
+    edge = max(1, n_seg // 6)
+    ramp[:edge] = np.linspace(0, 1, edge)
+    ramp[-edge:] = np.linspace(1, 0, edge)
+    amp *= np.tile(ramp, len(segs))
+
+    source = _glottal_source(total, f0, rng) * amp
+
+    # piecewise-constant formant filtering per segment (tracks move slowly;
+    # per-segment resonators with interpolated center freqs approximate a
+    # time-varying filter without per-sample IIR updates)
+    voiced = np.zeros(total, np.float32)
+    for i in range(len(segs)):
+        lo, hi = i * n_seg, (i + 1) * n_seg
+        if voiced_amp[i] <= 0:
+            continue
+        seg = source[lo:hi]
+        acc = np.zeros(n_seg, np.float32)
+        for k, bw in enumerate((60.0, 90.0, 150.0)):
+            fk = float(np.mean(tracks[k, lo:hi]))
+            acc += _resonator(seg, fk, bw).astype(np.float32) * (1.0, 0.63, 0.32)[k]
+        voiced[lo:hi] = acc
+
+    # consonant noise: fricative bands and stop bursts
+    noise_part = np.zeros(total, np.float32)
+    for i, (kind, ch) in enumerate(segs):
+        lo, hi = i * n_seg, (i + 1) * n_seg
+        if kind == "fricative":
+            band, bw, _ = _FRICATIVES[ch]
+            noise = rng.randn(n_seg).astype(np.float32)
+            noise_part[lo:hi] += 0.5 * _resonator(noise, band, bw).astype(np.float32)
+        elif kind == "stop":
+            band, voiced_stop = _STOPS[ch]
+            # closure (silence) for the first 60%, then a burst
+            burst = np.zeros(n_seg, np.float32)
+            b0 = int(n_seg * 0.6)
+            burst[b0:] = rng.randn(n_seg - b0)
+            burst[b0:] *= np.exp(-np.linspace(0, 6, n_seg - b0))
+            noise_part[lo:hi] += 0.9 * _resonator(burst, band, 800.0).astype(np.float32)
+            if voiced_stop:
+                noise_part[lo:hi] += 0.15 * _glottal_source(n_seg, f0, rng)
+
+    out = voiced + noise_part
+    peak = np.max(np.abs(out)) + 1e-9
+    return (0.4 * out / peak).astype(np.float32)
+
+
 def make_face_video(
     dirpath: str,
     name: str = "face",
@@ -155,14 +348,18 @@ def make_face_video(
     seed: int = 0,
     speech_text: str | None = None,
     mouth_gate_hz: float | None = None,
+    speech: str = "tone",
 ) -> str:
     """A face clip ``<dirpath>/<name>.avi`` and its audio ``<name>.wav``.
 
     The mouth opens with ``0.5 * (1 + sin(2 pi mouth_gate_hz t))`` and the
     audio is a 330 Hz tone gated by ``sin(2 pi gate_hz t) > 0`` (or tone-coded
-    ``speech_text`` in the gate's on-windows).  ``mouth_gate_hz`` (default
-    ``gate_hz``) drives the mouth at another rate than the audio: the dubbed
-    mouth no lag can align."""
+    ``speech_text`` in the gate's on-windows; with ``speech="formant"``,
+    ``speech_text`` as one :func:`formant_speech` utterance from 0.5 s, at
+    16 kHz only).  ``mouth_gate_hz`` (default ``gate_hz``) drives the mouth at
+    another rate than the audio: the dubbed mouth no lag can align."""
+    if speech not in ("tone", "formant") or (speech == "formant" and sr != FORMANT_SR):
+        raise ValueError(f"speech={speech!r} at {sr} Hz: tone at any rate, or formant at {FORMANT_SR} Hz")
     os.makedirs(dirpath, exist_ok=True)
     rng = np.random.RandomState(seed)
     background = _box_blur5((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
@@ -183,7 +380,11 @@ def make_face_video(
     video_path = os.path.join(dirpath, f"{name}.avi")
     write_video(video_path, frames, fps)
 
-    if speech_text is not None:
+    if speech_text is not None and speech == "formant":
+        sig = np.zeros(int(sr * duration), np.float32)
+        utterance = formant_speech(speech_text, np.random.RandomState(seed))[:len(sig) - sr // 2]
+        sig[sr // 2:sr // 2 + len(utterance)] = utterance
+    elif speech_text is not None:
         sig = gated_speech(speech_text, duration, gate_hz=gate_hz, sr=sr)
     else:
         t = np.arange(int(sr * duration)) / sr

@@ -19,6 +19,11 @@ dots and renaming the leaf:
   -> ``nn.Embedding`` ``weight``;
 * ``bias`` stays ``bias``, and the raw params ``cls`` and ``logit_scale``
   keep their names.
+
+:func:`hf_state_dict` does the same for the Hugging Face Flax trees of
+``checkpoints/hf/*/flax_model.msgpack`` (read by
+:mod:`fvd_tpu_torch.utils.msgpack`), whose modules the port names as the
+Flax classes do.
 """
 
 from __future__ import annotations
@@ -104,3 +109,45 @@ def kernel_width(tree: Mapping, module: str) -> int:
     reads a checkpoint's width."""
     key = "['params']" + "".join(f"['{m}']" for m in module.split(".")) + "['kernel']"
     return int(flatten(tree)[key].shape[-1])
+
+
+#: leaves of the HF Flax trees that no provider reads, skipped by
+#: :func:`hf_state_dict`: BERT's pooler (the text encoder mean-pools the last
+#: hidden state) and CLIP's ``logit_scale`` (the provider takes the cosines)
+HF_UNUSED = {"bert": ("pooler",), "clip": ("logit_scale",), "whisper": ()}
+
+
+def hf_state_dict(tree: Mapping, family: str) -> Dict[str, torch.Tensor]:
+    """Torch state dict (float32, CPU) of a Hugging Face Flax params tree of
+    ``family`` ("bert", "clip" or "whisper"): ``Dense`` kernels [I, O] ->
+    [O, I]; CLIP's patch conv [H, W, I, O] -> [O, I, H, W] and Whisper's
+    ``conv1``/``conv2`` [K, I, O] -> [O, I, K]; ``Embed`` ``embedding`` and
+    LayerNorm ``scale`` -> ``weight``; ``bias`` and CLIP's raw
+    ``class_embedding`` keep their names; float16 widens to float32 exactly.
+    The leaves of :data:`HF_UNUSED` are skipped; any other leaf name
+    raises."""
+    from fvd_tpu_torch.utils.msgpack import leaves
+
+    skip = HF_UNUSED[family]
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in leaves(tree):
+        if path[0] in skip:
+            continue
+        *mods, leaf = path
+        value = np.asarray(value)
+        if leaf == "kernel":
+            if value.ndim == 2:
+                value = value.T
+            elif value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)
+            elif value.ndim == 3 and mods[-1].startswith("conv"):
+                value = value.transpose(2, 1, 0)
+            else:
+                raise ValueError(f"{'.'.join(path)}: unexpected kernel of shape {value.shape}")
+            leaf = "weight"
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        elif leaf not in ("bias", "class_embedding"):
+            raise ValueError(f"unexpected parameter leaf {'.'.join(path)}")
+        sd[".".join(mods + [leaf])] = torch.tensor(value.astype(np.float32))
+    return sd

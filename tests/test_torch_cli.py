@@ -49,9 +49,10 @@ def test_cli_prints_fake_probability_and_trains_with_a_label(workdir, clip, caps
     p = float(line.split(": ")[1])
     assert 0.0 <= p <= 1.0
     assert "providers: LLM and search: none, no networked backend (ROADMAP §1 item 13)" in out
-    assert "(ROADMAP §1 items 10 and 12)" in out  # checkpoints/hf is there; the npz models run
+    # checkpoints/hf is there: its models run
+    assert "providers: text encoder HFTextEncoder, CLIP HFClip, ASR HFWhisperASR" in out
     assert tprov.get_providers().landmarks.device == torch.device("cpu")
-    assert tprov.get_providers().asr.model_name == "fvd_tpu_asr"
+    assert tprov.get_providers().asr.model_name == "hf_whisper_flax"
     assert not os.path.exists("lr_weights.json")  # no label, no update
 
     assert cli.main([clip, "1", "--cpu"]) == 0
@@ -85,11 +86,13 @@ def test_production_bundle_on_the_shipped_checkpoints():
     prov = factory.production_providers(os.path.join(ROOT, "checkpoints"), device="cpu")
     assert prov.llm.available is False
     assert prov.search.search("anything") == []
-    assert prov.clip.device == torch.device("cpu") and prov.clip.cal_scale != 1.0
-    assert prov.asr.model_name == "fvd_tpu_asr" and prov.asr.device == torch.device("cpu")
-    assert prov.asr.dim == 192 and prov.asr.dither == 0.002  # asr_formant.npz before asr.npz
+    # checkpoints/hf before the npz models: Whisper base, CLIP ViT-B/32, MiniLM-L6
+    assert prov.clip.device == torch.device("cpu") and prov.clip.cal_scale != 1.0 and prov.clip.image_size == 224
+    assert prov.asr.model_name == "hf_whisper_flax" and prov.asr.device == torch.device("cpu")
+    assert prov.asr.model.config["d_model"] == 512 and prov.asr.max_new_tokens == 320
     assert prov.ocr.model_name == "fvd_tpu_ocr" and prov.ocr.det_arch == "v2"
-    assert (prov.text_encoder.dim, prov.text_encoder.depth) == (192, 4)
+    assert prov.text_encoder.model.embeddings.word_embeddings.weight.shape == (30522, 384)
+    assert len(prov.text_encoder.model.encoder.layer) == 6
     assert prov.landmarks.pose_model.width == 32
     assert prov.landmarks.compute_dtype == torch.bfloat16
     assert factory.default_checkpoint_dir().endswith("checkpoints")

@@ -346,15 +346,14 @@ def test_pose_head_runs_in_f32_under_a_bf16_bundle(cuda, tmp_path):
 
 @pytest.fixture(scope="module")
 def zoo():
-    """The production bundle's four models at their shipped checkpoints, on
-    the card and on the CPU, with TF32 off while the module's tests run."""
+    """The production bundle's four npz models at their shipped checkpoints
+    (a view of the checkpoints less ``hf/``), on the card and on the CPU,
+    with TF32 off while the module's tests run."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the models are compared card against CPU")
-    import os
-
     from fvd_tpu_torch.providers.factory import production_providers
 
-    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+    ckpt = _chip_smoke()._npz_checkpoints()
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -423,3 +422,61 @@ def test_ocr_device_path_on_card_matches_the_cpu_and_the_host_path(zoo):
     assert [[d["text"] for d in f] for f in dev] == \
         [[d["text"] for d in f] for f in zoo["cpu"].ocr.read_text_batch_device(torch.from_numpy(square),
                                                                                 list(square))]
+
+
+@pytest.fixture(scope="module")
+def hf_models():
+    """The HF lineup on the card and on the CPU with TF32 off: MiniLM and
+    Whisper from ``checkpoints/hf``, CLIP at ``hf/clip/config.json``'s
+    geometry with ``chip_smoke.py``'s seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the models are compared card against CPU")
+    import json
+    import os
+
+    from fvd_tpu_torch.providers.hf_models import HFClip, HFTextEncoder, HFWhisperASR
+    from fvd_tpu_torch.utils.hf_tokenizers import Tokenizer
+
+    hf = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints", "hf")
+    with open(os.path.join(hf, "clip", "config.json")) as f:
+        cfg = json.load(f)
+    tok = Tokenizer.from_dir(os.path.join(hf, "clip"))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield {d: {"minilm": HFTextEncoder.from_local(os.path.join(hf, "minilm"), device=d),
+                   "whisper": HFWhisperASR.from_local(os.path.join(hf, "whisper"), device=d),
+                   "clip": HFClip(_chip_smoke()._seeded_clip(cfg), lambda t: tok(t, 77), 224, -0.205, 0.588235,
+                                  device=d)}
+               for d in ("cuda", "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_hf_minilm_on_card_matches_cpu(hf_models):
+    sentences = _chip_smoke()._sentences(64)
+    e = {d: m["minilm"].encode_batch(sentences) for d, m in hf_models.items()}
+    np.testing.assert_allclose(e["cuda"], e["cpu"], atol=_chip_smoke().HF_TOL, rtol=0)
+
+
+def test_hf_clip_on_card_matches_cpu(hf_models):
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, (240, 320, 3)).astype(np.uint8) for _ in range(8)]
+    texts = _chip_smoke()._sentences(8)
+    s = {d: m["clip"].image_text_similarity_batch(images, texts) for d, m in hf_models.items()}
+    np.testing.assert_allclose(s["cuda"], s["cpu"], atol=_chip_smoke().HF_TOL, rtol=0)
+
+
+def test_hf_whisper_on_card_matches_cpu(hf_models):
+    """Formant speech: tokens up to the CPU's first near-tie, teacher-forced
+    logits, and the transcripts."""
+    from fvd_tpu_torch.synthetic import formant_speech
+
+    audio = np.zeros(5 * 16000, np.float32)
+    speech = formant_speech("the river rose two feet", np.random.RandomState(0))
+    audio[8000:8000 + len(speech)] = speech
+    row = _chip_smoke()._whisper_window(hf_models["cuda"]["whisper"], hf_models["cpu"]["whisper"], audio)
+    assert row["logits_max_abs_err"] <= _chip_smoke().HF_LOGIT_TOL and row["tokens"] > 5
+    if row["first_near_tie_step"] is None:
+        assert hf_models["cuda"]["whisper"].transcribe("", audio=audio) == \
+            hf_models["cpu"]["whisper"].transcribe("", audio=audio)

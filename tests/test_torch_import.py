@@ -1,5 +1,6 @@
 """The port stands alone: ``fvd_tpu_torch`` and ``chip_smoke.py`` import with
-JAX, flax and OpenCV blocked, and no source of theirs names ``fvd_tpu``."""
+JAX, flax, OpenCV, transformers, tokenizers, msgpack and regex blocked, and no
+source of theirs names ``fvd_tpu`` or imports one of those."""
 
 import os
 import pkgutil
@@ -16,6 +17,9 @@ PKG_DIR = os.path.join(ROOT, "fvd_tpu_torch")
 def _modules():
     return sorted(["fvd_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages([PKG_DIR], prefix="fvd_tpu_torch.")])
+
+
+BLOCKED = ("jax", "flax", "cv2", "transformers", "tokenizers", "msgpack", "regex")
 
 
 def test_every_module_imports_with_jax_flax_cv2_blocked():
@@ -38,11 +42,15 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.nodes.v5_forensics", "fvd_tpu_torch.nodes.c2_gesture", "fvd_tpu_torch.nodes.c3_claims",
             "fvd_tpu_torch.nodes.e1_evidence", "fvd_tpu_torch.nodes.e2_reliability",
             "fvd_tpu_torch.nodes.e3_scorer", "fvd_tpu_torch.models.transformer", "fvd_tpu_torch.models.encoders",
-            "fvd_tpu_torch.models.ocr", "fvd_tpu_torch.models.asr", "fvd_tpu_torch.utils.cv"} <= set(mods)
+            "fvd_tpu_torch.models.ocr", "fvd_tpu_torch.models.asr", "fvd_tpu_torch.utils.cv",
+            "fvd_tpu_torch.utils.msgpack", "fvd_tpu_torch.utils.hf_tokenizers",
+            "fvd_tpu_torch.utils._tokenizer_unicode",
+            "fvd_tpu_torch.ops.whisper_frontend", "fvd_tpu_torch.models.hf_bert", "fvd_tpu_torch.models.hf_clip",
+            "fvd_tpu_torch.models.hf_whisper", "fvd_tpu_torch.providers.hf_models"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
-        "for m in ('jax', 'flax', 'cv2'): sys.modules[m] = None\n"
+        f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'fvd_tpu' or m.startswith('fvd_tpu.'))\n"
@@ -60,7 +68,7 @@ def test_no_source_names_the_jax_package():
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names if n.endswith((".py", ".cu"))]
     names_pkg = re.compile(r"\bfvd_tpu\.|import fvd_tpu\b")
-    imports_jax = re.compile(r"^\s*(import|from)\s+(jax|flax|cv2)\b", re.M)
+    imports_jax = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(BLOCKED), re.M)
     offenders = []
     for path in files:
         with open(path) as f:
