@@ -27,9 +27,11 @@ Phases, each printed as one JSON line with its seconds before the next starts:
 5. hf        the HF lineup of ``checkpoints/hf`` (``providers/hf_models.py``),
              card f32 against CPU f32: MiniLM-L6 on its real weights (64
              sentences, the embeddings' largest |d|), Whisper base on its
-             real weights (one 30 s window of each of 4 clips with formant
-             speech: tokens equal up to the CPU's first step whose top-2
-             logit margin is under ``HF_MARGIN``, that step reported, the
+             real weights (one 30 s window of each of 2 clips, one with
+             formant speech and one with random audio, a cut of the 4 that
+             keeps the script's time: tokens equal up to the CPU's first
+             step whose top-2 logit margin is under ``HF_MARGIN``, that
+             step reported, the
              teacher-forced logits' largest |d| on the CPU's tokens, encoder
              ms, decode steps, ms and kernels per step), CLIP ViT-B/32 at its
              ``config.json``'s geometry with seeded weights (the copy leaves
@@ -69,7 +71,9 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
              ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
              card bf16 and card f32 one video at a time, card bf16 with all 4
-             at once under the program coalescer, and CPU f32.  Checks all 16
+             at once under the program coalescer, and CPU f32 on two of the
+             clips (one in sync, the dubbed one: a cut that keeps the
+             script's time with the batch phase).  Checks all 16
              nodes done, card f32 against CPU f32 on the 9 LR features and the
              probability, one C1 launch per video (per C1 group when
              coalesced), one frame upload per video, one shared landmark
@@ -86,17 +90,40 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              tree as shipped (the HF text encoder and Whisper; the npz CLIP
              where the copy left the HF CLIP's msgpack out, as the JAX
              package's factory would pick: checked), on clips with formant
-             speech: card f32 one at a time and 4 at once, CPU f32, the zoo
-             bundle's bars;
-11. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
+             speech: card f32 one at a time (the batch phase runs this
+             bundle 8 at once), CPU f32, the zoo bundle's bars;
+11. batch    ``bench.py``'s real-models mode on the port: 8 clips of 10 s
+             (bench's are 30 s: the one cut) at 30 fps and 320x240 from
+             ``make_face_video`` (seeds 0-7, bench's eight sentences as the
+             speech the ASR checkpoint names, the odd seeds' mouths dubbed
+             and named ``fake_*``), raw-RGBA AVI named ``*.mp4``, through
+             ``batch.run_pipeline_many`` with
+             ``production_providers(recorded_services=True)`` (the bundle
+             as the checkout ships it).  (a) card f32 8 at once, (b) card
+             f32 one at a time, (c) CPU f32 on 2 clips, (d) card bf16 8 at
+             once with and without ``FVD_TPU_NO_COALESCE`` (and a
+             ``torch.profiler`` pass of each), (e) ``python -m
+             fvd_tpu_torch.batch --concurrency 8`` and then
+             ``--train-device`` as subprocesses.  Checks all 16 nodes on
+             every video, (a) against (b) and (b) against (c) (features
+             1e-4, probability 1e-5, the same transcripts, OCR texts,
+             gesture statuses, V5 recorded scores and evidence rankings),
+             one C1 launch per video in (b) and per C1 group in (a), a
+             detector or landmark group holding two videos, synced clips'
+             lip-sync above the dubbed, an 8-row results table and the
+             device-trained weights against the host replay (1e-6); prints
+             videos/min, wall ms a video, kernels a video and the
+             wrappers' groups and padded sizes;
+12. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
              card, then again with label 1: rc 0, a last line
              ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
              bundle's CLIP, a ``providers:`` line naming the HF text encoder
              and Whisper, and the weights file written by the labelled run;
              prints the cold-start seconds.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit as nvidia-smi prints them, and as the last line
+``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
+4-12 alone.  Then one JSON line with every kernel's numbers, the card's
+name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
 present.  Imports torch, numpy and the port only.
@@ -629,7 +656,9 @@ def hf_phase():
 
     # Whisper: one 30 s window of each clip's 16 kHz audio
     asr = {d: HFWhisperASR.from_local(os.path.join(hf, "whisper"), device=d) for d in ("cuda", "cpu")}
-    windows = [_whisper_window(asr["cuda"], asr["cpu"], a) for a in audio]
+    # two of the four clips (a cut that keeps the script's time with the
+    # batch phase): sync_a's speech and random_audio's near-ties
+    windows = [_whisper_window(asr["cuda"], asr["cpu"], a) for a in audio[::3]]
     out["whisper"] = {"checkpoint": "hf/whisper (base, 6 + 6 x 512, real weights)",
                       "call": "transcribe() of one clip's 10 s of 16 kHz audio (one 30 s window)",
                       **_model_row(lambda: asr["cuda"].transcribe("", audio=audio[0]), calls=3),
@@ -1464,6 +1493,10 @@ def _zoo_outputs(f):
                                                       for e in f.evidence)]}
 
 
+#: the full_dag phase's CPU runs: every other clip of the four (sync_a, dubbed)
+CPU_CLIPS = slice(None, None, 2)
+
+
 def full_dag_phase():
     import torch
 
@@ -1472,8 +1505,10 @@ def full_dag_phase():
     bf16, f32 = torch.bfloat16, torch.float32
     standard = [("card_bf16", "cuda", bf16, (False, True)), ("card_f32", "cuda", f32, (False,)),
                 ("cpu_f32", "cpu", f32, (False,))]
+    # the hf bundle runs 8 at once in the batch phase, so here it runs one at
+    # a time only; the CPU runs take every other clip (one in sync, one dubbed)
     configs = {"hermetic": standard, "zoo": standard,
-               "hf": [("card_f32", "cuda", f32, (False, True)), ("cpu_f32", "cpu", f32, (False,))]}
+               "hf": [("card_f32", "cuda", f32, (False,)), ("cpu_f32", "cpu", f32, (False,))]}
     # the hf bundle's clips say the zoo's sentence as one formant utterance (Whisper's domain)
     speech = {"hermetic": (None, "tone"), "zoo": (ZOO_SPEECH, "tone"), "hf": (ZOO_SPEECH, "formant")}
     result = {}
@@ -1491,7 +1526,7 @@ def full_dag_phase():
                     _full_dag_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
                 for coalesced in modes:
                     mode = "coalesced" if coalesced else "one_at_a_time"
-                    r = _full_dag_run(sched, root, clips, coalesced)
+                    r = _full_dag_run(sched, root, clips[CPU_CLIPS] if device == "cpu" else clips, coalesced)
                     _check_full_dag_run(r, f"full_dag {bundle} {name} {mode}")
                     if device == "cuda":
                         if coalesced:
@@ -1507,14 +1542,16 @@ def full_dag_phase():
                     summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
                     if bundle == "hermetic":
                         summary[name]["shared_forward_ms"] = _pose_program_ms(clips[0])
-            card, cpu = runs[("card_f32", "one_at_a_time")]["finals"], runs[("cpu_f32", "one_at_a_time")]["finals"]
+            card = runs[("card_f32", "one_at_a_time")]["finals"][CPU_CLIPS]
+            cpu = runs[("cpu_f32", "one_at_a_time")]["finals"]
             errs = {k: max(abs(a.features[k] - b.features[k]) for a, b in zip(card, cpu)) for k in FEATURE_ORDER}
             errs["fake_probability"] = max(abs(a.fake_probability - b.fake_probability) for a, b in zip(card, cpu))
             feature_tol, prob_tol = (ZOO_FEATURE_TOL, ZOO_PROB_TOL) if models else (DAG_FEATURE_TOL,
                                                                                      DAG_FULL_PROB_TOL)
             check(all(v <= feature_tol for k, v in errs.items() if k != "fake_probability")
                   and errs["fake_probability"] <= prob_tol, f"full_dag {bundle}, card f32 vs CPU f32: {errs}")
-            out = {"clips": [os.path.basename(c) for c in clips], "feature_tolerance": feature_tol,
+            out = {"clips": [os.path.basename(c) for c in clips],
+                   "cpu_clips": [os.path.basename(c) for c in clips[CPU_CLIPS]], "feature_tolerance": feature_tol,
                    "prob_tolerance": prob_tol, "card_f32_vs_cpu_f32": errs, "runs": summary}
             if models:
                 for a, b in zip(card, cpu):
@@ -1531,6 +1568,315 @@ def full_dag_phase():
             result[bundle] = out
             launches += sum(r["launches"] for (name, _), r in runs.items() if name.startswith("card"))
     phase("full_dag", nodes=len(FULL_DAG_NODES), **result)
+    return launches
+
+
+#: bench.py's real-models corpus (bench.py:338-347): one sentence per clip
+BATCH_SENTENCES = (
+    "the mayor said the city will cut taxes next year",
+    "the river level rose two feet after the storm",
+    "the new bridge opened to traffic last month",
+    "the school board voted to extend the year",
+    "the state added nine thousand jobs in july",
+    "the court ruled the ban can not take effect",
+    "the team won the final game by six points",
+    "the museum opened a wing for modern art",
+)
+#: the batch phase's one cut: bench.py's clips are 30 s
+BATCH_CLIP_SECONDS, BENCH_CLIP_SECONDS = 10.0, 30.0
+#: every LR feature and the probability, coalesced against alone and card
+#: against CPU, all f32: the bars of tests/test_torch_full_dag.py
+BATCH_FEATURE_TOL, BATCH_PROB_TOL = 1e-4, 1e-5
+#: ``--train-device``'s float32 weights against the float64 host replay
+BATCH_TRAIN_TOL = 1e-6
+#: the vision wrappers' group spans and their buckets (providers/coalesce.py)
+BATCH_BUCKETS = {"det": 256, "lm": 512, "lmpose": 512, "pose": 512, "ocr": 256, "ocrdev": 256, "clip": 256}
+
+
+def _batch_corpus(root):
+    """bench.py's real-models corpus at 10 s: ``make_face_video`` seeds 0-7,
+    320x240 at 30 fps, the eight sentences in the speech the shipped ASR
+    checkpoint names (``asr_speech_domain``; formant phrases in the gate's
+    on-windows); the odd seeds' mouths move at 0.37 Hz against the 1 Hz audio
+    gate (dubbed) and their names carry "fake".  Raw-RGBA AVI files named
+    ``*.mp4`` in ``root/videos``, with their wavs."""
+    from fvd_tpu_torch.providers.factory import asr_speech_domain
+    from fvd_tpu_torch.synthetic import FORMANT_SR, make_face_video
+
+    domain = asr_speech_domain(os.path.join(REPO, "checkpoints"))
+    speech, sr = ("formant_gated", FORMANT_SR) if domain == "formant" else ("tone", 44100)
+    videos = os.path.join(root, "videos")
+    paths = []
+    for i, sentence in enumerate(BATCH_SENTENCES):
+        name = f"fake_clip{i}" if i % 2 else f"clip{i}"
+        avi = make_face_video(videos, name, duration=BATCH_CLIP_SECONDS, fps=30.0, width=320, height=240, sr=sr,
+                              seed=i, speech_text=sentence, speech=speech, mouth_gate_hz=0.37 if i % 2 else None)
+        mp4 = avi[:-len(".avi")] + ".mp4"
+        os.replace(avi, mp4)
+        paths.append(mp4)
+    return videos, paths, speech
+
+
+def _batch_config(root):
+    """bench.py's config (no E1 rate limit, 4 E2 workers), writing under ``root``."""
+    from fvd_tpu_torch.config import default_config
+
+    cfg = default_config()
+    return cfg.replace(ingest=dataclasses.replace(cfg.ingest, processed_dir=os.path.join(root, "processed")),
+                       fusion=dataclasses.replace(cfg.fusion, weights_path=os.path.join(root, "lr_weights.json"),
+                                                  features_dir=os.path.join(root, "features")),
+                       evidence=dataclasses.replace(cfg.evidence, rate_limit_s=0.0, max_workers=4))
+
+
+def _batch_run(providers, paths, root, device, concurrency, profile=False):
+    """The clips through ``batch.run_pipeline_many`` (``concurrency`` > 1)
+    or one at a time through ``batch.run_pipeline``, from cold caches: every
+    video's final state (``batch``'s scheduler wrapped to keep them), the
+    wall seconds, C1 launches and the tracer's spans; with ``profile``, a
+    ``torch.profiler`` view of the same run instead of its timing."""
+    import torch
+
+    from fvd_tpu_torch import _kernels, batch
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.runtime import Scheduler, Tracer, io_pool, set_tracer
+
+    finals = {}
+
+    class Keep(Scheduler):
+        def invoke(self, state):
+            final = super().invoke(state)
+            finals[state.input_path] = final
+            return final
+
+    cfg = _batch_config(root)
+
+    def run():
+        if concurrency > 1:
+            return batch.run_pipeline_many(paths, cfg, providers, concurrency=concurrency, device=device)
+        return [batch.run_pipeline(p, None, cfg, providers, device=device) for p in paths]
+
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    tracer = set_tracer(Tracer())
+    batch.Scheduler = Keep
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        if profile:
+            prof = _profile_top_kernels(run, (), calls=1)
+            probs = [finals[p].fake_probability if p in finals else None for p in paths]
+        else:
+            probs = run()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _kernels.LAUNCHES["lipsync_score"]
+    finally:
+        batch.Scheduler = Scheduler
+        set_tracer(None)
+        shutil.rmtree(os.path.join(root, "processed"), ignore_errors=True)
+    check(all(p is not None for p in probs) and len(finals) == len(paths),
+          f"batch: a pipeline failed ({probs}, {len(finals)} final states)")
+    counts = tracer.counts()
+    groups = {}
+    for kind, bucket in list(BATCH_BUCKETS.items()) + [("c1_lipsync", None), ("v5_ela", None)]:
+        spans = [sp for sp in tracer.spans if sp.name == f"coalesce/{kind}"]
+        if spans:
+            groups[kind] = {"groups": len(spans), "videos_per_group": sorted((sp.meta["n"] for sp in spans),
+                                                                             reverse=True),
+                            "items": [sp.meta["size"] for sp in spans],
+                            "median_ms": statistics.median(sp.elapsed_s * 1e3 for sp in spans)}
+            if bucket:
+                from fvd_tpu_torch.providers.coalesce import _pad_target
+
+                groups[kind]["padded_to"] = [_pad_target(sp.meta["size"], bucket) for sp in spans]
+    out = {"finals": [finals[p] for p in paths], "probs": probs, "seconds": seconds, "launches": launches,
+           "nodes_done": {n: counts.get(f"node/{n}", 0) for n in FULL_DAG_NODES}, "groups": groups,
+           "spans": {n: _span_ms(tracer, f"node/{n}") for n in FULL_DAG_NODES}}
+    if profile:
+        out["profile"] = prof
+    return out
+
+
+def _batch_outputs(f):
+    """What the recorded bundle decides, compared exactly between runs: the
+    transcript and its segments, the OCR texts, the gesture statuses, V5's
+    recorded scores and E1's evidence ranking (a node with nothing to do
+    leaves its field empty)."""
+    texture = f.texture_ela_details
+    return {"transcript": f.transcript, "segments": [(sg["start"], sg["end"], sg["text"]) for sg in f.segments or []],
+            "ocr": [[d["text"] for d in r["detections"]] for r in f.ocr_results or []],
+            "gestures": [(g["frame_id"], g["status"]) for g in f.gesture_check or []],
+            "texture": [d.get("fake_probability") for d in texture] if isinstance(texture, list) else texture,
+            "evidence": [(c, u) for c, _, u in sorted((e["claim_text"], -e["relevance_score"], e["url"])
+                                                      for e in f.evidence or [])]}
+
+
+def _batch_compare(a, b, what):
+    """Every LR feature and the probability of runs ``a`` and ``b`` (the same
+    clips), and their decisions: the largest gaps; raises past the bars."""
+    from fvd_tpu_torch.ops.fusion import FEATURE_ORDER
+
+    errs = {k: max(abs(x.features[k] - y.features[k]) for x, y in zip(a, b)) for k in FEATURE_ORDER}
+    errs["fake_probability"] = max(abs(x.fake_probability - y.fake_probability) for x, y in zip(a, b))
+    check(all(v <= BATCH_FEATURE_TOL for k, v in errs.items() if k != "fake_probability")
+          and errs["fake_probability"] <= BATCH_PROB_TOL, f"batch, {what}: {errs}")
+    for x, y in zip(a, b):
+        check(_batch_outputs(x) == _batch_outputs(y),
+              f"batch, {what}: the runs decide differently: {_batch_outputs(x)} vs {_batch_outputs(y)}")
+    return errs
+
+
+def _batch_summary(r, n):
+    return {"seconds": r["seconds"], "videos_per_min": n / r["seconds"] * 60.0,
+            "wall_ms_per_video": r["seconds"] * 1e3 / n, "lipsync_score_launches": r["launches"],
+            "groups": r["groups"], "node_span_median_ms": r["spans"],
+            "fake_probabilities": [f.fake_probability for f in r["finals"]]}
+
+
+def _batch_cli(root, names):
+    """``python -m fvd_tpu_torch.batch`` as a user runs it from ``root``:
+    8 at a time, then ``--train-device`` over the feature cache it left; the
+    weights against the host replay of ``run_local_lr(train=True)`` in the
+    same order."""
+    import glob
+
+    from fvd_tpu_torch import batch
+    from fvd_tpu_torch.ops import fusion
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = {}
+    for name, extra in (("concurrency_8", ["--concurrency", "8"]), ("train_device", ["--train-device"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.batch", "--videos-dir", "videos"] + extra,
+                              cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"batch cli {name}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(root, "results", "batch_results.txt")) as f:
+            table = f.read()
+        rows = [ln for ln in table.splitlines() if ln.split(" |")[0].strip() in names]
+        check(len(rows) == len(names) and "ERROR" not in table and "Total Accuracy: " in table,
+              f"batch cli {name}: results table {table!r}")
+        out[name] = {"seconds": seconds, "accuracy": table.strip().splitlines()[-1],
+                     "providers": [ln for ln in proc.stdout.splitlines() if ln.startswith("providers:")]}
+        if name == "train_device":
+            trained = [ln for ln in proc.stdout.splitlines() if ln.startswith("device-trained on")]
+            check(trained and trained[0].startswith(f"device-trained on {len(names)} cached videos"),
+                  f"batch cli train_device: {proc.stdout[-2000:]}")
+            out[name]["trained"] = trained[0]
+    # the host replay: run_local_lr's online update per video, in the feature
+    # files' sorted order, until the prediction matches the label
+    replay = os.path.join(root, "replay")
+    shutil.copytree(os.path.join(root, "features"), os.path.join(replay, "features"))
+    cfg = _batch_config(replay)
+    iters = []
+    for path in sorted(glob.glob(os.path.join(replay, "features", "*.json"))):
+        video = os.path.basename(path)[:-len(".json")]
+        label = batch.get_label(video)
+        n = 0
+        while n < 100 and (batch.run_local_lr(video, label, False, cfg) > 0.5) != bool(label):
+            batch.run_local_lr(video, label, True, cfg)
+            n += 1
+        iters.append(n)
+    with open(os.path.join(root, "lr_weights.json")) as f, open(cfg.fusion.weights_path) as g:
+        dev, host = json.load(f), json.load(g)
+    gap = max(abs(dev[k] - host.get(k, 0.0)) for k in ("bias",) + fusion.FEATURE_ORDER)
+    check(out["train_device"]["trained"].endswith(f"iters={iters}") and gap <= BATCH_TRAIN_TOL,
+          f"batch cli: --train-device {out['train_device']['trained']} vs host replay iters {iters}, |d w| {gap}")
+    out["train_device"].update(host_replay_iters=iters, weights_max_abs_err=gap)
+    return out
+
+
+def batch_phase():
+    """bench.py's real-models mode on the port: the production bundle with
+    the recorded LLM and search, 8 face clips scored at once through
+    ``batch.run_pipeline_many`` under cross-video coalescing."""
+    import torch
+
+    from fvd_tpu_torch import batch
+    from fvd_tpu_torch.providers.factory import production_providers
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    result = {"cut": {"clip_seconds": BATCH_CLIP_SECONDS, "bench_clip_seconds": BENCH_CLIP_SECONDS},
+              "feature_tolerance": BATCH_FEATURE_TOL, "prob_tolerance": BATCH_PROB_TOL,
+              "train_tolerance": BATCH_TRAIN_TOL, "tf32": False}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        videos, paths, speech = _batch_corpus(tmp)
+        result["make_clips_s"] = time.perf_counter() - t0
+        names = [os.path.basename(p) for p in paths]
+        labels = [batch.get_label(p) for p in paths]
+        check(sorted(batch.get_videos(videos)) == sorted(paths) and labels.count(1) == labels.count(0) == 4,
+              f"batch: get_videos/get_label gave {batch.get_videos(videos)}, {labels}")
+        result.update(clips=names, labels=labels, speech=speech, clip_fps=30.0, frame_size=[240, 320])
+        n = len(paths)
+
+        f32 = production_providers(ckpt, device="cuda", compute_dtype=torch.float32, recorded_services=True)
+        result["providers"] = {k: type(getattr(f32, k)).__name__ for k in ("text_encoder", "clip", "asr", "llm",
+                                                                          "search", "ocr")}
+        _batch_run(f32, paths[:1], os.path.join(tmp, "warm"), "cuda", 1)  # cuDNN picks its algorithms
+        a = _batch_run(f32, paths, os.path.join(tmp, "a"), "cuda", 8)
+        b = _batch_run(f32, paths, os.path.join(tmp, "b"), "cuda", 1)
+        del f32
+        cpu = production_providers(ckpt, device="cpu", compute_dtype=torch.float32, recorded_services=True)
+        c = _batch_run(cpu, paths[:2], os.path.join(tmp, "c"), "cpu", 1)
+        del cpu
+        for r, what in ((a, "(a) card f32, 8 at once"), (b, "(b) card f32, one at a time"),
+                        (c, "(c) CPU f32, 2 clips")):
+            check(all(v == len(r["finals"]) for v in r["nodes_done"].values()),
+                  f"batch {what}: nodes done {r['nodes_done']}")
+            check(all(np.isfinite(f.fake_probability) and 0.0 < f.fake_probability < 1.0
+                      and all(np.isfinite(v) for v in f.features.values()) for f in r["finals"]),
+                  f"batch {what}: {[f.features for f in r['finals']]}")
+        check(b["launches"] == n, f"batch (b): {b['launches']} C1 launches for {n} videos")
+        c1 = a["groups"].get("c1_lipsync", {"groups": 0, "videos_per_group": []})
+        check(a["launches"] == c1["groups"] and sum(c1["videos_per_group"]) == n,
+              f"batch (a): {a['launches']} C1 launches for C1 groups {c1}")
+        vision = [m for k in ("det", "lm", "lmpose") for m in a["groups"].get(k, {}).get("videos_per_group", [])]
+        check(vision and max(vision) >= 2, f"batch (a): no detector or landmark group holds two videos: "
+                                           f"{ {k: a['groups'].get(k) for k in ('det', 'lm', 'lmpose')} }")
+        lips = [f.features["lip_sync"] for f in b["finals"]]
+        sync = [v for v, lab in zip(lips, labels) if lab == 0]
+        dubbed = [v for v, lab in zip(lips, labels) if lab == 1]
+        check(min(sync) > max(dubbed), f"batch (b): synced clips' lip_sync {sync} not above the dubbed {dubbed}")
+        result["a_vs_b"] = _batch_compare(a["finals"], b["finals"], "(a) coalesced vs (b) alone, card f32")
+        result["b_vs_c"] = _batch_compare(b["finals"][:2], c["finals"], "(b) card f32 vs (c) CPU f32")
+        result["outputs_b"] = [{k: o[k] for k in ("transcript", "texture", "gestures")}
+                               for o in map(_batch_outputs, b["finals"])]
+        result["runs"] = {"a_card_f32_concurrency_8": _batch_summary(a, n),
+                          "b_card_f32_one_at_a_time": _batch_summary(b, n),
+                          "c_cpu_f32_two_clips": _batch_summary(c, len(c["finals"]))}
+        launches += a["launches"] + b["launches"]
+
+        bf16 = production_providers(ckpt, device="cuda", compute_dtype=torch.bfloat16, recorded_services=True)
+        _batch_run(bf16, paths[:1], os.path.join(tmp, "warm16"), "cuda", 1)
+        for half, env in (("coalesced", None), ("no_coalesce", "1")):
+            if env:
+                os.environ["FVD_TPU_NO_COALESCE"] = env
+            try:
+                d = _batch_run(bf16, paths, os.path.join(tmp, f"d_{half}"), "cuda", 8)
+                prof = _batch_run(bf16, paths, os.path.join(tmp, f"p_{half}"), "cuda", 8, profile=True)
+            finally:
+                os.environ.pop("FVD_TPU_NO_COALESCE", None)
+            check(all(v == n for v in d["nodes_done"].values()), f"batch (d) {half}: nodes done {d['nodes_done']}")
+            c1 = d["groups"].get("c1_lipsync", {"groups": n})
+            check(d["launches"] == (c1["groups"] if half == "coalesced" else n),
+                  f"batch (d) {half}: {d['launches']} C1 launches, C1 groups {c1}")
+            summary = _batch_summary(d, n)
+            p = prof["profile"]
+            summary["profile"] = {k: v for k, v in p.items() if k != "top10"}
+            summary["profile"]["top10"] = p.get("top10", [])[:5]
+            if "kernels_per_call" in p:
+                summary["kernels_per_video"] = p["kernels_per_call"] / n
+            result.setdefault("runs", {})[f"d_card_bf16_concurrency_8_{half}"] = summary
+            launches += d["launches"] + prof["launches"]
+        del bf16
+        result["d_coalesced_vs_no_coalesce_max_prob"] = max(
+            abs(x - y) for x, y in zip(result["runs"]["d_card_bf16_concurrency_8_coalesced"]["fake_probabilities"],
+                                       result["runs"]["d_card_bf16_concurrency_8_no_coalesce"]["fake_probabilities"]))
+        result["e_cli"] = _batch_cli(tmp, names)
+    phase("batch", **result)
     return launches
 
 
@@ -1570,9 +1916,21 @@ def cli_phase():
     phase("cli", cold_start_s=out["unlabelled"]["seconds"], runs=out)
 
 
-def main() -> int:
+#: the phases after ``kernel``, in order; ``--only`` runs some of them
+PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "cli")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default=",".join(PHASES),
+                        help="comma-separated phases to run after env, build and kernel (default: all)")
+    only = parser.parse_args(argv).only.split(",")
+    if not set(only) <= set(PHASES):
+        parser.error(f"--only takes phases of {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card",
               file=sys.stderr)
@@ -1582,16 +1940,24 @@ def main() -> int:
     smi_line = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
-    models_phase()  # the model zoo launches no kernel of the repo's
-    hf_phase()  # nor do the HF models
-    launches = analyzer_phase() + serving_phase() + dag_phase() + video_phase() + full_dag_phase()
-    cli_phase()  # its launches happen in the CLI's own processes and are not counted here
+    # each phase that drives a main path returns its C1 launches; the model
+    # zoo and the HF models launch no kernel of the repo's, and the CLI's
+    # launches happen in its own processes and are not counted here
+    counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
+               "full_dag": full_dag_phase, "batch": batch_phase}
+    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase}
+    launches = 0
+    for name in PHASES:
+        if name in counted and name in only:
+            launches += counted[name]()
+        elif name in only:
+            uncounted[name]()
 
     kernels = [{
         "name": "lipsync_score",
         "route": "cuda",
         "source": "fvd_tpu_torch/csrc/lipsync_score.cu",
-        "replaces": "fvd_tpu/ops/lipsync.py:161 (+ jitted stage :272-328)",
+        "replaces": "fvd_tpu/ops/lipsync.py:161 (+ jitted stage :284-328)",
         "launches": launches,
         "max_abs_err": entry_row["max_abs_err"],
         "ms": entry_row["ms"],

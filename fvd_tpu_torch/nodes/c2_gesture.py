@@ -6,8 +6,8 @@ per keyframe, parse the frame id from the filename, convert to a timestamp
 via video_fps, fuzzy-match the nearest transcript segment within ±2 s, score
 CLIP image-text cosine; thresholds: > 0.25 Consistent, < 0.15 Inconsistent,
 otherwise an LLM vision fallback with JSON ``{consistent, reason}`` (kept
-'Ambiguous' when that fails / is unavailable).  The keyframe sent to the
-vision LLM is PNG bytes, where the JAX package encodes JPEG with OpenCV.
+'Ambiguous' when that fails / is unavailable).  The keyframe goes to the
+vision LLM as the JPEG bytes OpenCV gives the JAX package (``utils/jpeg.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from fvd_tpu_torch.providers import Providers, get_providers
 from fvd_tpu_torch.providers.media import cached_keyframe_images
 from fvd_tpu_torch.runtime.debug import dump_node_debug
 from fvd_tpu_torch.state import State, StateDelta
-from fvd_tpu_torch.utils.png import encode_png
+from fvd_tpu_torch.utils.jpeg import encode_jpeg
 
 
 def find_closest_segment(timestamp: float, segments: List[dict], tolerance: float = 2.0) -> Optional[dict]:
@@ -46,10 +46,6 @@ def parse_frame_id(path: str) -> int:
         if part.isdigit():
             return int(part)
     return -1
-
-
-def _encode_image(rgb: np.ndarray) -> bytes:
-    return encode_png(np.ascontiguousarray(rgb.astype(np.uint8)))
 
 
 def run(
@@ -123,7 +119,7 @@ def run(
                 "",
                 f"Does the image support this narration: '{text}'? Return "
                 "JSON with 'consistent' (bool) and 'reason'.",
-                [_encode_image(image)],
+                [encode_jpeg(np.asarray(image, np.uint8))],
             )
             if result is not None:
                 status = "Consistent" if result.get("consistent") else "Inconsistent"

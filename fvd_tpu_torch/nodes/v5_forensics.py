@@ -9,9 +9,9 @@ the mean; missing faces/crops/credentials all yield 0.0 with a reason.
 ELA is the DCT-domain JPEG approximation of ``ops/forensics.py``, one
 shape-bucketed batch on ``device`` (default the card) per video, or per
 coalesced group of videos; the spectrum is the host FFT.  The artifacts are
-``ela_analysis/ela_<i>.png`` and ``fft_<i>.png``, and the images sent to the
-vision LLM are PNG bytes, where the JAX package encodes JPEG with OpenCV; a
-scripted LLM's score does not depend on them.
+``ela_analysis/ela_<i>.png`` and ``fft_<i>.png`` (the JAX package writes
+JPEG files); the images sent to the vision LLM are the JPEG bytes OpenCV
+gives the JAX package (``utils/jpeg.py``), which a recorded LLM scores.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from fvd_tpu_torch.providers.coalesce import run_program
 from fvd_tpu_torch.runtime.debug import dump_node_debug
 from fvd_tpu_torch.runtime.io_pool import ArtifactWriter
 from fvd_tpu_torch.state import State, StateDelta
-from fvd_tpu_torch.utils.png import decode_png, encode_png
+from fvd_tpu_torch.utils.jpeg import encode_jpeg
+from fvd_tpu_torch.utils.png import decode_png
 
 
 def _safe_float(val, default=None):
@@ -48,10 +49,6 @@ def _load_crop(face_info: Dict[str, Any]) -> Optional[np.ndarray]:
         with open(path, "rb") as f:
             return decode_png(f.read())[..., :3]
     return None
-
-
-def _encode_image(rgb: np.ndarray) -> bytes:
-    return encode_png(np.ascontiguousarray(rgb.astype(np.uint8)))
 
 
 def run(
@@ -145,7 +142,7 @@ def run(
                     "detection. You MUST return a JSON object (nothing else) "
                     "with keys 'fake_probability' and 'reasoning'.",
                     "Analyze this face for manipulation. Return JSON.",
-                    [_encode_image(crop), _encode_image(ela), _encode_image(spectrum_rgb)],
+                    [encode_jpeg(crop), encode_jpeg(ela), encode_jpeg(spectrum_rgb)],
                 )
                 if isinstance(result, dict):
                     analysis_results.append(result)

@@ -1,12 +1,15 @@
-"""LR fusion helpers: the host half of ``fvd_tpu/ops/fusion.py``.
+"""LR fusion helpers: the port of ``fvd_tpu/ops/fusion.py``.
 
 The final ``fake_probability`` is a numerically stable sigmoid over 9
 features (reference ``lr_node.py:142-155``), trained online with plain SGD
 ``w <- w - 0.005*(p-label)*f`` (``lr_node.py:181-192``).  The per-video path
 is float64 Python, bit-compatible with the reference, and touches no device.
-The batched training programs (``predict_batch``, ``sgd_epoch``,
-``train_until_correct``) come with their only caller, the batch harness's
-device training.
+
+Training over the whole feature cache (the batch harness's
+``--train-device``) is the device half: the corpus becomes one float32
+``[N, D]`` tensor on the caller's device, and each "epoch over the corpus
+with per-video sequential updates" is a loop over videos of tensor ops that
+never reads a value back until it ends.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 #: Canonical feature order (reference lr_node.py:130-140 insertion order).
 FEATURE_ORDER: Tuple[str, ...] = (
@@ -81,3 +85,47 @@ def vectors_to_weights(w: np.ndarray, b: np.ndarray) -> Dict[str, float]:
     for k, v in zip(FEATURE_ORDER, np.asarray(w).tolist()):
         out[k] = float(v)
     return out
+
+
+def predict_batch(feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Vectorized LR forward over an [N, D] feature matrix."""
+    return torch.sigmoid(feats @ w + b)
+
+
+def sgd_epoch(feats: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              lr: float = DEFAULT_LEARNING_RATE) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sequential pass over the corpus (per-video SGD, like replaying the
+    reference batch harness).  Returns (w, b, per-video probabilities
+    *before* each update)."""
+    probs = []
+    for f, y in zip(feats, labels):
+        p = torch.sigmoid(f @ w + b)
+        err = p - y
+        w, b = w - lr * err * f, b - lr * err
+        probs.append(p)
+    return w, b, torch.stack(probs) if probs else feats.new_zeros((0,))
+
+
+def train_until_correct(feats: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        lr: float = DEFAULT_LEARNING_RATE,
+                        max_epochs: int = 100) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device analog of the harness's retry-until-correct loop
+    (``batch_test.py:158-189``): for each video in order, repeat the SGD
+    update until the thresholded prediction matches the label (at most
+    ``max_epochs`` updates).  Returns (w, b, updates per video, int32).
+
+    The JAX package runs a ``while_loop`` per video.  Once a video's
+    prediction is right, ``w`` and ``b`` stop changing, so ``max_epochs``
+    steps that update only while the video is still wrong give the same
+    ``w``, ``b`` and counts with no host sync inside the loop."""
+    iters = []
+    for f, y in zip(feats, labels):
+        n = torch.zeros((), dtype=torch.int32, device=feats.device)
+        for _ in range(max_epochs):
+            p = torch.sigmoid(f @ w + b)
+            wrong = torch.where(y > 0.5, p <= 0.5, p > 0.5)
+            err = torch.where(wrong, p - y, torch.zeros_like(p))
+            w, b = w - lr * err * f, b - lr * err
+            n = n + wrong.to(torch.int32)
+        iters.append(n)
+    return w, b, torch.stack(iters) if iters else torch.zeros((0,), dtype=torch.int32, device=feats.device)

@@ -15,7 +15,9 @@
   else the hashing encoder; the CLIP from ``clip.npz`` (calibration from its
   sidecar), else none, and C2 skips; the ASR from ``asr_formant.npz``, else
   ``asr.npz``, else EnergyVAD segments with no words;
-* no LLM and no search.
+* no LLM and no search, or with ``recorded_services`` the deterministic
+  ``RecordedLLM`` and ``RecordedSearch`` of ``providers/recorded.py``, as the
+  JAX package's factory puts them in.
 
 On a machine with no network and no API keys the JAX package's bundle gives
 the same empty LLM and search results.  One ``providers:`` line names the
@@ -45,7 +47,7 @@ KNOWN_CHECKPOINTS = (
 )
 
 #: the seams whose backends wait for a later slice of the port
-_NOT_PORTED = "LLM and search: none, no networked backend (ROADMAP §1 item 13)"
+_NOT_PORTED = "LLM and search: none, no networked backend (ROADMAP §1 item 7)"
 
 
 def _has_checkpoints(path: str) -> bool:
@@ -105,13 +107,16 @@ def bootstrap_production(device=None) -> Providers:
 
 
 def production_providers(checkpoint_dir: str = "checkpoints", device=None,
-                         compute_dtype: torch.dtype = torch.bfloat16) -> Providers:
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         recorded_services: bool = False) -> Providers:
     """The port's production bundle on ``device`` (default the card), the
     face and landmark backbones in ``compute_dtype``; the OCR, CLIP, text
     encoder and ASR compute as their JAX counterparts do (the v2 OCR
     detector in bf16, the rest in float32).  An npz checkpoint that exists
     but does not load raises; an HF directory that does not load is named
-    and passed over, as in the JAX package."""
+    and passed over, as in the JAX package.  ``recorded_services`` puts the
+    recorded LLM and search in place of the null ones, so the C3 -> E1 -> E2
+    -> E3 and V5 half of the DAG runs hermetically."""
     from fvd_tpu_torch.models.asr import JaxASR
     from fvd_tpu_torch.models.encoders import JaxClip, JaxTextEncoder
     from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
@@ -168,10 +173,17 @@ def production_providers(checkpoint_dir: str = "checkpoints", device=None,
         asr = EnergyVAD(device=dev)
     print(f"providers: text encoder {type(text_encoder).__name__}, CLIP {type(clip).__name__}, "
           f"ASR {type(asr).__name__}")
-    print(f"providers: {_NOT_PORTED}")
+    if recorded_services:
+        from fvd_tpu_torch.providers.recorded import RecordedLLM, RecordedSearch
+
+        llm, search = RecordedLLM(), RecordedSearch()
+        print("providers: LLM RecordedLLM, search RecordedSearch")
+    else:
+        llm, search = NullLLM(), NullSearch()
+        print(f"providers: {_NOT_PORTED}")
     return Providers(
-        llm=NullLLM(),
-        search=NullSearch(),
+        llm=llm,
+        search=search,
         text_encoder=text_encoder,
         clip=clip,
         asr=asr,

@@ -22,8 +22,8 @@ class LLMProvider(Protocol):
     def vision_json(
         self, system: str, prompt: str, images: Sequence[bytes]
     ) -> Optional[Dict[str, Any]]:
-        """JSON-mode vision completion over encoded images (the port sends
-        PNG bytes); None on failure/unavailable."""
+        """JSON-mode vision completion over encoded images (JPEG bytes);
+        None on failure/unavailable."""
         ...
 
     @property

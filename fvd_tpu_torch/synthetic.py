@@ -1,7 +1,8 @@
-"""Synthetic face clips for the port: ``make_face_video`` and the gated and
-tone-coded audio it uses, the counterparts of those in ``fvd_tpu/synthetic.py``,
-drawn with numpy (``fvd_tpu_torch/utils/draw.py``) so that they can be made
-where OpenCV is not installed.
+"""Synthetic media and model stand-ins for the port: ``make_face_video`` and
+the gated and tone-coded audio it uses, ``make_synthetic_video`` and the
+deterministic providers of ``hermetic_providers``, the counterparts of those
+in ``fvd_tpu/synthetic.py``, drawn with numpy (``fvd_tpu_torch/utils/draw.py``)
+so that they can be made where OpenCV is not installed.
 
 The clip is an elliptical face whose mouth aperture follows the same gate as
 its audio track, with a slow centre drift that exercises IoU tracking; it is
@@ -22,8 +23,47 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from fvd_tpu_torch.providers.media import write_video
+from fvd_tpu_torch.providers.vision import FaceBox
 from fvd_tpu_torch.utils import draw
 from fvd_tpu_torch.utils.wav import write_wav
+
+
+def make_synthetic_video(
+    dirpath: str,
+    name: str = "clip",
+    duration: float = 6.0,
+    fps: float = 10.0,
+    width: int = 160,
+    height: int = 120,
+    gate_hz: float = 1.0,
+    sr: int = 16000,
+) -> str:
+    """Bright-square 'face' video + gated-tone sibling wav; the mouth strip
+    and the audio share the same gate -> positive lip-sync correlation.
+
+    The frames and samples are the JAX package's; the file is a raw-RGBA AVI
+    at the path the JAX package uses, ``<name>.mp4`` (IN and ``VideoReader``
+    read by content, and OpenCV reads it too)."""
+    os.makedirs(dirpath, exist_ok=True)
+    n = int(fps * duration)
+    x1, y1 = int(width * 0.25), int(height * 0.17)
+    x2, y2 = int(width * 0.69), int(height * 0.75)
+    frames = np.zeros((n, height, width, 3), np.uint8)
+    for i in range(n):
+        frames[i, :, :] = 16
+        frames[i, y1:y2, x1:x2] = 200
+        gate = 0.5 * (1 + np.sin(2 * np.pi * gate_hz * (i / fps)))
+        mh = int(4 + 10 * gate)
+        my = int(height * 0.58)
+        frames[i, my: my + mh, int(width * 0.38): int(width * 0.56)] = 60
+    video_path = os.path.join(dirpath, f"{name}.mp4")
+    write_video(video_path, frames, fps)
+
+    t = np.arange(int(sr * duration)) / sr
+    gate = (np.sin(2 * np.pi * gate_hz * t) > 0).astype(np.float32)
+    sig = 0.5 * np.sin(2 * np.pi * 330 * t).astype(np.float32) * gate
+    write_wav(os.path.join(dirpath, f"{name}.wav"), sig, sr)
+    return video_path
 
 
 def _build_template() -> np.ndarray:
@@ -116,15 +156,20 @@ def tone_speech(text: str, rng: np.random.RandomState | None = None) -> np.ndarr
 
 
 def gated_speech(text: str, duration: float, gate_hz: float = 1.0, sr: int = TONE_SR,
-                 rng: np.random.RandomState | None = None) -> np.ndarray:
-    """Tone-coded speech phrased into the gate's on-windows: words are packed
-    greedily into successive gate-on half-periods (the mouth-open phases of
-    the face), with silence between; text beyond the clip is dropped."""
+                 rng: np.random.RandomState | None = None, renderer: str = "tone") -> np.ndarray:
+    """Tone-coded speech (``renderer="formant"``: :func:`formant_speech`)
+    phrased into the gate's on-windows: words are packed greedily into
+    successive gate-on half-periods (the mouth-open phases of the face), with
+    silence between; text beyond the clip is dropped."""
+    if renderer.startswith("formant"):
+        char_s, render = PHONE_S, formant_speech
+    else:
+        char_s, render = TONE_CHAR_S, tone_speech
     n_total = int(sr * duration)
     audio = np.zeros(n_total, np.float32)
     on_s = 0.5 / gate_hz  # gate = sin(2*pi*gate_hz*t) > 0: first half-period
     period = 1.0 / gate_hz
-    max_chars = min(int(on_s / TONE_CHAR_S), 10)
+    max_chars = min(int(on_s / char_s), 10)
     words = [w for w in text.split() if w]
     wi = 0
     k = 0
@@ -141,7 +186,7 @@ def gated_speech(text: str, duration: float, gate_hz: float = 1.0, sr: int = TON
             # the gate-on phase
             phrase = words[wi][: max_chars + 4]
             wi += 1
-        a = tone_speech(phrase, rng)
+        a = render(phrase, rng)
         i0 = int(k * period * sr)
         i1 = min(i0 + len(a), n_total)
         audio[i0:i1] = a[: i1 - i0]
@@ -355,10 +400,13 @@ def make_face_video(
     The mouth opens with ``0.5 * (1 + sin(2 pi mouth_gate_hz t))`` and the
     audio is a 330 Hz tone gated by ``sin(2 pi gate_hz t) > 0`` (or tone-coded
     ``speech_text`` in the gate's on-windows; with ``speech="formant"``,
-    ``speech_text`` as one :func:`formant_speech` utterance from 0.5 s, at
-    16 kHz only).  ``mouth_gate_hz`` (default ``gate_hz``) drives the mouth at
+    ``speech_text`` as one :func:`formant_speech` utterance from 0.5 s; with
+    ``speech="formant_gated"``, formant phrases in the gate's on-windows, the
+    JAX package's ``speech_renderer="formant"``; both formant kinds at 16 kHz
+    only).  ``mouth_gate_hz`` (default ``gate_hz``) drives the mouth at
     another rate than the audio: the dubbed mouth no lag can align."""
-    if speech not in ("tone", "formant") or (speech == "formant" and sr != FORMANT_SR):
+    formant = speech in ("formant", "formant_gated")
+    if speech not in ("tone", "formant", "formant_gated") or (formant and sr != FORMANT_SR):
         raise ValueError(f"speech={speech!r} at {sr} Hz: tone at any rate, or formant at {FORMANT_SR} Hz")
     os.makedirs(dirpath, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -385,10 +433,130 @@ def make_face_video(
         utterance = formant_speech(speech_text, np.random.RandomState(seed))[:len(sig) - sr // 2]
         sig[sr // 2:sr // 2 + len(utterance)] = utterance
     elif speech_text is not None:
-        sig = gated_speech(speech_text, duration, gate_hz=gate_hz, sr=sr)
+        sig = gated_speech(speech_text, duration, gate_hz=gate_hz, sr=sr,
+                           renderer="formant" if formant else "tone")
     else:
         t = np.arange(int(sr * duration)) / sr
         gate = (np.sin(2 * np.pi * gate_hz * t) > 0).astype(np.float32)
         sig = 0.5 * np.sin(2 * np.pi * 330 * t).astype(np.float32) * gate
     write_wav(os.path.join(dirpath, f"{name}.wav"), sig, sr)
     return video_path
+
+
+def _bright_boxes(frames: np.ndarray):
+    """Vectorized bright-square bounding boxes over a frame batch.
+
+    Returns (has, x1, y1, x2, y2) with inclusive int pixel extents.
+    ``sum > 360`` on uint16 is exactly ``mean(axis=-1) > 120``.
+    """
+    frames = np.asarray(frames)
+    if frames.dtype != np.uint8:  # the fast paths below assume uint8 frames
+        frames = np.clip(frames, 0, 255).astype(np.uint8)
+    sums = frames[..., 0].astype(np.uint16)
+    sums += frames[..., 1]
+    sums += frames[..., 2]
+    mask = sums > 360  # [B, H, W]
+    rows = mask.any(axis=2)  # [B, H]
+    cols = mask.any(axis=1)  # [B, W]
+    has = rows.any(axis=1)
+    y1 = rows.argmax(axis=1)
+    y2 = rows.shape[1] - 1 - rows[:, ::-1].argmax(axis=1)
+    x1 = cols.argmax(axis=1)
+    x2 = cols.shape[1] - 1 - cols[:, ::-1].argmax(axis=1)
+    return has, x1, y1, x2, y2
+
+
+class SyntheticFaceDetector:
+    """Finds the bright square — a deterministic FaceDetectorProvider."""
+
+    model_name = "synthetic_blob"
+
+    def detect_batch(self, frames: np.ndarray) -> List[List[FaceBox]]:
+        has, x1, y1, x2, y2 = _bright_boxes(frames)
+        return [
+            [FaceBox(float(x1[i]), float(y1[i]), float(x2[i] + 1), float(y2[i] + 1), 0.95)] if has[i] else []
+            for i in range(len(has))
+        ]
+
+
+class SyntheticLandmarks:
+    """68-point landmark + pose provider driven by the bright-square layout.
+
+    Mouth aperture follows the configured gate so C1 sees a syncable MAR
+    track; eyes get plausible EAR geometry; poses drift smoothly.
+    """
+
+    model_name = "synthetic_landmarks"
+
+    def __init__(self, fps: float = 10.0, gate_hz: float = 1.0):
+        self.fps = fps
+        self.gate_hz = gate_hz
+        self._call = 0
+
+    def landmarks_batch(self, frames: np.ndarray, device_frames=None) -> List[List[np.ndarray]]:
+        """One vectorized pass over the batch; ``device_frames`` is unused:
+        this fixture computes on the host."""
+        frames = np.asarray(frames)
+        if frames.dtype != np.uint8:  # the mouth-strip range check is uint8
+            frames = np.clip(frames, 0, 255).astype(np.uint8)
+        b = len(frames)
+        if b == 0:
+            return []
+        has, x1, y1, x2, y2 = _bright_boxes(frames)
+        cx = (x1 + x2) / 2
+        cy = (y1 + y2) / 2
+        half = np.maximum((x2 - x1) / 2, 12)
+
+        # aperture measured from the rendered mouth strip (content-based, so
+        # chunked streaming sees identical landmarks regardless of batch
+        # boundaries; the strip height encodes the gate). |v-60|<10 on uint8
+        # == 51..69 inclusive; the wraparound subtract needs one pass.
+        in_range = (frames - np.uint8(51)) <= np.uint8(18)
+        mouth_mask = in_range[..., 0] & in_range[..., 1] & in_range[..., 2]
+        strip = mouth_mask.any(axis=2)  # [B, H]
+        has_strip = strip.any(axis=1)
+        r1 = strip.argmax(axis=1)
+        r2 = strip.shape[1] - 1 - strip[:, ::-1].argmax(axis=1)
+        i = np.arange(b)
+        gate = 0.5 * (1 + np.sin(2 * np.pi * self.gate_hz * (i / self.fps)))
+        aperture = np.where(has_strip, 2 + (r2 - r1), 2 + 10 * gate)
+
+        pts = np.zeros((b, 68, 2))
+        ang = np.linspace(0, 2 * np.pi, 48, endpoint=False)
+        pts[:, :48, 0] = cx[:, None] + 0.8 * half[:, None] * np.cos(ang)
+        pts[:, :48, 1] = cy[:, None] + 0.8 * half[:, None] * np.sin(ang)
+        ey = cy - 0.3 * half
+        for base, ex in ((36, cx - 0.4 * half), (42, cx + 0.4 * half)):
+            pts[:, base + 0] = np.stack([ex - 6, ey], axis=1)
+            pts[:, base + 3] = np.stack([ex + 6, ey], axis=1)
+            pts[:, base + 1] = np.stack([ex - 2, ey - 2], axis=1)
+            pts[:, base + 2] = np.stack([ex + 2, ey - 2], axis=1)
+            pts[:, base + 4] = np.stack([ex + 2, ey + 2], axis=1)
+            pts[:, base + 5] = np.stack([ex - 2, ey + 2], axis=1)
+        mcx, mcy = cx, cy + 0.5 * half
+        outer = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        pts[:, 48:60, 0] = mcx[:, None] + 12 * np.cos(outer)
+        pts[:, 48:60, 1] = mcy[:, None] + aperture[:, None] * np.sin(outer)
+        inner = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+        pts[:, 60:68, 0] = mcx[:, None] + 8 * np.cos(inner)
+        pts[:, 60:68, 1] = mcy[:, None] + 0.7 * aperture[:, None] * np.sin(inner)
+        return [[pts[k]] if has[k] else [] for k in range(b)]
+
+    def pose_batch(self, crops: np.ndarray) -> np.ndarray:
+        n = len(crops)
+        idx = np.arange(self._call, self._call + n)
+        self._call += n
+        return np.stack([10 + 2 * np.sin(idx / 5.0), (idx * 0.5) % 20.0, np.full(n, 5.0)], axis=1)
+
+
+def hermetic_providers(fps: float = 10.0, gate_hz: float = 1.0, device=None):
+    """Provider bundle with no network and no weights: the energy VAD on
+    ``device`` (default the card), deterministic everything else."""
+    from fvd_tpu_torch.providers import Providers
+    from fvd_tpu_torch.providers.asr import EnergyVAD
+
+    return Providers(
+        asr=EnergyVAD(device=device),
+        face_detector=SyntheticFaceDetector(),
+        landmarks=SyntheticLandmarks(fps=fps, gate_hz=gate_hz),
+    )

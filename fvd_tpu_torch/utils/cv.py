@@ -1,5 +1,6 @@
-"""OpenCV-exact host image helpers: the three calls of ``cv2`` that the JAX
-package's OCR and CLIP make on the host, for a machine without OpenCV.
+"""OpenCV-exact host image helpers: the calls of ``cv2`` that the JAX
+package's OCR, CLIP and recorded LLM make on the host, for a machine without
+OpenCV.
 
 * :func:`resize_linear_u8` is ``cv2.resize(img, (w, h))`` (INTER_LINEAR) on
   uint8: 11-bit fixed-point tap weights, a horizontal pass kept as integers
@@ -10,6 +11,10 @@ package's OCR and CLIP make on the host, for a machine without OpenCV.
 * :func:`component_boxes` is the stats table of
   ``cv2.connectedComponentsWithStats(mask)`` (8-connectivity) without the
   background row, in OpenCV's label order, on ``scipy.ndimage.label``.
+* :func:`laplacian_f32` is ``cv2.Laplacian(img.astype(np.float32),
+  cv2.CV_32F)``: ksize 1, the kernel ``[[0, 1, 0], [1, -4, 1], [0, 1, 0]]``
+  with ``BORDER_REFLECT_101``.  On uint8 input every value is an integer
+  below 2^24, so float32 holds each sum exactly in any order.
 """
 
 from __future__ import annotations
@@ -106,3 +111,16 @@ def component_boxes(mask: np.ndarray) -> List[Tuple[int, int, int, int, int]]:
         y, x = sl[0].start, sl[1].start
         boxes.append((first_block[i], (x, y, sl[1].stop - x, sl[0].stop - y, int(area[i]))))
     return [b for _, b in sorted(boxes)]
+
+
+def laplacian_f32(gray_u8: np.ndarray) -> np.ndarray:
+    """float32 [H, W] Laplacian of a uint8 [H, W] image, as OpenCV gives it."""
+    img = np.asarray(gray_u8).astype(np.float32)
+    # numpy's "reflect" leaves the edge out, as BORDER_REFLECT_101 does; an
+    # axis of length 1 reflects onto itself in both
+    p = img
+    for axis in (0, 1):
+        width = [(0, 0), (0, 0)]
+        width[axis] = (1, 1)
+        p = np.pad(p, width, mode="reflect" if img.shape[axis] > 1 else "edge")
+    return np.ascontiguousarray(p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * img, np.float32)

@@ -48,7 +48,7 @@ def test_cli_prints_fake_probability_and_trains_with_a_label(workdir, clip, caps
     assert line.startswith("Fake probability: ")
     p = float(line.split(": ")[1])
     assert 0.0 <= p <= 1.0
-    assert "providers: LLM and search: none, no networked backend (ROADMAP §1 item 13)" in out
+    assert "providers: LLM and search: none, no networked backend (ROADMAP §1 item 7)" in out
     # checkpoints/hf is there: its models run
     assert "providers: text encoder HFTextEncoder, CLIP HFClip, ASR HFWhisperASR" in out
     assert tprov.get_providers().landmarks.device == torch.device("cpu")

@@ -480,3 +480,78 @@ def test_hf_whisper_on_card_matches_cpu(hf_models):
     if row["first_near_tie_step"] is None:
         assert hf_models["cuda"]["whisper"].transcribe("", audio=audio) == \
             hf_models["cpu"]["whisper"].transcribe("", audio=audio)
+
+
+def _two_clips_frames():
+    """Frames of two synthetic face clips (10 fps, 320x240): 20 and 30."""
+    import tempfile
+
+    from fvd_tpu_torch.providers.media import VideoReader
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = []
+        for seed, n in ((0, 20), (1, 30)):
+            clip = make_face_video(tmp, f"c{seed}", duration=n / 10.0, fps=10.0, seed=seed)
+            out.append(VideoReader(use_cache=False).sample(clip, range(n))[0])
+    return out
+
+
+def _concurrently(fns):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(fns)) as pool:
+        return [f.result(timeout=300) for f in [pool.submit(fn) for fn in fns]]
+
+
+def test_vision_wrappers_on_card_match_the_unwrapped_providers(zoo):
+    """The four wrappers of ``coalesce_providers`` over the card's bundle:
+    two callers at once, each against the unwrapped provider on its own
+    frames; the groups pad to the ladder, so only the batch differs."""
+    from fvd_tpu_torch.providers.coalesce import coalesce_providers
+
+    bundle = zoo["cuda"]
+    frames = _two_clips_frames()
+    dev = [torch.from_numpy(f).cuda() for f in frames]
+    wrapped, close = coalesce_providers(bundle)
+    try:
+        assert type(wrapped.face_detector).__name__ == "CoalescingDetector"
+        dets = _concurrently([lambda d=d: wrapped.face_detector.detect_batch(d) for d in dev])
+        lms = _concurrently([lambda f=f, d=d: wrapped.landmarks.landmarks_batch(f, device_frames=d)
+                             for f, d in zip(frames, dev)])
+        ocr = _concurrently([lambda f=f, d=d: wrapped.ocr.read_text_batch_device(d[:4], list(f[:4]))
+                             for f, d in zip(frames, dev)])
+        texts = _chip_smoke()._sentences(4)
+        sims = _concurrently([lambda f=f: wrapped.clip.image_text_similarity_batch(list(f[:4]), texts)
+                              for f in frames])
+    finally:
+        close()
+    for f, d, got_det, got_lm, got_ocr, got_sim in zip(frames, dev, dets, lms, ocr, sims):
+        ref_det = bundle.face_detector.detect_batch(d)
+        assert [len(x) for x in got_det] == [len(x) for x in ref_det] and sum(map(len, ref_det)) >= len(f) // 2
+        for a, b in zip(got_det, ref_det):
+            np.testing.assert_allclose([[x.x1, x.y1, x.x2, x.y2, x.confidence] for x in a],
+                                       [[x.x1, x.y1, x.x2, x.y2, x.confidence] for x in b], atol=1e-2, rtol=0)
+        ref_lm = bundle.landmarks.landmarks_batch(f, device_frames=d)
+        assert [len(x) for x in got_lm] == [len(x) for x in ref_lm]
+        for a, b in zip(got_lm, ref_lm):
+            for pa, pb in zip(a, b):
+                np.testing.assert_allclose(pa, pb, atol=1e-2, rtol=0)
+        ref_ocr = bundle.ocr.read_text_batch_device(d[:4], list(f[:4]))
+        assert [[x["text"] for x in r] for r in got_ocr] == [[x["text"] for x in r] for r in ref_ocr]
+        np.testing.assert_allclose(got_sim, bundle.clip.image_text_similarity_batch(list(f[:4]), texts),
+                                   atol=1e-5, rtol=0)
+
+
+def test_train_until_correct_on_card_matches_cpu(cuda):
+    from fvd_tpu_torch.ops import fusion
+
+    rng = np.random.RandomState(0)
+    feats = rng.rand(16, 9).astype(np.float32)
+    labels = (rng.rand(16) > 0.5).astype(np.float32)
+    w, b = (rng.randn(9) * 0.5).astype(np.float32), np.float32(0.2)
+    out = {d: fusion.train_until_correct(*(torch.from_numpy(np.asarray(x)).to(d) for x in (feats, labels, w, b)))
+           for d in ("cpu", cuda)}
+    assert out[cuda][2].cpu().tolist() == out["cpu"][2].tolist() and sum(out["cpu"][2].tolist()) > 0
+    assert float((out[cuda][0].cpu() - out["cpu"][0]).abs().max()) <= 1e-6
+    assert abs(float(out[cuda][1]) - float(out["cpu"][1])) <= 1e-6

@@ -97,5 +97,5 @@ def test_hf_dir_is_named_and_the_npz_models_run(tmp_path, capsys):
     t = factory.production_providers(d, device="cpu")
     out = capsys.readouterr().out
     assert "providers: text encoder JaxTextEncoder, CLIP JaxClip, ASR JaxASR" in out
-    assert "ROADMAP §1 item 13" in out and "failed to load HF" not in out
+    assert "ROADMAP §1 item 7" in out and "failed to load HF" not in out
     assert isinstance(t.asr, JaxASR) and isinstance(t.clip, JaxClip)

@@ -287,7 +287,12 @@ def test_v5_reads_the_crop_png_when_no_crop_is_in_memory(tmp_path):
         State(face_detections=[{"frame_id": 0, "timestamp": 0.0, "faces": [face]}], data_dir=str(tmp_path)),
         providers=Providers(llm=Vision(default={"fake_probability": 0.25})), device="cpu")
     assert delta["texture_ela_score"] == 0.25
-    assert len(seen) == 3 and all(img[:8] == b"\x89PNG\r\n\x1a\n" for img in seen)
+    # crop, ELA map and spectrum go to the LLM as the JPEG bytes OpenCV gives
+    # the JAX package (its ``_encode_jpeg``); the crop is read from the PNG file
+    from fvd_tpu.nodes.v5_forensics import _encode_jpeg
+
+    assert len(seen) == 3 and all(img[:4] == b"\xff\xd8\xff\xe0" for img in seen)
+    assert seen[0] == _encode_jpeg(crop)
 
 
 if __name__ == "__main__":  # print the tie statistics the bars above come from

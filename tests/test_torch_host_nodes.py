@@ -269,12 +269,19 @@ def test_c2_ambiguous_triggers_llm_fallback_with_png_and_jax_prompt(tmp_path):
     llm = Vision(default={"consistent": True, "reason": "matches"})
     check = c2_gesture.run(state, providers=Providers(clip=StubClip(default=0.2), llm=llm))["gesture_check"][0]
     assert check["status"] == "Consistent" and check["source"] == "llm_fallback"
-    assert len(images) == 1 and images[0][:8] == b"\x89PNG\r\n\x1a\n"
-    jllm = jprov.ScriptedLLM(default={"consistent": True, "reason": "matches"})
+    # the keyframe goes to the LLM as the JPEG bytes OpenCV gives the JAX package
+    # (the test's name predates the port's JPEG encoder: the keyframe file stays PNG)
+    jimages = []
+
+    class JVision(jprov.ScriptedLLM):
+        def vision_json(self, system, prompt, imgs):
+            jimages.extend(imgs)
+            return super().vision_json(system, prompt, imgs)
+
+    jllm = JVision(default={"consistent": True, "reason": "matches"})
     jstate = JState(keyframes=[_keyframe(tmp_path)], segments=SEGMENTS, metadata={"video_fps": 30.0})
-    with pytest.MonkeyPatch.context() as mp:  # the JAX package encodes JPEG with cv2; its bytes are not compared
-        mp.setattr(jc2, "_encode_jpeg", lambda rgb: b"")
-        jc2.run(jstate, providers=jprov.Providers(clip=jprov.StubClip(default=0.2), llm=jllm))
+    jc2.run(jstate, providers=jprov.Providers(clip=jprov.StubClip(default=0.2), llm=jllm))
+    assert len(images) == 1 and images[0][:4] == b"\xff\xd8\xff\xe0" and images == jimages
     assert llm.calls == jllm.calls
 
 

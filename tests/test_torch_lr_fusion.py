@@ -1,15 +1,18 @@
-"""The LR fusion node and the host half of ``ops/fusion.py`` of the port
-against the JAX package: the reference's float64 math, the feature builders
-with their debug-JSON recovery paths, and what the node writes (feature
-cache, updated weights)."""
+"""The LR fusion node and ``ops/fusion.py`` of the port against the JAX
+package: the reference's float64 math, the feature builders with their
+debug-JSON recovery paths, what the node writes (feature cache, updated
+weights), and the device half (batched forward, one SGD epoch, the
+retry-until-correct replay) in float32."""
 
 import dataclasses
 import json
 import math
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fvd_tpu.config import default_config as jdefault_config
 from fvd_tpu.nodes import lr_fusion as jlr
@@ -210,3 +213,73 @@ def test_save_weights_round_trip(tmp_path):
     jlr.save_weights(str(tmp_path / "j.json"), WEIGHTS)
     assert (tmp_path / "t.json").read_text() == (tmp_path / "j.json").read_text()
     assert tlr.load_weights(str(tmp_path / "t.json")) == WEIGHTS
+
+
+# --- the device half: predict_batch, sgd_epoch, train_until_correct ----------
+#: float32 on both sides; only the summation order of the 9-term dot differs
+DEVICE_TOL = 1e-6
+
+
+def _corpus_matrix():
+    names = sorted(CORPUS)
+    feats = np.stack([tfusion.features_to_vector(CORPUS[n]["features"]) for n in names])
+    labels = np.array([1.0 if "fake" in n.lower() else 0.0 for n in names], np.float32)
+    expected = np.array([CORPUS[n]["expected_probability"] for n in names])
+    return names, feats, labels, expected
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+def test_predict_batch_matches_jax_and_fixture():
+    _, feats, _, expected = _corpus_matrix()
+    w, b = tfusion.weights_to_vectors(WEIGHTS)
+    got = tfusion.predict_batch(_t(feats), _t(w), _t(b)).numpy()
+    ref = np.asarray(jfusion.predict_batch(jnp.asarray(feats), jnp.asarray(w), jnp.asarray(b)))
+    assert got.dtype == np.float32 and got.shape == (len(feats),)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=DEVICE_TOL)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=1e-5)
+
+
+def test_sgd_epoch_matches_jax_and_host_replay():
+    names, feats, labels, _ = _corpus_matrix()
+    w, b = tfusion.weights_to_vectors(WEIGHTS)
+    w2, b2, probs = tfusion.sgd_epoch(_t(feats), _t(labels), _t(w), _t(b))
+    jw, jb, jprobs = jfusion.sgd_epoch(jnp.asarray(feats), jnp.asarray(labels), jnp.asarray(w), jnp.asarray(b))
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=0, atol=DEVICE_TOL)
+    np.testing.assert_allclose(w2.numpy(), np.asarray(jw), rtol=0, atol=DEVICE_TOL)
+    assert abs(float(b2) - float(jb)) <= DEVICE_TOL
+    w_host = dict(WEIGHTS)
+    for n, y in zip(names, labels):
+        w_host, _ = tfusion.sgd_update_host(CORPUS[n]["features"], w_host, int(y))
+    w_dev = tfusion.vectors_to_weights(w2.numpy(), b2.numpy())
+    for k in tfusion.FEATURE_ORDER:
+        assert w_dev[k] == pytest.approx(w_host[k], abs=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_train_until_correct_matches_jax(seed):
+    """Random corpora from bad starting weights: the same updates per video
+    and the same weights as the JAX package's while_loop."""
+    rng = np.random.RandomState(seed)
+    feats = rng.rand(7, 9).astype(np.float32)
+    labels = (rng.rand(7) > 0.5).astype(np.float32)
+    w = (rng.randn(9) * 0.5).astype(np.float32)
+    b = np.float32(rng.randn())
+    got = tfusion.train_until_correct(_t(feats), _t(labels), _t(w), _t(b))
+    ref = jfusion.train_until_correct(jnp.asarray(feats), jnp.asarray(labels), jnp.asarray(w), jnp.asarray(b))
+    assert got[2].dtype == torch.int32
+    assert got[2].tolist() == np.asarray(ref[2]).tolist()
+    assert any(got[2].tolist())
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=0, atol=DEVICE_TOL)
+    assert abs(float(got[1]) - float(ref[1])) <= DEVICE_TOL
+
+
+def test_train_until_correct_flips_prediction_and_caps():
+    feats = _t([[1.0] + [0.0] * 8])
+    w2, b2, iters = tfusion.train_until_correct(feats, _t([1.0]), _t(np.zeros(9)), _t(-0.3))
+    assert float(tfusion.predict_batch(feats, w2, b2)[0]) > 0.5 and 0 < int(iters[0]) < 100
+    # a video no update can flip within the budget stops at max_epochs
+    _, _, iters = tfusion.train_until_correct(feats, _t([1.0]), _t(np.zeros(9)), _t(-50.0), max_epochs=5)
+    assert iters.tolist() == [5]
