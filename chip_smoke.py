@@ -114,7 +114,32 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              device-trained weights against the host replay (1e-6); prints
              videos/min, wall ms a video, kernels a video and the
              wrappers' groups and padded sizes;
-12. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
+12. stream   progressive analysis (``fvd_tpu_torch.streaming``) of two
+             clips of the batch corpus at bench.py's 30 s (seed 0 in sync,
+             seed 1 dubbed) with the production bundle's detector and
+             hourglass: card bf16 and card f32 at 5 s and 2 s chunks, CPU f32
+             at 5 s on the synced clip, and ``python -m fvd_tpu_torch.cli
+             <clip> --stream --chunk-seconds 5`` as a subprocess.  Checks the
+             updates (6 and 15, fraction rising to 1, 150 mouth samples at the
+             end), one C1 launch per update and one landmark forward per
+             chunk, card f32 against CPU f32 update by update and 2 s against
+             5 s chunks at the end (lip_sync, blink_rate, fake_probability
+             within ``STREAM_TOL``), synced above dubbed, and the CLI's last
+             line against the in-process card bf16 run; prints per run the
+             time to the first update, ms per update, wall ms, seconds of
+             video per wall second, C1 launches and forwards per chunk, and
+             a ``torch.profiler`` view of the synced clip at 5 s (bf16);
+13. ui       ``ui.web.serve_web`` on the card in a thread, with the production
+             bundle in f32 and the recorded LLM and search, on one 10 s clip
+             of the batch corpus: ``POST /analyze`` (all 16 nodes done, one C1
+             launch, ``fake_probability`` against a direct ``Scheduler`` run
+             within ``UI_PROB_TOL``), ``/artifact`` on a keyframe (a PNG) and
+             on ``/etc/passwd`` (403), ``POST /analyze?stream=true&chunk=5`` (2
+             updates, two launches, the final p against
+             ``analyze_progressive``'s), and ``python -m fvd_tpu_torch.cli
+             --frontend-term`` with the path on stdin; prints the DAG's wall ms
+             through the server and directly;
+14. cli      ``python -m fvd_tpu_torch.cli <clip.avi>`` as a subprocess on the
              card, then again with label 1: rc 0, a last line
              ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
              bundle's CLIP, a ``providers:`` line naming the HF text encoder
@@ -122,7 +147,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              prints the cold-start seconds.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-12 alone.  Then one JSON line with every kernel's numbers, the card's
+4-14 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -183,6 +208,8 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores, H100 SXM data sheet
 
 _t_phase = time.perf_counter()
+#: the card's name and power limit as nvidia-smi prints them (the env phase)
+SMI_LINE = None
 
 
 def phase(name: str, **fields) -> None:
@@ -1593,28 +1620,32 @@ BATCH_TRAIN_TOL = 1e-6
 BATCH_BUCKETS = {"det": 256, "lm": 512, "lmpose": 512, "pose": 512, "ocr": 256, "ocrdev": 256, "clip": 256}
 
 
-def _batch_corpus(root):
-    """bench.py's real-models corpus at 10 s: ``make_face_video`` seeds 0-7,
-    320x240 at 30 fps, the eight sentences in the speech the shipped ASR
+def _corpus_clip(videos, i, seconds):
+    """Clip ``i`` of bench.py's real-models corpus: ``make_face_video`` seed
+    ``i``, 320x240 at 30 fps, sentence ``i`` in the speech the shipped ASR
     checkpoint names (``asr_speech_domain``; formant phrases in the gate's
-    on-windows); the odd seeds' mouths move at 0.37 Hz against the 1 Hz audio
-    gate (dubbed) and their names carry "fake".  Raw-RGBA AVI files named
-    ``*.mp4`` in ``root/videos``, with their wavs."""
+    on-windows); an odd seed's mouth moves at 0.37 Hz against the 1 Hz audio
+    gate (dubbed) and its name carries "fake".  A raw-RGBA AVI named
+    ``*.mp4`` in ``videos``, with its wav -> (path, speech)."""
     from fvd_tpu_torch.providers.factory import asr_speech_domain
     from fvd_tpu_torch.synthetic import FORMANT_SR, make_face_video
 
     domain = asr_speech_domain(os.path.join(REPO, "checkpoints"))
     speech, sr = ("formant_gated", FORMANT_SR) if domain == "formant" else ("tone", 44100)
+    name = f"fake_clip{i}" if i % 2 else f"clip{i}"
+    avi = make_face_video(videos, name, duration=seconds, fps=30.0, width=320, height=240, sr=sr, seed=i,
+                          speech_text=BATCH_SENTENCES[i], speech=speech, mouth_gate_hz=0.37 if i % 2 else None)
+    mp4 = avi[:-len(".avi")] + ".mp4"
+    os.replace(avi, mp4)
+    return mp4, speech
+
+
+def _batch_corpus(root):
+    """bench.py's real-models corpus at 10 s (:func:`_corpus_clip` 0-7) in
+    ``root/videos``."""
     videos = os.path.join(root, "videos")
-    paths = []
-    for i, sentence in enumerate(BATCH_SENTENCES):
-        name = f"fake_clip{i}" if i % 2 else f"clip{i}"
-        avi = make_face_video(videos, name, duration=BATCH_CLIP_SECONDS, fps=30.0, width=320, height=240, sr=sr,
-                              seed=i, speech_text=sentence, speech=speech, mouth_gate_hz=0.37 if i % 2 else None)
-        mp4 = avi[:-len(".avi")] + ".mp4"
-        os.replace(avi, mp4)
-        paths.append(mp4)
-    return videos, paths, speech
+    clips = [_corpus_clip(videos, i, BATCH_CLIP_SECONDS) for i in range(len(BATCH_SENTENCES))]
+    return videos, [p for p, _ in clips], clips[0][1]
 
 
 def _batch_config(root):
@@ -1880,6 +1911,310 @@ def batch_phase():
     return launches
 
 
+#: the stream phase: bench.py's clip length, uncut, and the two chunk sizes
+STREAM_CLIP_SECONDS = BENCH_CLIP_SECONDS
+STREAM_CHUNKS = (5.0, 2.0)
+#: per progressive update, card f32 against CPU f32 and 2 s chunks against
+#: 5 s: lip_sync, blink_rate and fake_probability (the kernel's bar)
+STREAM_TOL = KERNEL_TOL
+#: the CLI's ``--stream`` in a fresh process against the same card bf16 run
+#: in this one
+STREAM_CLI_TOL = 1e-4
+#: the ui phase: the web server's results against the same runs made directly
+UI_PROB_TOL = 1e-6
+#: the ui phase's clip: one of the batch corpus at the batch phase's length
+UI_CLIP_SECONDS = BATCH_CLIP_SECONDS
+
+
+def _vision_providers(device, dtype):
+    """The production bundle's face detector and FANLandmarks (face_ssd,
+    landmarks and pose checkpoints), as ``providers/factory.py`` builds them."""
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.providers import Providers
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+    lmk = FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                       pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=dtype, device=device)
+    return Providers(face_detector=det, landmarks=lmk)
+
+
+def _stream_run(providers, clip, device, chunk_seconds, cfg):
+    """One clip through ``streaming.analyze_progressive`` from cold frame
+    caches: the updates, the host clock at each, C1 launches and landmark
+    forwards."""
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.streaming import analyze_progressive
+
+    media.clear_frame_cache()
+    _kernels.reset_launches()
+    updates, stamps = [], []
+    t0 = time.perf_counter()
+    for u in analyze_progressive(clip, cfg, providers, chunk_seconds, device=device):
+        stamps.append(time.perf_counter())  # C1's score is on the host: the card is done
+        updates.append(u)
+    check(updates, f"stream: no update for {clip} on {device}")
+    steps = np.diff([t0] + stamps) * 1e3
+    return {"updates": updates, "first_update_s": stamps[0] - t0, "median_update_ms": float(np.median(steps[1:]))
+            if len(steps) > 1 else float(steps[0]), "wall_ms": (stamps[-1] - t0) * 1e3,
+            "launches": _kernels.LAUNCHES["lipsync_score"], "forwards": media._landmark_share.forwards}
+
+
+def _stream_summary(r, seconds):
+    final = r["updates"][-1]
+    return {"updates": len(r["updates"]), "first_update_s": r["first_update_s"],
+            "median_update_ms": r["median_update_ms"], "wall_ms": r["wall_ms"],
+            "video_s_per_wall_s": seconds / (r["wall_ms"] / 1e3), "c1_launches": r["launches"],
+            "landmark_forwards_per_chunk": r["forwards"] / len(r["updates"]),
+            "final": {"lip_sync": final.features["lip_sync"], "blink_rate": final.features["blink_rate"],
+                      "fake_probability": final.fake_probability}}
+
+
+def _check_stream_run(r, device, chunk_seconds, what):
+    """The contract of every run: ceil(samples / chunk) updates whose
+    fraction rises to 1, every sample scored by the last, one landmark
+    forward per chunk and, on the card, one C1 launch per update."""
+    ups = r["updates"]
+    samples = int(STREAM_CLIP_SECONDS * 5)
+    chunk = int(round(chunk_seconds * 5))
+    fractions = [u.fraction for u in ups]
+    check(len(ups) == -(-samples // chunk) and fractions == sorted(fractions) and abs(fractions[-1] - 1.0) <= 0.05
+          and ups[-1].mouth_samples == samples and [u.chunk_index for u in ups] == list(range(len(ups))),
+          f"stream {what}: {[(u.t_end, u.fraction, u.mouth_samples) for u in ups]}")
+    check(r["forwards"] == len(ups), f"stream {what}: {r['forwards']} landmark forwards for {len(ups)} chunks")
+    check(all(np.isfinite(u.fake_probability) and 0.0 < u.fake_probability < 1.0
+              and all(np.isfinite(v) for v in u.features.values()) for u in ups), f"stream {what}: {ups[-1]}")
+    if device == "cuda":
+        check(r["launches"] == len(ups), f"stream {what}: {r['launches']} C1 launches for {len(ups)} updates")
+
+
+def _stream_gaps(a, b):
+    """Largest |d| of lip_sync, blink_rate and fake_probability, update by update."""
+    return {k: max(abs((x.fake_probability if k == "fake_probability" else x.features[k])
+                       - (y.fake_probability if k == "fake_probability" else y.features[k]))
+                   for x, y in zip(a, b)) for k in ("lip_sync", "blink_rate", "fake_probability")}
+
+
+def stream_phase():
+    """Progressive analysis (``fvd_tpu_torch.streaming``) at bench.py's clip
+    length: the production bundle's detector and hourglass on the card, C1
+    on the card once per update."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.streaming import analyze_progressive
+
+    seconds = STREAM_CLIP_SECONDS
+    result = {"nvidia_smi": SMI_LINE, "clip_seconds": seconds, "clip_fps": 30.0, "frame_size": [240, 320],
+              "tolerance": STREAM_TOL, "cli_tolerance": STREAM_CLI_TOL, "tf32": False}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clips = {"sync": _corpus_clip(os.path.join(tmp, "videos"), 0, seconds)[0],
+                 "dubbed": _corpus_clip(os.path.join(tmp, "videos"), 1, seconds)[0]}
+        result["make_clips_s"] = time.perf_counter() - t0
+        cfg = _batch_config(tmp)  # LR reads the shipped weights: no lr_weights.json under tmp
+        runs, summary = {}, {}
+        for name, device, dtype in (("card_bf16", "cuda", torch.bfloat16), ("card_f32", "cuda", torch.float32),
+                                    ("cpu_f32", "cpu", torch.float32)):
+            prov = _vision_providers(device, dtype)
+            for chunk in STREAM_CHUNKS if device == "cuda" else STREAM_CHUNKS[:1]:
+                for kind, clip in clips.items():
+                    if device == "cpu" and kind != "sync":
+                        continue
+                    if device == "cuda":  # cuDNN picks its algorithms for this chunk's shapes
+                        warm = analyze_progressive(clip, cfg, prov, chunk, device=device)
+                        next(warm)
+                        warm.close()
+                    what = f"{name} {kind} {chunk:g} s"
+                    r = _stream_run(prov, clip, device, chunk, cfg)
+                    _check_stream_run(r, device, chunk, what)
+                    runs[(name, kind, chunk)] = r
+                    summary.setdefault(name, {})[f"{kind}_{chunk:g}s"] = _stream_summary(r, seconds)
+                    if device == "cuda":
+                        launches += r["launches"]
+            if name == "card_bf16":  # the device's busy share over one clip, the bundle's dtype
+                prof = _profile_top_kernels(_stream_run, (prov, clips["sync"], device, 5.0, cfg), calls=1)
+                launches += _kernels.LAUNCHES["lipsync_score"]
+                summary[name]["profile_sync_5s"] = {**prof, "top10": prof.get("top10", [])[:5]}
+            del prov
+        for name in ("card_bf16", "card_f32"):
+            sync, dubbed = (runs[(name, k, 5.0)]["updates"][-1].features["lip_sync"] for k in ("sync", "dubbed"))
+            check(sync > dubbed, f"stream {name}: the synced clip's lip_sync {sync} is not above the dubbed {dubbed}")
+        vs_cpu = _stream_gaps(runs[("card_f32", "sync", 5.0)]["updates"], runs[("cpu_f32", "sync", 5.0)]["updates"])
+        check(all(v <= STREAM_TOL for v in vs_cpu.values()), f"stream: card f32 vs CPU f32 per update: {vs_cpu}")
+        chunks = {}
+        for kind in clips:
+            a, b = runs[("card_f32", kind, 2.0)]["updates"][-1], runs[("card_f32", kind, 5.0)]["updates"][-1]
+            gap = _stream_gaps([a], [b])
+            check(a.mouth_samples == b.mouth_samples and gap["lip_sync"] <= STREAM_TOL
+                  and gap["fake_probability"] <= STREAM_TOL, f"stream {kind}: 2 s vs 5 s chunks, final: {gap}")
+            chunks[kind] = gap
+        result.update(runs=summary, card_f32_vs_cpu_f32=vs_cpu, card_f32_2s_vs_5s_final=chunks)
+
+        # the CLI as a user runs it, in a fresh interpreter on the card
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cwd = os.path.join(tmp, "cli")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", clips["sync"], "--stream",
+                               "--chunk-seconds", "5"], cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"stream cli: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        check(lines[-1].startswith("Fake probability: "), f"stream cli: last line {lines[-1]!r}")
+        p = float(lines[-1].split(": ", 1)[1])
+        ref = runs[("card_bf16", "sync", 5.0)]["updates"][-1].fake_probability
+        updates = [ln for ln in lines if ln.startswith("[")]
+        check(len(updates) == len(runs[("card_bf16", "sync", 5.0)]["updates"]) and abs(p - ref) <= STREAM_CLI_TOL,
+              f"stream cli: {len(updates)} update lines, p {p} vs the in-process card bf16 run's {ref}")
+        result["cli"] = {"seconds_with_cold_start": cli_s, "fake_probability": p, "in_process": ref,
+                         "abs_diff": abs(p - ref), "update_lines": updates}
+    phase("stream", **result)
+    return launches
+
+
+def _ui_wait(base, until, timeout=300):
+    """Poll ``/status`` until ``until(snapshot)``; the snapshot."""
+    import urllib.request
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with urllib.request.urlopen(base + "/status", timeout=30) as r:
+            snap = json.loads(r.read())
+        if until(snap):
+            return snap
+        time.sleep(0.05)
+    raise AssertionError(f"ui: no end within {timeout} s: {snap}")
+
+
+def _ui_request(base, path, method="GET"):
+    """(status, content type, body) of one request, error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(urllib.request.Request(base + path, method=method), timeout=30) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def ui_phase():
+    """The web UI (``fvd_tpu_torch.ui.web``) on the card: a DAG run and a
+    progressive run through the server, each against the same run made
+    directly; the artifact route; the terminal UI in a fresh interpreter."""
+    import threading
+    from urllib.parse import quote
+
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.graph import NODE_ORDER, build_graph
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.providers.factory import production_providers
+    from fvd_tpu_torch.runtime import Scheduler, io_pool
+    from fvd_tpu_torch.state import State
+    from fvd_tpu_torch.streaming import analyze_progressive
+    from fvd_tpu_torch.ui.web import serve_web
+
+    def cold():
+        media.clear_frame_cache()
+        io_pool.clear_artifact_caches()
+        _kernels.reset_launches()
+
+    result = {"nvidia_smi": SMI_LINE, "clip_seconds": UI_CLIP_SECONDS, "tolerance": UI_PROB_TOL, "tf32": False}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        clip, _ = _corpus_clip(os.path.join(tmp, "videos"), 0, UI_CLIP_SECONDS)
+        cfg = _batch_config(tmp)
+        prov = production_providers(os.path.join(REPO, "checkpoints"), device="cuda", compute_dtype=torch.float32,
+                                    recorded_services=True)
+        sched = Scheduler(build_graph(cfg, prov, device="cuda"))
+        cold()
+        sched.invoke(State(input_path=clip))  # warm-up: cuDNN picks its algorithms
+        srv, manager = serve_web(port=0, config=cfg, providers=prov, block=False, device="cuda")
+        server = threading.Thread(target=srv.serve_forever, daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            check(manager.device == "cuda", f"ui: the manager runs on {manager.device}")
+            cold()
+            t0 = time.perf_counter()
+            status, _, body = _ui_request(base, f"/analyze?path={quote(clip)}", "POST")
+            check(status == 200 and json.loads(body) == {"started": True}, f"ui: POST /analyze gave {status} {body}")
+            snap = _ui_wait(base, lambda s: not s["running"])
+            server_ms = (time.perf_counter() - t0) * 1e3
+            dag_launches = _kernels.LAUNCHES["lipsync_score"]
+            check(snap["error"] is None and snap["result"] is not None, f"ui: the run failed: {snap['error']}")
+            check(all(snap["statuses"][n] == "done" for n in NODE_ORDER), f"ui: statuses {snap['statuses']}")
+            check(dag_launches == 1, f"ui: {dag_launches} C1 launches for one video through the server")
+            served = snap["result"]
+
+            # the artifact route, while this run's data_dir is the result's
+            kf = served["frames"][0]["keyframe"] if served["frames"] else None
+            check(kf is not None and kf.endswith(".png"), f"ui: keyframes {served['frames'][:1]}")
+            status, ctype, body = _ui_request(base, "/artifact?path=" + quote(kf))
+            check(status == 200 and ctype == "image/png" and body[:8] == b"\x89PNG\r\n\x1a\n",
+                  f"ui: /artifact on {kf} gave {status} {ctype} {body[:8]!r}")
+            forbidden = _ui_request(base, "/artifact?path=/etc/passwd")[0]
+            check(forbidden == 403, f"ui: /artifact?path=/etc/passwd gave {forbidden}")
+
+            cold()
+            t0 = time.perf_counter()
+            direct = sched.invoke(State(input_path=clip))
+            direct_ms = (time.perf_counter() - t0) * 1e3
+            launches += dag_launches + _kernels.LAUNCHES["lipsync_score"]
+            dag_gap = abs(served["fake_probability"] - direct.fake_probability)
+            check(dag_gap <= UI_PROB_TOL, f"ui: the server's p {served['fake_probability']} vs the direct run's "
+                                          f"{direct.fake_probability}")
+
+            cold()
+            status, _, body = _ui_request(base, f"/analyze?path={quote(clip)}&stream=true&chunk=5", "POST")
+            check(status == 200 and json.loads(body) == {"started": True}, f"ui: POST stream gave {status} {body}")
+            snap = _ui_wait(base, lambda s: not s["running"])
+            stream_launches = _kernels.LAUNCHES["lipsync_score"]
+            check(snap["error"] is None and len(snap["progressive"]) == 2 and snap["progressive"][-1]["fraction"] == 1.0,
+                  f"ui: progressive run {snap['error']} {snap['progressive']}")
+            check(stream_launches == 2, f"ui: {stream_launches} C1 launches for 2 progressive updates")
+            cold()
+            ups = list(analyze_progressive(clip, cfg, prov, 5.0, device="cuda"))
+            launches += stream_launches + _kernels.LAUNCHES["lipsync_score"]
+            stream_gap = abs(snap["progressive"][-1]["p"] - ups[-1].fake_probability)
+            check(len(ups) == 2 and stream_gap <= UI_PROB_TOL,
+                  f"ui: the server's progressive p {snap['progressive'][-1]['p']} vs analyze_progressive's "
+                  f"{ups[-1].fake_probability} ({len(ups)} updates)")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            server.join(timeout=30)
+        del prov, sched
+
+        # the terminal UI as a user runs it: the path on stdin
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cwd = os.path.join(tmp, "term")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", "--frontend-term"], input=clip + "\n",
+                              cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+        term_s = time.perf_counter() - t0
+        verdict = [ln for ln in proc.stdout.splitlines() if ln.startswith("Verdict: ")]
+        check(proc.returncode == 0 and len(verdict) == 1,
+              f"ui: --frontend-term rc {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    result.update(dag_wall_ms={"through_server": server_ms, "direct": direct_ms},
+                  fake_probability={"server": served["fake_probability"], "direct": direct.fake_probability,
+                                    "abs_diff": dag_gap},
+                  progressive={"server": snap["progressive"], "direct_p": ups[-1].fake_probability,
+                               "abs_diff": stream_gap},
+                  c1_launches={"dag_through_server": dag_launches, "progressive_through_server": stream_launches},
+                  frontend_term={"seconds_with_cold_start": term_s, "verdict": verdict[0]})
+    phase("ui", **result)
+    return launches
+
+
 def cli_phase():
     """The CLI as a user runs it, in a fresh interpreter on the card."""
     from fvd_tpu_torch.synthetic import make_face_video
@@ -1917,7 +2252,7 @@ def cli_phase():
 
 
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
-PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "cli")
+PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli")
 
 
 def main(argv=None) -> int:
@@ -1937,14 +2272,15 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
 
-    smi_line = env_phase()
+    global SMI_LINE
+    smi_line = SMI_LINE = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
     # each phase that drives a main path returns its C1 launches; the model
     # zoo and the HF models launch no kernel of the repo's, and the CLI's
     # launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
-               "full_dag": full_dag_phase, "batch": batch_phase}
+               "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase}
     launches = 0
     for name in PHASES:

@@ -105,3 +105,74 @@ def test_module_entry_point_runs(tmp_path, clip):
                           env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert np.isfinite(float(_last_line(proc.stdout).split("Fake probability: ")[1]))
+
+
+def _hermetic(workdir):
+    """Install the hermetic bundle, so the CLI's ``bootstrap_production``
+    keeps it instead of loading the production bundle."""
+    from fvd_tpu_torch.synthetic import hermetic_providers
+
+    tprov.set_providers(hermetic_providers(device="cpu"))
+
+
+def test_cli_stream_prints_one_line_per_update(workdir, clip, capsys):
+    """``--stream`` on the production bundle: 6 s at 5 fps is 30 samples, two
+    5 s chunks; a label is noted and ignored."""
+    import re
+
+    assert cli.main([clip, "1", "--stream", "--cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "Note: --stream is scoring-only; the label is ignored" in "\n".join(lines)
+    updates = [ln for ln in lines if ln.startswith("[")]
+    assert len(updates) == 2
+    for ln in updates:
+        assert re.fullmatch(r"\[ +\d+\.\ds +\d+\.\d%\] lip_sync=-?\d\.\d{3} p=\d\.\d{4}", ln), ln
+    assert updates[-1].startswith("[   6.0s 100.0%]")
+    p = float(lines[-1].split("Fake probability: ")[1])
+    assert f"p={p:.4f}" in updates[-1]
+    assert not os.path.exists("lr_weights.json")  # scoring only
+
+
+def test_cli_stream_refuses_a_url(workdir, capsys):
+    _hermetic(workdir)
+    assert cli.main(["https://example.com/v.mp4", "--stream", "--cpu"]) == 1
+    assert "--stream analyzes a local file as it is read" in capsys.readouterr().out
+
+
+def test_cli_frontend_term_reads_a_path_from_stdin(workdir, clip, capsys, monkeypatch):
+    import io
+
+    _hermetic(workdir)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(clip + "\n"))
+    assert cli.main(["--frontend-term", "--cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Enter a video path or URL:" in out and "=== Result ===" in out
+    verdict = [ln for ln in out.splitlines() if ln.startswith("Verdict: ")]
+    assert len(verdict) == 1 and verdict[0].split()[1] in ("FAKE", "REAL")
+
+
+def test_cli_frontend_serves_the_web_ui_on_the_port(workdir, clip, monkeypatch):
+    from fvd_tpu_torch.ui import web
+
+    seen = {}
+    monkeypatch.setattr(web, "serve_web", lambda **kw: seen.update(kw))
+    _hermetic(workdir)
+    assert cli.main([clip, "--frontend", "--port", "0", "--cpu"]) == 0
+    assert seen == {"port": 0, "prefill_url": clip, "device": "cpu"}
+
+
+def test_cli_needs_an_input_path_without_a_frontend(workdir, capsys):
+    _hermetic(workdir)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--cpu"])
+    assert exc.value.code == 2
+    assert "input_path is required when not using --frontend mode" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--stream", "--frontend", "--frontend-term"])
+def test_cli_modes_without_a_card_and_without_cpu_raise(workdir, clip, flag, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    _hermetic(workdir)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([clip, flag])

@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.utils._tokenizer_unicode",
             "fvd_tpu_torch.ops.whisper_frontend", "fvd_tpu_torch.models.hf_bert", "fvd_tpu_torch.models.hf_clip",
             "fvd_tpu_torch.models.hf_whisper", "fvd_tpu_torch.providers.hf_models", "fvd_tpu_torch.utils.jpeg",
-            "fvd_tpu_torch.providers.recorded", "fvd_tpu_torch.batch"} <= set(mods)
+            "fvd_tpu_torch.providers.recorded", "fvd_tpu_torch.batch",
+            "fvd_tpu_torch.streaming", "fvd_tpu_torch.ui.web", "fvd_tpu_torch.ui.app"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
