@@ -144,10 +144,22 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
              bundle's CLIP, a ``providers:`` line naming the HF text encoder
              and Whisper, and the weights file written by the labelled run;
-             prints the cold-start seconds.
+             prints the cold-start seconds;
+15. parallel the parallel layer (``fvd_tpu_torch.parallel``) through
+             ``entry.dryrun_multichip``: ``dryrun_multichip(1)``, one rank on
+             the card under NCCL, then ``dryrun_multichip(4)``, four ranks
+             that share the card under gloo (NCCL refuses two ranks on one
+             device) and an in-process inference mesh of four entries of the
+             card.  Each holds its checks to the JAX package's bars (train
+             step, sharded SSD + hourglass, TP at the text encoder's and
+             Whisper base's geometry, FAN-geometry DP, the PP ring, the EP
+             MoE, the full DAG under the mesh against one device) and
+             launches C1 once per DAG run (2); prints each check's delta,
+             ms, backend and devices.  A run across several cards needs a
+             machine with several and is not made here.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-14 alone.  Then one JSON line with every kernel's numbers, the card's
+4-15 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -913,7 +925,7 @@ def serving_phase():
         reqs.append(ScoreRequest(mouth=mouth.astype(np.float32), audio=env.astype(np.float32),
                                  other_feats=rng.rand(8).astype(np.float32)))
 
-    svc = ScoringService(weights, n=n, fps=fps, max_batch=64, max_wait_ms=50.0, device="cuda")
+    svc = ScoringService(weights, n=n, fps=fps, max_batch=64, max_wait_ms=50.0, devices=["cuda"])
     try:
         _kernels.reset_launches()
         t0 = time.perf_counter()
@@ -2251,8 +2263,48 @@ def cli_phase():
     phase("cli", cold_start_s=out["unlabelled"]["seconds"], runs=out)
 
 
+#: the dryrun_multichip runs of the parallel phase: (ranks, the backend they
+#: must pick on a one-card machine)
+PARALLEL_RUNS = ((1, "nccl"), (4, "gloo"))
+#: C1 launches of one dryrun_multichip: check 6 runs the DAG once alone and
+#: once under the mesh, one launch each; the ranks' SP scoring is plain torch
+PARALLEL_C1_LAUNCHES = 2
+
+
+def parallel_phase():
+    """``entry.dryrun_multichip`` on the card: one NCCL rank, then four gloo
+    ranks sharing the card with a four-entry inference mesh."""
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.entry import dryrun_multichip
+
+    runs, launches = {}, 0
+    for n, backend in PARALLEL_RUNS:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = dryrun_multichip(n, device="cuda")
+        seconds = time.perf_counter() - t0
+        check(r["backend"] == backend, f"parallel: dryrun_multichip({n}) ran under {r['backend']}, not {backend}")
+        c1 = _kernels.LAUNCHES["lipsync_score"]
+        check(c1 == PARALLEL_C1_LAUNCHES, f"parallel: dryrun_multichip({n}) launched C1 {c1} times, "
+                                          f"not {PARALLEL_C1_LAUNCHES}")
+        launches += c1
+        ranks = f"{n} {backend} rank(s) on {','.join(r['devices'])}"
+        in_process = f"in-process mesh of {','.join(r['devices'])}"
+        runs[f"n{n}"] = {
+            "backend": r["backend"], "seconds": seconds, "c1_launches": c1,
+            "checks": {name: {**{k: v for k, v in c.items() if k in ("delta", "ms", "boxes", "scores", "coords",
+                                                                       "loss", "loss0", "loss1", "p_single",
+                                                                       "p_mesh", "scale", "mesh", "ways")},
+                              "on": in_process if name in ("sharded", "fan", "dag") else ranks}
+                       for name, c in r["checks"].items()}}
+    phase("parallel", nvidia_smi=SMI_LINE, runs=runs,
+          multi_card="not run: this machine has one card; the ranks share it")
+    return launches
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
-PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli")
+PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
+          "parallel")
 
 
 def main(argv=None) -> int:
@@ -2280,7 +2332,8 @@ def main(argv=None) -> int:
     # zoo and the HF models launch no kernel of the repo's, and the CLI's
     # launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
-               "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase}
+               "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
+               "parallel": parallel_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase}
     launches = 0
     for name in PHASES:

@@ -16,9 +16,10 @@ videos the feature cache does not hold N at a time
 forwards and device programs).  ``--train-device`` replays the whole cached
 feature corpus on the device (``ops/fusion.train_until_correct``): the same
 sequential replay the reference does in Python, minus the per-video process
-spawns.  The JAX package's multi-chip branch, which data-parallel shards the
-coalesced forwards over every visible chip, waits for the port's parallel
-layer.
+spawns.  On a machine with more than one visible card, ``main`` installs a
+data-parallel inference mesh over them for the run
+(:mod:`fvd_tpu_torch.parallel.inference`): the coalesced detector, landmark,
+pose and OCR forwards split over every card.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from fvd_tpu_torch.config import Config, default_config
 from fvd_tpu_torch.graph import build_graph
 from fvd_tpu_torch.nodes.lr_fusion import load_weights, save_weights
 from fvd_tpu_torch.ops import fusion
+from fvd_tpu_torch.parallel.inference import set_inference_mesh
+from fvd_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from fvd_tpu_torch.providers import Providers, get_providers
 from fvd_tpu_torch.providers.coalesce import coalesce_providers
 from fvd_tpu_torch.providers.media import VideoReader
@@ -213,7 +216,25 @@ def main(argv=None) -> int:
     from fvd_tpu_torch.providers.factory import bootstrap_production
 
     bootstrap_production(device=device)
-    return _main_body(args, default_config(), device)
+    devices = _mesh_devices(device)
+    prev = None
+    if len(devices) > 1:
+        # multi-card batch evaluation: DP-shard the coalesced model forwards
+        # over every visible card; restored on exit so embedders (tests,
+        # tools) don't inherit the mesh
+        prev = set_inference_mesh(make_mesh(n_data=len(devices), n_time=1, devices=devices))
+        print(f"inference mesh: {len(devices)}-way DP")
+    try:
+        return _main_body(args, default_config(), device)
+    finally:
+        if len(devices) > 1:
+            set_inference_mesh(prev)
+
+
+def _mesh_devices(device) -> List[torch.device]:
+    """The devices ``main``'s inference mesh spans: every visible card for a
+    run on the card, none for a CPU run."""
+    return visible_devices() if torch.device(device).type == "cuda" else []
 
 
 def _main_body(args, config, device) -> int:

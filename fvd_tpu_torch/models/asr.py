@@ -46,13 +46,15 @@ def _positions(length: int, dim: int, device) -> torch.Tensor:
 
 
 class AsrEncoder(nn.Module):
-    def __init__(self, dim: int = 192, depth: int = 4):
+    """``heads`` 0 takes ``dim // 32``, as the flax module does."""
+
+    def __init__(self, dim: int = 192, depth: int = 4, heads: int = 0):
         super().__init__()
         self.dim, self.depth = dim, depth
         self.Conv_0 = SameConv1d(N_MELS, dim, 3)
         self.Conv_1 = SameConv1d(dim, dim, 3, stride=2)   # T/2
         for i in range(depth):
-            setattr(self, f"MHABlock_{i}", MHABlock(dim, _heads(dim)))
+            setattr(self, f"MHABlock_{i}", MHABlock(dim, heads or _heads(dim)))
         self.LayerNorm_0 = layer_norm(dim)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:   # [B, T, 80]

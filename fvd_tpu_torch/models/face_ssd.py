@@ -6,12 +6,15 @@ auto-names, so a flax params tree loads through :mod:`fvd_tpu_torch.weights`.
 :func:`detect_batch` is ``detect_batch_jit``: resize, backbone in
 ``compute_dtype``, box decode, top-256 prefilter and greedy NMS, batched over
 frames.  :class:`SSDFaceDetector` is the V1 provider around it (batched
-detect on host frames or a device tensor, host unpacking of the slots with
-``s > 0``).
+detect on host frames or a device tensor, through
+:func:`~fvd_tpu_torch.parallel.inference.shard_for_inference` so an installed
+inference mesh splits the frames over its devices; host unpacking of the
+slots with ``s > 0``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Mapping, Tuple
 
 import numpy as np
@@ -24,6 +27,7 @@ from fvd_tpu_torch import weights as weights_mod
 from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
 from fvd_tpu_torch.ops import detection
 from fvd_tpu_torch.ops.image import resize
+from fvd_tpu_torch.parallel.inference import shard_for_inference
 from fvd_tpu_torch.providers.vision import FaceBox
 
 INPUT_SIZE = 300
@@ -152,8 +156,11 @@ class SSDFaceDetector:
             return []
         x = frames if torch.is_tensor(frames) else torch.from_numpy(np.ascontiguousarray(frames))
         h, w = x.shape[1:3]
-        boxes, scores = detect_batch(self.model, x.to(self.device), compute_dtype=self.compute_dtype,
-                                     max_out=self.max_out)
+        # frames are independent: split them over the inference mesh's data
+        # devices when one is installed (the call as it is otherwise)
+        boxes, scores = shard_for_inference(
+            functools.partial(detect_batch, compute_dtype=self.compute_dtype, max_out=self.max_out),
+            self.model, x.to(self.device))
         host = torch.cat([boxes, scores[..., None]], dim=-1).cpu().numpy()  # ONE host fetch
         out: List[List[FaceBox]] = []
         for rows in host:

@@ -3,8 +3,11 @@ counterpart of ``ResBlock``, ``Hourglass``, ``LandmarkHourglass``,
 ``decode_heatmaps``, ``PoseHead``, ``rotation_6d_to_matrix``,
 ``euler_from_matrix_deg``, ``_device_crops``, ``landmarks_from_frames``,
 ``pose_from_frames``, ``landmarks_pose_from_frames``, ``_pad_bucket``,
-``_marshal_boxes`` and the ``FANLandmarks`` provider in
-``fvd_tpu/models/landmarks_fan.py``.
+``_marshal_boxes``, the ``FANLandmarks`` provider and the reference-scale
+``Bottleneck``, ``HourglassB`` and ``FANLandmarkNet`` (forward only) in
+``fvd_tpu/models/landmarks_fan.py``.  The hourglass and the pose head run
+their crop batches through :func:`~fvd_tpu_torch.parallel.inference.shard_for_inference`,
+so an installed inference mesh splits them over its devices.
 
 Submodules carry the flax auto-names (``Conv_0``, ``GroupNorm_0``,
 ``ResBlock_3``, ``Hourglass_0``) so a flax params tree loads through
@@ -14,6 +17,7 @@ layout; the convolutions run NCHW inside.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Mapping, Optional
 
 import numpy as np
@@ -26,6 +30,7 @@ from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
 from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
 from fvd_tpu_torch.ops.image import resize, scale_and_translate
+from fvd_tpu_torch.parallel.inference import shard_for_inference
 
 CROP_SIZE = 128
 HEATMAP_SIZE = 32
@@ -177,11 +182,16 @@ def euler_from_matrix_deg(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([pitch, yaw, roll], dim=-1) * (180.0 / np.pi)
 
 
-def _pose_of_crops(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
-    """float32 crops [N, 128, 128, 3] in 0..1 -> (pitch, yaw, roll) [N, 3].
-    The pose head always runs in float32, whatever the landmarks' dtype."""
+def _pose_forward(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
     d6 = in_dtype(pose_model, torch.float32)(crops.to(torch.float32))
     return euler_from_matrix_deg(rotation_6d_to_matrix(d6))
+
+
+def _pose_of_crops(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
+    """float32 crops [N, 128, 128, 3] in 0..1 -> (pitch, yaw, roll) [N, 3].
+    The pose head always runs in float32, whatever the landmarks' dtype; the
+    crops split over the inference mesh where one is installed."""
+    return shard_for_inference(_pose_forward, pose_model, crops)
 
 
 def _device_crops(frames: torch.Tensor, boxes: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:
@@ -210,9 +220,14 @@ def landmarks_from_frames(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Crop from the frame tensor + hourglass forward in ``compute_dtype`` +
-    float32 soft-argmax -> landmark coords [N, 68, 2] in crop [0, 1]."""
-    x = _device_crops(frames, boxes, owners)
-    hm = in_dtype(model, compute_dtype)(x.to(compute_dtype))
+    float32 soft-argmax -> landmark coords [N, 68, 2] in crop [0, 1].  The
+    crops split over the inference mesh where one is installed."""
+    return shard_for_inference(functools.partial(_landmarks_of_crops, compute_dtype=compute_dtype), model,
+                               _device_crops(frames, boxes, owners))
+
+
+def _landmarks_of_crops(model: LandmarkHourglass, crops: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    hm = in_dtype(model, compute_dtype)(crops.to(compute_dtype))
     return decode_heatmaps(hm.to(torch.float32))
 
 
@@ -399,3 +414,104 @@ class FANLandmarks:
             return np.zeros((0, 3))
         boxes_t, owners_t, n = _marshal_boxes(boxes, owners, self.device)
         return pose_from_frames(self.pose_model, device_frames, boxes_t, owners_t)[:n].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Reference-scale vision models (FAN geometry), forward only
+# ---------------------------------------------------------------------------
+FAN_CROP_SIZE = 256
+FAN_HEATMAP_SIZE = 64
+
+
+class Bottleneck(nn.Module):
+    """Pre-activation 1x1-3x3-1x1 bottleneck residual; ``mid`` defaults to
+    ``features // 4`` (the FAN hourglass passes ``features // 2``).  A 1x1
+    projection ``Conv_3`` carries the residual where the width or the stride
+    changes."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1, mid: Optional[int] = None):
+        super().__init__()
+        mid = mid or features // 4
+        self.GroupNorm_0 = group_norm(in_ch)
+        self.Conv_0 = nn.Conv2d(in_ch, mid, 1)
+        self.GroupNorm_1 = group_norm(mid)
+        self.Conv_1 = SameConv2d(mid, mid, 3, stride=stride)
+        self.GroupNorm_2 = group_norm(mid)
+        self.Conv_2 = nn.Conv2d(mid, features, 1)
+        if in_ch != features or stride != 1:
+            self.Conv_3 = nn.Conv2d(in_ch, features, 1, stride=stride)
+
+    def forward(self, x):
+        y = self.Conv_0(F.relu(self.GroupNorm_0(x)))
+        y = self.Conv_1(F.relu(self.GroupNorm_1(y)))
+        y = self.Conv_2(F.relu(self.GroupNorm_2(y)))
+        return y + (self.Conv_3(x) if hasattr(self, "Conv_3") else x)
+
+
+class HourglassB(nn.Module):
+    """Bottleneck-block hourglass (the FAN unit, half-width 3x3s), blocks in
+    flax call order as :class:`Hourglass`."""
+
+    def __init__(self, features: int, depth: int = 4):
+        super().__init__()
+        self.depth = depth
+        for i in range(3 * depth + 1):
+            setattr(self, f"Bottleneck_{i}", Bottleneck(features, features, mid=features // 2))
+
+    def forward(self, x):
+        skips = []
+        for d in range(self.depth):
+            skips.append(getattr(self, f"Bottleneck_{2 * d}")(x))
+            x = F.max_pool2d(x, 2, 2)
+            x = getattr(self, f"Bottleneck_{2 * d + 1}")(x)
+        x = getattr(self, f"Bottleneck_{2 * self.depth}")(x)
+        for u, skip in enumerate(reversed(skips)):
+            x = F.interpolate(x, size=skip.shape[-2:], mode="nearest-exact")
+            x = getattr(self, f"Bottleneck_{2 * self.depth + 1 + u}")(x + skip)
+        return x
+
+
+class FANLandmarkNet(nn.Module):
+    """Reference-scale FAN: ``n_stacks`` stacked ``width``-feature
+    hourglasses, NHWC crops [B, 256, 256, 3] -> the LAST stack's heatmaps
+    NHWC [B, 64, 64, 68] (:func:`decode_heatmaps` applies unchanged).
+    Submodules carry flax's auto-names in its call order, so a flax tree
+    loads through :func:`fvd_tpu_torch.weights.to_state_dict`."""
+
+    def __init__(self, width: int = 256, n_stacks: int = 4):
+        super().__init__()
+        self.n_stacks = n_stacks
+        self.Conv_0 = SameConv2d(3, 64, 7, stride=2)
+        self.GroupNorm_0 = group_norm(64)
+        self.Bottleneck_0 = Bottleneck(64, 128)
+        self.Bottleneck_1 = Bottleneck(128, width)
+        conv = 1
+        self.heads = []
+        for s in range(n_stacks):
+            setattr(self, f"HourglassB_{s}", HourglassB(width))
+            setattr(self, f"Bottleneck_{2 + s}", Bottleneck(width, width))
+            setattr(self, f"GroupNorm_{1 + s}", group_norm(width))
+            names = [f"Conv_{conv}", f"Conv_{conv + 1}"]
+            setattr(self, names[0], nn.Conv2d(width, width, 1))
+            setattr(self, names[1], nn.Conv2d(width, N_LANDMARKS, 1))
+            conv += 2
+            if s < n_stacks - 1:  # the intermediate-supervision remix
+                names += [f"Conv_{conv}", f"Conv_{conv + 1}"]
+                setattr(self, names[2], nn.Conv2d(width, width, 1))
+                setattr(self, names[3], nn.Conv2d(N_LANDMARKS, width, 1))
+                conv += 2
+            self.heads.append(names)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))                     # 128
+        x = F.max_pool2d(self.Bottleneck_0(x), 2, 2)                    # 64
+        x = self.Bottleneck_1(x)
+        hm = None
+        for s, names in enumerate(self.heads):
+            y = getattr(self, f"Bottleneck_{2 + s}")(getattr(self, f"HourglassB_{s}")(x))
+            y = F.relu(getattr(self, f"GroupNorm_{1 + s}")(getattr(self, names[0])(y)))
+            hm = getattr(self, names[1])(y)
+            if len(names) == 4:
+                x = x + getattr(self, names[2])(y) + getattr(self, names[3])(hm)
+        return hm.permute(0, 2, 3, 1)

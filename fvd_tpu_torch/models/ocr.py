@@ -38,6 +38,7 @@ from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
 from fvd_tpu_torch.models.layers import SameConv2d, in_dtype
 from fvd_tpu_torch.ops.image import resize
+from fvd_tpu_torch.parallel.inference import shard_for_inference
 
 LINE_H, LINE_W = 32, 256
 DET_SIZE = 256
@@ -255,14 +256,15 @@ class JaxOCR:
 
     def read_text_batch(self, images) -> List[List[Dict[str, Any]]]:
         """All frames in two forwards: the detector over the frame batch,
-        resized on the host as the JAX package does (OpenCV's linear rule),
-        and the recognizer over every region crop of every frame."""
+        resized on the host as the JAX package does (OpenCV's linear rule) and
+        split over the inference mesh where one is installed, and the recognizer over every region crop of every frame."""
         from fvd_tpu_torch.utils.cv import resize_linear_u8
 
         if len(images) == 0:
             return []
         det_in = np.stack([resize_linear_u8(im, DET_SIZE, DET_SIZE) for im in images])
-        probs = detect_forward(self.detector, torch.from_numpy(det_in).to(self.device)).cpu().numpy()
+        probs = shard_for_inference(detect_forward, self.detector,
+                                    torch.from_numpy(det_in).to(self.device)).cpu().numpy()
         masks = (probs > self.region_threshold).astype(np.uint8)
         return self._recognize_regions(images, masks)
 

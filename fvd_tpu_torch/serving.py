@@ -5,10 +5,13 @@
   power-of-two bucket, runs ONE batched call and hands results to futures.
 * :class:`ScoringService` — per-video signal tracks (mouth MAR, audio
   envelope, the other eight features) scored by lip-sync + LR fusion, one
-  window-kernel launch per micro-batch over all videos x windows.
+  stage-kernel launch per micro-batch and device over all its videos x
+  windows.
 
-Single device only: the reference's multi-chip branch (a mesh over the
-request batch) waits for the port's parallel layer.
+With more than one device (by default every visible card) the service shards
+each micro-batch over them, as the JAX package shards it over the mesh's
+``data`` axis: the batch is padded to a multiple of the device count, each
+device scores its slice, and the results come back in request order.
 """
 
 from __future__ import annotations
@@ -23,9 +26,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch.ops import fusion
 from fvd_tpu_torch.ops.lipsync import lip_sync_score_batch
+from fvd_tpu_torch.parallel.mesh import check_devices, visible_devices
 
 
 def _next_pow2(n: int) -> int:
@@ -144,7 +147,9 @@ class ScoreRequest:
 
 class ScoringService:
     """Micro-batched fused scoring: lip-sync cross-correlation + LR fusion
-    for a batch of videos per micro-batch, on ``device`` (default the card)."""
+    for a batch of videos per micro-batch.  ``devices`` (default: every
+    visible card) score the shards of each micro-batch; a named card that
+    is not present raises."""
 
     def __init__(
         self,
@@ -153,34 +158,40 @@ class ScoringService:
         fps: float,
         max_batch: int = 32,
         max_wait_ms: float = 5.0,
-        device=None,
+        devices=None,
     ):
-        self.device = resolve_device(device)
+        self.devices = check_devices(visible_devices() if devices is None else devices)
         self.n = n
         self.fps = fps
         w, b = fusion.weights_to_vectors(weights)
-        self._w = torch.from_numpy(w).to(self.device)
-        self._b = torch.from_numpy(b).to(self.device)
+        self._wb = {d: (torch.from_numpy(w).to(d), torch.from_numpy(b).to(d)) for d in self.devices}
         self.batcher = MicroBatcher(self._batch_fn, max_batch=max_batch, max_wait_ms=max_wait_ms)
 
     @torch.no_grad()
     def batch_program(self, mouth: torch.Tensor, audio: torch.Tensor, other: torch.Tensor):
-        """[B, N], [B, N], [B, 8] on the device -> (fake_probability [B],
-        lip_sync_score [B])."""
+        """[B, N], [B, N], [B, 8] on one of the service's devices ->
+        (fake_probability [B], lip_sync_score [B])."""
+        w, b = self._wb[mouth.device]
         lip = lip_sync_score_batch(mouth, audio, self.fps).score
         feats = torch.cat([other[:, :2], lip[:, None], other[:, 2:]], dim=1)
-        return torch.sigmoid(feats @ self._w + self._b), lip
+        return torch.sigmoid(feats @ w + b), lip
 
     def _batch_fn(self, items: List[ScoreRequest]) -> List[Dict[str, float]]:
         for it in items:
             if np.shape(it.mouth) != (self.n,) or np.shape(it.audio) != (self.n,):
                 raise ValueError(f"ScoreRequest tracks must have shape ({self.n},), got "
                                  f"{np.shape(it.mouth)} and {np.shape(it.audio)}")
-        mouth, audio, other = (
-            torch.from_numpy(np.stack([getattr(i, f) for i in items]).astype(np.float32)).to(self.device)
-            for f in ("mouth", "audio", "other_feats"))
-        probs, lips = self.batch_program(mouth, audio, other)
-        probs, lips = probs.cpu().numpy(), lips.cpu().numpy()
+        n_req, k = len(items), len(self.devices)
+        # the batch must divide evenly across the devices
+        if n_req % k:
+            items = items + [items[0]] * (k - n_req % k)
+        host = [np.stack([getattr(i, f) for i in items]).astype(np.float32)
+                for f in ("mouth", "audio", "other_feats")]
+        per = len(items) // k
+        outs = [self.batch_program(*(torch.from_numpy(h[j * per:(j + 1) * per]).to(d) for h in host))
+                for j, d in enumerate(self.devices)]
+        probs = np.concatenate([p.cpu().numpy() for p, _ in outs])[:n_req]
+        lips = np.concatenate([l.cpu().numpy() for _, l in outs])[:n_req]
         return [{"fake_probability": float(p), "lip_sync_score": float(l)}
                 for p, l in zip(probs, lips)]
 

@@ -24,6 +24,9 @@ dots and renaming the leaf:
 ``checkpoints/hf/*/flax_model.msgpack`` (read by
 :mod:`fvd_tpu_torch.utils.msgpack`), whose modules the port names as the
 Flax classes do.
+
+:func:`seeded_state_dict` gives a module weights drawn from a numpy seed,
+for runs at a model's geometry without a checkpoint.
 """
 
 from __future__ import annotations
@@ -151,3 +154,27 @@ def hf_state_dict(tree: Mapping, family: str) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected parameter leaf {'.'.join(path)}")
         sd[".".join(mods + [leaf])] = torch.tensor(value.astype(np.float32))
     return sd
+
+
+def seeded_state_dict(module: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Weights for every parameter of ``module`` from ``RandomState(seed)``,
+    at flax's default scales: kernels ``N(0, 1 / fan_in)``, biases 0, norm
+    scales 1, embeddings ``N(0, 1)``; the same on every device."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for name, p in module.named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith("bias"):
+            arr = np.zeros(shape)
+        elif isinstance(_owner(module, name), (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+            arr = np.ones(shape)
+        elif isinstance(_owner(module, name), torch.nn.Embedding):
+            arr = rng.randn(*shape)
+        else:
+            arr = rng.randn(*shape) / np.sqrt(max(1, int(np.prod(shape[1:]))))
+        sd[name] = torch.tensor(arr, dtype=torch.float32)
+    return sd
+
+
+def _owner(module: torch.nn.Module, name: str) -> torch.nn.Module:
+    return module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module

@@ -555,3 +555,145 @@ def test_train_until_correct_on_card_matches_cpu(cuda):
     assert out[cuda][2].cpu().tolist() == out["cpu"][2].tolist() and sum(out["cpu"][2].tolist()) > 0
     assert float((out[cuda][0].cpu() - out["cpu"][0]).abs().max()) <= 1e-6
     assert abs(float(out[cuda][1]) - float(out["cpu"][1])) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer on the card (fvd_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+def _sp_signals(n=1800, fps=30.0, seed=0):
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0, n / fps, n)
+    mouth = np.clip(0.5 * (1 + np.sin(2 * np.pi * 2 * t)) + 0.1 * rng.rand(n), 0, 1)
+    return mouth.astype(np.float32), np.roll(mouth, 3).astype(np.float32)
+
+
+def test_scoring_service_shards_over_card_entries(cuda):
+    """Two entries of the card: one C1 launch per shard, results equal to the
+    single-device CPU service's."""
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.serving import ScoreRequest, ScoringService
+
+    weights = {"bias": -0.3, "lip_sync": -1.2, "speech_rate": 0.4}
+    rng = np.random.RandomState(3)
+    reqs = [ScoreRequest(*_sp_signals(300, 30.0, seed=i), rng.rand(8).astype(np.float32)) for i in range(6)]
+    card = ScoringService(weights, n=300, fps=30.0, max_batch=8, max_wait_ms=50.0, devices=[cuda, cuda])
+    cpu = ScoringService(weights, n=300, fps=30.0, max_batch=8, max_wait_ms=50.0, devices=["cpu"])
+    try:
+        _kernels.reset_launches()
+        got = [f.result(timeout=60) for f in [card.submit(r) for r in reqs]]
+        launches = _kernels.LAUNCHES["lipsync_score"]
+        want = [f.result(timeout=60) for f in [cpu.submit(r) for r in reqs]]
+    finally:
+        card.close()
+        cpu.close()
+    assert launches == 2 * card.batcher.batches_run
+    for g, w in zip(got, want):
+        assert g["lip_sync_score"] == pytest.approx(w["lip_sync_score"], abs=1e-5)
+        assert g["fake_probability"] == pytest.approx(w["fake_probability"], abs=1e-6)
+
+
+def test_gloo_ranks_sharing_the_card_match_one_device(cuda, tmp_path):
+    """Two gloo ranks on the card (NCCL refuses two on one device): the SP
+    score against the plain stage, the EP MoE against the dense oracle."""
+    from fvd_tpu_torch.ops.lipsync import lip_sync_score_batch_plain
+    from fvd_tpu_torch.parallel import experts, programs
+    from fvd_tpu_torch.parallel.launch import RankGroup
+
+    mouth, audio = _sp_signals()
+    params = {k: v.numpy() for k, v in experts.init_moe_params(np.random.RandomState(5), 4, 16, 64).items()}
+    x = np.random.RandomState(4).randn(32, 16).astype(np.float32)
+    with RankGroup(2, "gloo", "cuda:0", str(tmp_path), timeout=120.0) as group:
+        sp = group.run(programs.sp_lipsync, 1, 2, mouth, audio, 30.0)
+        moe = group.run(programs.moe, 2, params, x)
+    ref = float(lip_sync_score_batch_plain(torch.from_numpy(mouth)[None], torch.from_numpy(audio)[None], 30.0).score[0])
+    assert sp[0] == sp[1] == pytest.approx(ref, abs=1e-5)
+    dense = experts.moe_forward_dense({k: torch.from_numpy(v) for k, v in params.items()}, torch.from_numpy(x))
+    np.testing.assert_allclose(moe[0]["out"], dense.numpy(), atol=1e-5, rtol=0)
+
+
+def test_one_nccl_rank_runs_the_dp_step(cuda, tmp_path):
+    from fvd_tpu_torch.parallel import programs
+    from fvd_tpu_torch.parallel.launch import RankGroup
+
+    rng = np.random.RandomState(0)
+    feats = rng.rand(16, 9).astype(np.float32)
+    labels = (rng.rand(16) > 0.5).astype(np.float32)
+    w0 = rng.randn(9).astype(np.float32) * 0.1
+    with RankGroup(1, "nccl", "cuda:0", str(tmp_path), timeout=120.0) as group:
+        got = group.run(programs.dp_lr_step, 1, feats, labels, w0, np.float32(0.2), 0.005)[0]
+    p = 1 / (1 + np.exp(-(feats @ w0 + 0.2)))
+    np.testing.assert_allclose(got["w"], w0 - 0.005 * feats.T @ (p - labels) / 16, atol=1e-6)
+    np.testing.assert_allclose(got["probs"], p, atol=1e-6)
+
+
+def test_sharded_inference_over_card_entries(cuda):
+    """The SSD provider with its frames split over two entries of the card
+    gives the single-device detections."""
+    import os
+
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.parallel.inference import set_inference_mesh
+    from fvd_tpu_torch.parallel.mesh import make_mesh
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints", "face_ssd.npz")
+    frames = np.random.RandomState(0).randint(0, 255, (16, 96, 128, 3)).astype(np.uint8)
+    det = SSDFaceDetector(ckpt, compute_dtype=torch.float32, device=cuda)
+    # f32 without TF32: cuDNN picks its algorithm by batch size, and TF32's
+    # rounding would move scores near NMS's threshold
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    prev = set_inference_mesh(None)
+    try:
+        base = det.detect_batch(frames)
+        set_inference_mesh(make_mesh(n_data=2, n_time=1, devices=[cuda, cuda]))
+        sharded = det.detect_batch(frames)
+    finally:
+        set_inference_mesh(prev)
+        torch.backends.cudnn.allow_tf32 = tf32
+    for b_dets, s_dets in zip(base, sharded):
+        assert len(b_dets) == len(s_dets)
+        for b, s in zip(b_dets, s_dets):
+            np.testing.assert_allclose([b.x1, b.y1, b.x2, b.y2, b.confidence],
+                                       [s.x1, s.y1, s.x2, s.y2, s.confidence], atol=2e-3, rtol=0)
+
+
+def _gloo_collective(name):
+    """One gloo collective on card tensors (a rank program: this module
+    imports no JAX)."""
+    import torch.distributed as dist
+
+    from fvd_tpu_torch.parallel.launch import rank_device
+
+    dev, r, n = rank_device(), dist.get_rank(), dist.get_world_size()
+    t = torch.ones(4, device=dev)
+    if name == "all_reduce":
+        dist.all_reduce(t)
+    elif name == "all_gather":
+        dist.all_gather_into_tensor(torch.empty(4 * n, device=dev), t)
+    elif name == "p2p":
+        ops = [dist.P2POp(dist.isend, t, (r + 1) % n), dist.P2POp(dist.irecv, torch.empty_like(t), (r - 1) % n)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    elif name == "all_to_all":
+        dist.all_to_all([torch.empty(2, device=dev) for _ in range(n)], [torch.ones(2, device=dev) for _ in range(n)])
+    torch.cuda.synchronize()
+    return float(t.sum())
+
+
+@pytest.mark.parametrize("name,takes", [("all_reduce", True), ("all_gather", True), ("p2p", False),
+                                        ("all_to_all", False)])
+def test_gloo_collectives_on_card_tensors(cuda, tmp_path, name, takes):
+    """Which gloo collectives take card tensors as they are (those that do
+    not are why ``parallel/mesh.py`` copies through host memory on gloo)."""
+    from fvd_tpu_torch.parallel.launch import RankGroup
+
+    group = RankGroup(2, "gloo", "cuda:0", str(tmp_path), timeout=60.0)
+    try:
+        if takes:
+            want = 8.0 if name == "all_reduce" else 4.0   # the sum over 2 ranks, or the tensor as it was
+            assert group.run(_gloo_collective, name) == [want, want]
+        else:
+            with pytest.raises(RuntimeError):
+                group.run(_gloo_collective, name)
+    finally:
+        group.close()

@@ -48,7 +48,11 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.ops.whisper_frontend", "fvd_tpu_torch.models.hf_bert", "fvd_tpu_torch.models.hf_clip",
             "fvd_tpu_torch.models.hf_whisper", "fvd_tpu_torch.providers.hf_models", "fvd_tpu_torch.utils.jpeg",
             "fvd_tpu_torch.providers.recorded", "fvd_tpu_torch.batch",
-            "fvd_tpu_torch.streaming", "fvd_tpu_torch.ui.web", "fvd_tpu_torch.ui.app"} <= set(mods)
+            "fvd_tpu_torch.streaming", "fvd_tpu_torch.ui.web", "fvd_tpu_torch.ui.app",
+            "fvd_tpu_torch.parallel", "fvd_tpu_torch.parallel.mesh", "fvd_tpu_torch.parallel.launch",
+            "fvd_tpu_torch.parallel.inference", "fvd_tpu_torch.parallel.pipeline",
+            "fvd_tpu_torch.parallel.tensor", "fvd_tpu_torch.parallel.stages",
+            "fvd_tpu_torch.parallel.experts", "fvd_tpu_torch.parallel.programs"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"

@@ -42,7 +42,7 @@ def _expected(r, fps):
 @pytest.mark.parametrize("n,fps", [(300, 30.0), (50, 5.0)])
 def test_concurrent_requests_match_per_request_scoring(n, fps):
     reqs = [_request(i, n, fps, sync=(i % 2 == 0)) for i in range(12)]
-    svc = ScoringService(WEIGHTS, n=n, fps=fps, max_batch=8, max_wait_ms=20.0, device="cpu")
+    svc = ScoringService(WEIGHTS, n=n, fps=fps, max_batch=8, max_wait_ms=20.0, devices=["cpu"])
     try:
         with ThreadPoolExecutor(6) as pool:
             results = list(pool.map(lambda r: svc.score(r, timeout=60), reqs))
@@ -59,7 +59,7 @@ def test_concurrent_requests_match_per_request_scoring(n, fps):
 def test_matches_the_jax_service():
     n, fps = 300, 30.0
     reqs = [_request(10 + i, n, fps, sync=(i % 3 != 0)) for i in range(5)]
-    ours = ScoringService(WEIGHTS, n=n, fps=fps, max_batch=8, max_wait_ms=20.0, device="cpu")
+    ours = ScoringService(WEIGHTS, n=n, fps=fps, max_batch=8, max_wait_ms=20.0, devices=["cpu"])
     ref = JaxScoringService(WEIGHTS, n=n, fps=fps, max_batch=8, max_wait_ms=20.0)
     try:
         got = [f.result(timeout=60) for f in [ours.submit(r) for r in reqs]]
@@ -73,7 +73,7 @@ def test_matches_the_jax_service():
 
 
 def test_wrong_length_request_fails_its_future():
-    svc = ScoringService(WEIGHTS, n=50, fps=5.0, device="cpu")
+    svc = ScoringService(WEIGHTS, n=50, fps=5.0, devices=["cpu"])
     try:
         with pytest.raises(ValueError):
             svc.score(_request(0, 40, 5.0), timeout=30)
