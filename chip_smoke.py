@@ -156,10 +156,26 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              MoE, the full DAG under the mesh against one device) and
              launches C1 once per DAG run (2); prints each check's delta,
              ms, backend and devices.  A run across several cards needs a
-             machine with several and is not made here.
+             machine with several and is not made here;
+16. train    the vision trainers of ``python -m
+             fvd_tpu_torch.tools.pretrain_synthetic`` at full width (the SSD,
+             the hourglass and the pose head at width 32, batch 16): (a) three
+             Adam steps of each, and one ``pose_consistency_loss`` step, on
+             the card and on the CPU from the same seeded weights and the
+             port's batches (seeds 0-2), in float32 (TF32 off; the first
+             step's loss) and float64 (every step's loss, the first step's
+             gradients and the last parameters per tensor); (b) the tool in a
+             subprocess on the card, ``--steps 50 --consistency``, then
+             ``--only det --resume --steps 10``, which must continue from
+             step 50: per trainer the median host data ms and device ms of a
+             step (CUDA events), images/s, the first and last loss (the last
+             must be lower) and the eval metric; (c) the npz files it wrote
+             served by ``SSDFaceDetector`` and ``FANLandmarks`` (with the
+             pose head) on the card.  Training launches no kernel of the
+             repo's.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-15 alone.  Then one JSON line with every kernel's numbers, the card's
+4-16 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -2263,6 +2279,187 @@ def cli_phase():
     phase("cli", cold_start_s=out["unlabelled"]["seconds"], runs=out)
 
 
+#: the train phase's parity, card against CPU from the same seeded weights on
+#: the same batches.  float32 (TF32 off): the first step's loss.  Later steps'
+#: float32 losses, per-tensor gradients and parameters are printed but held in
+#: float64: a tensor whose gradient is a small difference of large terms (a
+#: GroupNorm bias, the consistency term) differs in the third decimal between
+#: two float32 summation orders, and Adam's first updates are about +-lr wherever
+#: |g| >> eps, so a gradient within rounding of 0 moves a parameter either way
+#: (``tests/test_torch_train_losses.py`` measured both against JAX)
+TRAIN_F32_LOSS_TOL = 1e-4
+TRAIN_F64_TOL = 1e-8
+#: gradients that are exactly zero in exact arithmetic (the heatmap conv's bias
+#: under the spatial soft-argmax), held to this share of the whole gradient
+TRAIN_ZERO_GRAD = {"lmk": ("Conv_1.bias",)}
+TRAIN_ZERO_GRAD_TOL = 1e-12
+TRAIN_BATCH = 16
+TRAIN_STEPS = 3
+TRAIN_CLI_STEPS = 50
+TRAIN_RESUME_STEPS = 10
+
+
+def _train_batches():
+    """Three batches of each trainer from the port's generators (seeds 0-2)
+    and one consistency pair batch, at the tool's sizes."""
+    from fvd_tpu_torch.models.synthetic_faces import detector_batch, landmark_batch
+    from fvd_tpu_torch.models.synthetic_pose import pose_batch, pose_batch_paired
+
+    rngs = [np.random.RandomState(s) for s in range(TRAIN_STEPS)]
+    return {"det": [detector_batch(r, TRAIN_BATCH)[:3] for r in rngs],
+            "lmk": [landmark_batch(r, TRAIN_BATCH) for r in rngs],
+            "pose": [pose_batch(r, TRAIN_BATCH)[:2] for r in rngs],
+            "consistency": [pose_batch_paired(np.random.RandomState(0), max(TRAIN_BATCH // 2, 4))]}
+
+
+def _train_run(name, batches, device, dtype):
+    """The tool's model and Adam step for ``name`` over ``batches`` on
+    ``device`` in ``dtype`` -> (losses, step-0 gradients, final parameters),
+    the last two on the CPU."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import face_ssd, landmarks_fan
+    from fvd_tpu_torch.models.layers import adam, adam_step
+
+    net, loss_fn = {"det": (face_ssd.FaceSSD, face_ssd.ssd_loss),
+                    "lmk": (landmarks_fan.LandmarkHourglass, landmarks_fan.landmark_loss),
+                    "pose": (landmarks_fan.PoseHead, landmarks_fan.pose_loss),
+                    "consistency": (landmarks_fan.PoseHead, landmarks_fan.pose_consistency_loss)}[name]
+    seed = {"det": 0, "lmk": 1}.get(name, 2)
+    model = weights.seeded(net(32), seed).to(device, dtype)
+    opt, losses, grads = adam(model), [], None
+    for b in batches:
+        losses.append(adam_step(loss_fn, model, opt, *(torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+                                                       for x in b)))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _worst_rel(a, b, skip=()):
+    """(largest relative L2 of a tensor of ``a`` to its twin in ``b``, its name);
+    a tensor that is zero on both sides counts 0."""
+    import torch
+
+    worst = (0.0, "")
+    for k in b:
+        if k in skip:
+            continue
+        diff, ref = float(torch.linalg.vector_norm((a[k] - b[k]).double())), float(torch.linalg.vector_norm(b[k].double()))
+        rel = 0.0 if diff == ref == 0 else diff / ref
+        worst = max(worst, (rel, k))
+    return worst
+
+
+def _train_parity(batches):
+    """Card against CPU for each trainer, in float32 and float64."""
+    import torch
+
+    out = {}
+    for name, b in batches.items():
+        row = {}
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            t0 = time.perf_counter()
+            card = _train_run(name, b, "cuda", dt)
+            t1 = time.perf_counter()
+            cpu = _train_run(name, b, "cpu", dt)
+            loss_rel = [abs(x - y) / abs(y) for x, y in zip(card[0], cpu[0])]
+            zero = TRAIN_ZERO_GRAD.get(name, ())
+            row[tag] = {"losses_card": card[0], "losses_cpu": cpu[0], "loss_rel": loss_rel,
+                        "worst_grad_rel": _worst_rel(card[1], cpu[1], zero),
+                        "worst_param_rel": _worst_rel(card[2], cpu[2], zero),
+                        "card_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
+            if tag == "f32":
+                check(loss_rel[0] <= TRAIN_F32_LOSS_TOL,
+                      f"train {name}: card f32 loss {card[0][0]} vs CPU {cpu[0][0]} (rel {loss_rel[0]})")
+                continue
+            check(max(loss_rel) <= TRAIN_F64_TOL, f"train {name}: f64 losses {card[0]} vs CPU {cpu[0]}")
+            for what in ("worst_grad_rel", "worst_param_rel"):
+                check(row[tag][what][0] <= TRAIN_F64_TOL, f"train {name}: f64 {what} {row[tag][what]}")
+            total = sum(float(g.double().pow(2).sum()) for g in cpu[1].values()) ** 0.5
+            for k in zero:
+                for side in (card, cpu):
+                    check(float(torch.linalg.vector_norm(side[1][k].double())) <= TRAIN_ZERO_GRAD_TOL * total,
+                          f"train {name}: {k}'s gradient is not zero")
+        out[name] = row
+    return out
+
+
+def _train_cli(out_dir, extra):
+    """``python -m fvd_tpu_torch.tools.pretrain_synthetic`` on the card in a
+    fresh interpreter -> (seconds, {trainer: summary})."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.pretrain_synthetic", "--batch",
+                           str(TRAIN_BATCH), "--out-dir", out_dir] + extra, cwd=out_dir, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"pretrain_synthetic {extra}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    check(proc.stdout.startswith("device: cuda"), f"pretrain_synthetic {extra} did not run on the card: "
+                                                  f"{proc.stdout[:300]}")
+    summaries = {ln.split(" ", 1)[0].strip("[]"): json.loads(ln.split(" summary ", 1)[1])
+                 for ln in proc.stdout.splitlines() if " summary {" in ln}
+    return seconds, summaries, proc.stdout
+
+
+def train_phase():
+    """The vision trainers: (a) card against CPU from the same weights and
+    batches, (b) the tool on the card in a subprocess, then ``--resume``, (c)
+    the npz files it wrote served by the providers on the card."""
+    import torch
+
+    from fvd_tpu_torch.models.face_ssd import MEAN_RGB, SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+    from fvd_tpu_torch.models.synthetic_faces import detector_batch
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "train: TF32 must stay off for the card-vs-CPU bars")
+    t0 = time.perf_counter()
+    batches = _train_batches()
+    data_s = time.perf_counter() - t0
+    parity = _train_parity(batches)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_s, runs, stdout = _train_cli(tmp, ["--steps", str(TRAIN_CLI_STEPS), "--consistency"])
+        check(set(runs) == {"det", "lmk", "pose"}, f"train: summaries {sorted(runs)}: {stdout[-2000:]}")
+        for name, r in runs.items():
+            check(r["steps"] == TRAIN_CLI_STEPS and r["loss_last"] < r["loss_first"],
+                  f"train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
+        resume_s, resumed, stdout = _train_cli(tmp, ["--only", "det", "--resume", "--steps", str(TRAIN_RESUME_STEPS)])
+        check(resumed["det"]["start_step"] == TRAIN_CLI_STEPS
+              and f"resumed train state at step {TRAIN_CLI_STEPS}" in stdout,
+              f"train: --resume did not continue from step {TRAIN_CLI_STEPS}: {stdout[:1000]}")
+        check(sorted(os.listdir(os.path.join(tmp, "train_state_det"))) ==
+              sorted([str(TRAIN_CLI_STEPS), str(TRAIN_CLI_STEPS + TRAIN_RESUME_STEPS)]),
+              f"train: train states {os.listdir(os.path.join(tmp, 'train_state_det'))}")
+
+        # (c) the written checkpoints serve on the card
+        frames, _, _, gt = detector_batch(np.random.RandomState(7), 4)
+        raw = (frames + np.asarray(MEAN_RGB)).clip(0, 255).astype(np.uint8)
+        det = SSDFaceDetector(os.path.join(tmp, "face_ssd.npz"), device="cuda")
+        # a 50-step detector scores below the providers' 0.5 gate: take every
+        # box so that the hourglass and the pose head run
+        lmk = FANLandmarks(det, os.path.join(tmp, "landmarks.npz"), pose_checkpoint=os.path.join(tmp, "pose.npz"),
+                           detector_threshold=0.0, device="cuda")
+        faces = det.detect_batch(raw)
+        lm, poses = lmk.landmarks_pose_batch(raw)
+        check(len(faces) == len(lm) == len(poses) == 4 and all(len(f) for f in lm) and all(len(f) for f in poses),
+              f"train: the trained providers gave {[len(f) for f in lm]} landmark sets a frame")
+        check(all(np.isfinite(p).all() for f in poses for p in f) and all(np.isfinite(x).all() for f in lm for x in f),
+              "train: non-finite landmarks or poses from the trained providers")
+        served = {"faces": [len(f) for f in faces], "top_scores": [f[0].confidence if f else 0.0 for f in faces],
+                  "landmark_sets": [len(f) for f in lm], "poses": [len(f) for f in poses]}
+
+    timing = {name: {k: r[k] for k in ("data_ms", "step_ms", "images_per_s", "loop_s", "loss_first", "loss_last")}
+              for name, r in runs.items()}
+    evals = {name: {k: v for k, v in r.items() if k.startswith(("eval", "consistency"))} for name, r in runs.items()}
+    phase("train", nvidia_smi=SMI_LINE, batch=TRAIN_BATCH, widths=32, data_s=data_s, parity=parity,
+          f32_loss_tol=TRAIN_F32_LOSS_TOL, f64_tol=TRAIN_F64_TOL, cli_steps=TRAIN_CLI_STEPS, cli_s=cli_s,
+          timing=timing, eval=evals, resume_s=resume_s, resumed_from=resumed["det"]["start_step"],
+          resumed_loss=[resumed["det"]["loss_first"], resumed["det"]["loss_last"]], served=served)
+
+
 #: the dryrun_multichip runs of the parallel phase: (ranks, the backend they
 #: must pick on a one-card machine)
 PARALLEL_RUNS = ((1, "nccl"), (4, "gloo"))
@@ -2304,7 +2501,7 @@ def parallel_phase():
 
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel")
+          "parallel", "train")
 
 
 def main(argv=None) -> int:
@@ -2329,12 +2526,12 @@ def main(argv=None) -> int:
     build_s = build_phase()
     entry_row = kernel_phase()
     # each phase that drives a main path returns its C1 launches; the model
-    # zoo and the HF models launch no kernel of the repo's, and the CLI's
-    # launches happen in its own processes and are not counted here
+    # zoo, the HF models and the trainers launch no kernel of the repo's, and
+    # the CLI's launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase}
-    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase}
+    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase}
     launches = 0
     for name in PHASES:
         if name in counted and name in only:

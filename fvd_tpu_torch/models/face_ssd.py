@@ -10,6 +10,11 @@ detect on host frames or a device tensor, through
 :func:`~fvd_tpu_torch.parallel.inference.shard_for_inference` so an installed
 inference mesh splits the frames over its devices; host unpacking of the
 slots with ``s > 0``).
+
+Training: :func:`ssd_loss`, :func:`make_train_step` on ``torch.optim.Adam``
+(the update of ``optax.adam``) and :func:`save_params`, which writes the JAX
+package's npz; ``weights.seeded(FaceSSD(width), seed)`` gives flax's initial
+scales from a numpy seed.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
+from fvd_tpu_torch.models.layers import SameConv2d, adam, adam_step, group_norm, in_dtype
 from fvd_tpu_torch.ops import detection
 from fvd_tpu_torch.ops.image import resize
 from fvd_tpu_torch.parallel.inference import shard_for_inference
@@ -168,3 +173,46 @@ class SSDFaceDetector:
             out.append([FaceBox(b[0] * w, b[1] * h, b[2] * w, b[3] * h, float(s))
                         for b, s in zip(bb, ss) if s > 0.0])
         return out
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+#: write a model as the JAX package's flat npz (``face_ssd.npz``), and load one
+save_params, load_params = weights_mod.save_npz, weights_mod.load_npz
+
+
+def ssd_loss(model: FaceSSD, frames: torch.Tensor, labels: torch.Tensor, loc_targets: torch.Tensor,
+             neg_ratio: float = 3.0) -> torch.Tensor:
+    """BCE confidence loss with hard-negative mining plus a smooth-L1 loc
+    loss, per image over its positives.
+
+    frames float [B, 300, 300, 3] (already mean-subtracted); labels [B, A]
+    in {0, 1}; loc_targets [B, A, 4] encoded offsets.  The negatives kept
+    are the ``neg_ratio * n_pos`` with the largest BCE, ranked by a stable
+    sort as ``jnp.argsort`` ranks them, so tied logits keep the lower anchor
+    index; positives rank last."""
+    loc, conf = model(frames)
+    pos = labels > 0.5
+    n_pos = torch.clamp(pos.sum(dim=1), min=1)
+    # maximum, not clamp: at a logit of exactly 0 both libraries give max half the gradient
+    bce = torch.maximum(conf, torch.zeros_like(conf)) - conf * labels + torch.log1p(torch.exp(-conf.abs()))
+    neg_bce = torch.where(pos, float("-inf"), bce.detach())
+    order = torch.sort(-neg_bce, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(order.shape[1], device=order.device)
+                                            .expand_as(order))
+    keep_neg = rank < (neg_ratio * n_pos)[:, None]
+    conf_loss = torch.where(pos | keep_neg, bce, 0.0).sum(dim=1) / n_pos
+
+    diff = (loc - loc_targets).abs()
+    smooth_l1 = torch.where(diff < 1.0, 0.5 * diff ** 2, diff - 0.5)
+    loc_loss = torch.where(pos[..., None], smooth_l1, 0.0).sum(dim=(1, 2)) / n_pos
+    return (conf_loss + loc_loss).mean()
+
+
+def make_train_step(lr: float = 1e-3):
+    """-> ``(step, init_opt)``: ``init_opt(model)`` is ``torch.optim.Adam``
+    (b1 0.9, b2 0.999, eps 1e-8 outside the square root, as ``optax.adam``)
+    and ``step(model, opt, frames, labels, loc_targets)`` updates ``model``
+    in place and returns the loss before the update."""
+    return functools.partial(adam_step, ssd_loss), functools.partial(adam, lr=lr)

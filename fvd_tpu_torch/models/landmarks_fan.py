@@ -9,6 +9,11 @@ counterpart of ``ResBlock``, ``Hourglass``, ``LandmarkHourglass``,
 their crop batches through :func:`~fvd_tpu_torch.parallel.inference.shard_for_inference`,
 so an installed inference mesh splits them over its devices.
 
+Training (``:664-707`` there): :func:`landmark_loss`, :func:`pose_loss`,
+:func:`pose_consistency_loss`, :func:`make_landmark_train_step`, the npz
+:func:`save_params` / :func:`load_params` and the eval forwards
+:func:`landmarks_forward` and :func:`pose_forward` on uint8 crops.
+
 Submodules carry the flax auto-names (``Conv_0``, ``GroupNorm_0``,
 ``ResBlock_3``, ``Hourglass_0``) so a flax params tree loads through
 :mod:`fvd_tpu_torch.weights`.  Public functions keep the reference's NHWC
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, group_norm, in_dtype
+from fvd_tpu_torch.models.layers import SameConv2d, adam, adam_step, group_norm, in_dtype
 from fvd_tpu_torch.ops.image import resize, scale_and_translate
 from fvd_tpu_torch.parallel.inference import shard_for_inference
 
@@ -414,6 +419,73 @@ class FANLandmarks:
             return np.zeros((0, 3))
         boxes_t, owners_t, n = _marshal_boxes(boxes, owners, self.device)
         return pose_from_frames(self.pose_model, device_frames, boxes_t, owners_t)[:n].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+#: write a model as the JAX package's flat npz (``landmarks.npz``, ``pose.npz``),
+#: and load one
+save_params, load_params = weights_mod.save_npz, weights_mod.load_npz
+
+
+def landmark_loss(model: LandmarkHourglass, crops: torch.Tensor, target_coords: torch.Tensor) -> torch.Tensor:
+    """Squared distance of the soft-argmax coordinates to the targets, mean
+    over crops and landmarks (crops float [B, 128, 128, 3] in 0..1, targets
+    [B, 68, 2] in [0, 1])."""
+    coords = decode_heatmaps(model(crops))
+    return torch.mean(torch.sum((coords - target_coords) ** 2, dim=-1))
+
+
+def _frobenius2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sum((a - b) ** 2, dim=(-1, -2)))
+
+
+def pose_loss(model: PoseHead, crops: torch.Tensor, target_R: torch.Tensor) -> torch.Tensor:
+    """Squared Frobenius distance between the predicted and the target
+    rotation matrices."""
+    return _frobenius2(rotation_6d_to_matrix(model(crops)), target_R)
+
+
+def pose_consistency_loss(model: PoseHead, crops_a: torch.Tensor, crops_b: torch.Tensor,
+                          target_R: torch.Tensor, lam: float = 1.0) -> torch.Tensor:
+    """The supervised loss of both branches of a same-face, same-rotation
+    pair (A clean, B with accessory strokes), plus ``lam`` times the squared
+    Frobenius distance between the two predictions."""
+    Ra = rotation_6d_to_matrix(model(crops_a))
+    Rb = rotation_6d_to_matrix(model(crops_b))
+    sup = (_frobenius2(Ra, target_R) + _frobenius2(Rb, target_R)) * 0.5
+    return sup + lam * _frobenius2(Ra, Rb)
+
+
+def make_landmark_train_step(lr: float = 1e-3):
+    """-> ``(step, init_opt)`` for the hourglass: ``init_opt(model)`` is
+    ``optax.adam(lr)`` as ``torch.optim.Adam`` and ``step(model, opt, crops,
+    targets)`` updates ``model`` in place and returns the loss before the
+    update."""
+    return functools.partial(adam_step, landmark_loss), functools.partial(adam, lr=lr)
+
+
+def _uint8_crops(crops: torch.Tensor) -> torch.Tensor:
+    """uint8 crops [B, S, S, 3] -> float [B, 128, 128, 3] in 0..1, resized as
+    ``jax.image.resize`` "linear" resizes."""
+    return resize(crops.to(torch.float32) / 255.0, (CROP_SIZE, CROP_SIZE), antialias=True)
+
+
+@torch.no_grad()
+def landmarks_forward(model: LandmarkHourglass, crops: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """uint8 crops [B, S, S, 3] -> landmark coords [B, 68, 2] in crop [0, 1]:
+    the hourglass in ``compute_dtype`` (bf16 by default), the soft-argmax in
+    float32."""
+    return _landmarks_of_crops(model, _uint8_crops(crops), compute_dtype)
+
+
+@torch.no_grad()
+def pose_forward(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
+    """uint8 crops [B, S, S, 3] -> (pitch, yaw, roll) degrees [B, 3], in
+    float32."""
+    return _pose_forward(pose_model, _uint8_crops(crops))
 
 
 # ---------------------------------------------------------------------------

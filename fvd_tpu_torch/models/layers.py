@@ -9,6 +9,8 @@
   torch defaults to 1e-5.
 * :func:`in_dtype` is the model with every parameter cast to the compute
   dtype, as the reference casts its params tree inside each jitted forward.
+* :func:`adam` is ``optax.adam`` as a ``torch.optim.Adam`` and
+  :func:`adam_step` one ``value_and_grad`` + update of a train step.
 """
 
 from __future__ import annotations
@@ -31,15 +33,18 @@ def in_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     model itself where its first parameter already has ``dtype``.  Calling a
     module is safe from several threads at once (concurrent videos share one
     provider); swapping its parameters per call, as
-    ``torch.func.functional_call`` does, is not.  The copy does not follow
-    later changes to ``model``'s weights."""
+    ``torch.func.functional_call`` does, is not.  The copy is cast again
+    when ``model``'s weights have changed in place since (an optimizer step,
+    ``load_state_dict``): every in-place write bumps a tensor's version
+    counter, and the copy keeps the counters it was cast at."""
     if next(model.parameters()).dtype == dtype:
         return model
+    stamp = tuple(t._version for t in model.state_dict(keep_vars=True).values())
     with _cast_lock:
         per = _cast.setdefault(model, {})
-        if dtype not in per:
-            per[dtype] = copy.deepcopy(model).to(dtype)
-        return per[dtype]
+        if per.get(dtype, (None,))[0] != stamp:
+            per[dtype] = (stamp, copy.deepcopy(model).to(dtype))
+        return per[dtype][1]
 
 
 def same_pads(n: int, k: int, s: int):
@@ -78,3 +83,20 @@ class SameConv1d(nn.Conv1d):
 
 def group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(8, channels, eps=1e-6)
+
+
+def adam(model: nn.Module, lr: float = 1e-3) -> torch.optim.Adam:
+    """``optax.adam(lr)`` over ``model``'s parameters: b1 0.9, b2 0.999 and
+    eps 1e-8 added outside the square root, as both libraries add it."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def adam_step(loss_fn, model: nn.Module, opt: torch.optim.Optimizer, *args) -> torch.Tensor:
+    """One step of ``opt`` on ``loss_fn(model, *args)``; -> the loss before
+    the update, detached (no host sync).  The step's gradients stay in
+    ``p.grad`` until the next step."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *args)
+    loss.backward()
+    opt.step()
+    return loss.detach()

@@ -1,5 +1,6 @@
 """Detection ops: the counterparts of ``make_anchors``, ``decode_boxes``,
-``iou_matrix`` and ``nms`` in ``fvd_tpu/ops/detection.py``.
+``iou_matrix``, ``nms`` and the host-side training helpers ``encode_boxes``
+and ``match_anchors`` in ``fvd_tpu/ops/detection.py``.
 
 NMS keeps the reference's static shape: a fixed budget of ``max_out``
 iterations, each taking the highest-scoring survivor and masking its
@@ -95,3 +96,47 @@ def nms(
     picked = torch.gather(boxes, 1, out_idx.clamp(min=0)[..., None].expand(B, max_out, 4))
     out_boxes = torch.where((out_idx >= 0)[..., None], picked, torch.zeros_like(picked))
     return out_boxes, out_score
+
+
+def encode_boxes(boxes: np.ndarray, anchors: np.ndarray,
+                 variances: Tuple[float, float] = (0.1, 0.2)) -> np.ndarray:
+    """Inverse of :func:`decode_boxes` on the host (training targets): corner
+    boxes [..., A, 4] + anchors [A, 4] cxcywh -> offsets [..., A, 4]."""
+    bw = np.maximum(boxes[..., 2] - boxes[..., 0], 1e-6)
+    bh = np.maximum(boxes[..., 3] - boxes[..., 1], 1e-6)
+    bcx = (boxes[..., 0] + boxes[..., 2]) / 2
+    bcy = (boxes[..., 1] + boxes[..., 3]) / 2
+    acx, acy, aw, ah = anchors[..., 0], anchors[..., 1], anchors[..., 2], anchors[..., 3]
+    return np.stack([(bcx - acx) / (variances[0] * aw), (bcy - acy) / (variances[0] * ah),
+                     np.log(bw / aw) / variances[1], np.log(bh / ah) / variances[1]], axis=-1)
+
+
+def match_anchors(gt_boxes: np.ndarray, anchors: np.ndarray,
+                  pos_iou: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+    """Training-time anchor matching on the host: each anchor gets the best gt
+    if their IoU >= ``pos_iou``, and every gt claims its best anchor.  ->
+    (labels [A] in {0, 1}, matched gt [A, 4] corner boxes)."""
+    A = anchors.shape[0]
+    labels = np.zeros(A, np.float32)
+    matched = np.zeros((A, 4), np.float32)
+    if len(gt_boxes) == 0:
+        return labels, matched
+    corners = np.stack([anchors[:, 0] - anchors[:, 2] / 2, anchors[:, 1] - anchors[:, 3] / 2,
+                        anchors[:, 0] + anchors[:, 2] / 2, anchors[:, 1] + anchors[:, 3] / 2], axis=1)
+    lt = np.maximum(corners[:, None, :2], gt_boxes[None, :, :2])
+    rb = np.minimum(corners[:, None, 2:], gt_boxes[None, :, 2:])
+    wh = np.clip(rb - lt, 0.0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (corners[:, 2] - corners[:, 0]) * (corners[:, 3] - corners[:, 1])
+    area_b = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    ious = np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+    best_gt = ious.argmax(axis=1)
+    pos = ious.max(axis=1) >= pos_iou
+    for g in range(len(gt_boxes)):  # force-match each gt's best anchor
+        a = ious[:, g].argmax()
+        pos[a] = True
+        best_gt[a] = g
+    labels[pos] = 1.0
+    matched[pos] = gt_boxes[best_gt[pos]]
+    return labels, matched

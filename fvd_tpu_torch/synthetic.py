@@ -99,28 +99,35 @@ TEMPLATE_68 = _build_template()
 
 
 def draw_face(img: np.ndarray, cx: float, cy: float, fw: float, fh: float, skin: np.ndarray,
-              aperture: float) -> np.ndarray:
+              aperture: float | None = None, opencv: bool = True) -> np.ndarray:
     """Draw one face into ``img`` (in place) with its mouth open by
-    ``aperture`` in [0, 1]; -> landmarks [68, 2] px."""
-    draw.fill_ellipse(img, (int(cx), int(cy)), (int(fw / 2), int(fh / 2)), skin.tolist())
+    ``aperture`` in [0, 1]; -> landmarks [68, 2] px.  ``None`` keeps the
+    fixed mouth of the template, which the detector and pose batches draw.
+    ``opencv``: OpenCV's rasterisation, the JAX package's pixels; else the
+    pixel-centre shapes the synthetic clips are drawn with."""
+    fill_ellipse, polyline = ((draw.fill_ellipse, draw.polyline) if opencv
+                              else (draw.fill_ellipse_centres, draw.polyline_centres))
+    fill_ellipse(img, (int(cx), int(cy)), (int(fw / 2), int(fh / 2)), skin.tolist())
     x1, y1 = cx - fw / 2, cy - fh / 2
     pts = TEMPLATE_68.copy()
-    out_ry = 0.02 + 0.09 * float(aperture)
-    in_ry = out_ry * 0.64
-    pts[48:60, 1] = 0.78 + out_ry * np.sin(np.linspace(0, 2 * np.pi, 12, endpoint=False))
-    pts[60:68, 1] = 0.78 + in_ry * np.sin(np.linspace(0, 2 * np.pi, 8, endpoint=False))
+    if aperture is not None:
+        out_ry = 0.02 + 0.09 * float(aperture)
+        in_ry = out_ry * 0.64
+        pts[48:60, 1] = 0.78 + out_ry * np.sin(np.linspace(0, 2 * np.pi, 12, endpoint=False))
+        pts[60:68, 1] = 0.78 + in_ry * np.sin(np.linspace(0, 2 * np.pi, 8, endpoint=False))
     pts[:, 0] = x1 + pts[:, 0] * fw
     pts[:, 1] = y1 + pts[:, 1] * fh
 
     dark = (skin * 0.35).astype(int).tolist()
     for base in (36, 42):  # eyes
         center = pts[base: base + 6].mean(axis=0).astype(int)
-        draw.fill_ellipse(img, center, (max(2, int(fw * 0.08)), max(1, int(fw * 0.035))), dark)
+        fill_ellipse(img, center, (max(2, int(fw * 0.08)), max(1, int(fw * 0.035))), dark)
     for sl in (slice(17, 22), slice(22, 27)):  # brows
-        draw.polyline(img, pts[sl].astype(np.int32), max(1, int(fw * 0.02)), dark)
+        polyline(img, pts[sl].astype(np.int32), max(1, int(fw * 0.02)), dark)
     mouth_c = pts[48:60].mean(axis=0).astype(int)  # vertical radius follows the aperture
-    draw.fill_ellipse(img, mouth_c, (max(2, int(fw * 0.16)), max(1, int(fh * out_ry))), (120, 40, 40))
-    draw.polyline(img, pts[27:31].astype(np.int32), max(1, int(fw * 0.015)), dark)  # nose
+    mouth_ry = max(1, int(fh * out_ry)) if aperture is not None else max(1, int(fw * 0.06))
+    fill_ellipse(img, mouth_c, (max(2, int(fw * 0.16)), mouth_ry), (120, 40, 40))
+    polyline(img, pts[27:31].astype(np.int32), max(1, int(fw * 0.015)), dark)  # nose
     return pts.astype(np.float32)
 
 
@@ -423,7 +430,7 @@ def make_face_video(
         cx = width / 2 + 0.06 * width * np.sin(2 * np.pi * 0.05 * t)
         cy = height / 2 + 0.04 * height * np.cos(2 * np.pi * 0.07 * t)
         frame = background.copy()
-        draw_face(frame, cx, cy, fw, fh, skin, aperture=gate)
+        draw_face(frame, cx, cy, fw, fh, skin, aperture=gate, opencv=False)
         frames[i] = frame
     video_path = os.path.join(dirpath, f"{name}.avi")
     write_video(video_path, frames, fps)

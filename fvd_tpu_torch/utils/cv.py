@@ -1,6 +1,6 @@
 """OpenCV-exact host image helpers: the calls of ``cv2`` that the JAX
-package's OCR, CLIP and recorded LLM make on the host, for a machine without
-OpenCV.
+package's OCR, CLIP, recorded LLM and training-data generators make on the
+host, for a machine without OpenCV.
 
 * :func:`resize_linear_u8` is ``cv2.resize(img, (w, h))`` (INTER_LINEAR) on
   uint8: 11-bit fixed-point tap weights, a horizontal pass kept as integers
@@ -15,6 +15,21 @@ OpenCV.
   cv2.CV_32F)``: ksize 1, the kernel ``[[0, 1, 0], [1, -4, 1], [0, 1, 0]]``
   with ``BORDER_REFLECT_101``.  On uint8 input every value is an integer
   below 2^24, so float32 holds each sum exactly in any order.
+* :func:`rotation_matrix_2d` is ``cv2.getRotationMatrix2D``, bit for bit
+  (the centre passes through float32, as OpenCV's ``Point2f`` takes it).
+* :func:`warp_affine_u8` is ``cv2.warpAffine(img, M, (w, h),
+  flags=cv2.INTER_LINEAR)`` with its constant 0 border, and
+  :func:`warp_perspective_u8` is ``cv2.warpPerspective(img, M, (w, h),
+  borderMode=cv2.BORDER_REPLICATE)``, both as OpenCV 5 computes them for
+  uint8: the inverse map in double, the source coordinates in float32 (a
+  fused multiply-add along the row), the bilinear blend in float32 fused
+  multiply-adds, rounded half to even.  The perspective warp matches bit for
+  bit; the affine warp differs by one level on a few values, all in the
+  last 12 columns of a 300-wide image, which OpenCV computes outside its
+  16-lane vector loop.
+* :func:`perspective_transform` is ``cv2.getPerspectiveTransform``: the same
+  8x8 system, solved by LAPACK instead of OpenCV's own LU (the matrices
+  agree to rounding; the warps of ``synthetic_pose`` come out bit-equal).
 """
 
 from __future__ import annotations
@@ -124,3 +139,86 @@ def laplacian_f32(gray_u8: np.ndarray) -> np.ndarray:
         width[axis] = (1, 1)
         p = np.pad(p, width, mode="reflect" if img.shape[axis] > 1 else "edge")
     return np.ascontiguousarray(p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * img, np.float32)
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: float64 [2, 3]."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` with one rounding (the product of two float32
+    values is exact in float64)."""
+    return (np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
+            + np.asarray(c, np.float32)).astype(np.float32)
+
+
+def _remap_linear_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, replicate: bool) -> np.ndarray:
+    """Bilinear sampling of uint8 ``img`` at float32 source coordinates
+    ``sx``, ``sy`` [h, w]: taps outside the image read 0, or the nearest edge
+    pixel when ``replicate``."""
+    h, w = img.shape[:2]
+    ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    ax = (sx - ix.astype(np.float32))[..., None]
+    ay = (sy - iy.astype(np.float32))[..., None]
+    src = img.reshape(h, w, -1).astype(np.float32)
+
+    def tap(yy, xx):
+        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        if replicate:
+            return v
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        return np.where(inside[..., None], v, np.float32(0.0))
+
+    p00, p01, p10, p11 = tap(iy, ix), tap(iy, ix + 1), tap(iy + 1, ix), tap(iy + 1, ix + 1)
+    top = _fma32(ax, p01 - p00, p00)
+    bottom = _fma32(ax, p11 - p10, p10)
+    out = np.clip(np.rint(_fma32(ay, bottom - top, top)), 0, 255).astype(np.uint8)
+    return out.reshape(sx.shape + img.shape[2:])
+
+
+def _map_row(m0: np.float32, m1: np.float32, m2: np.float32, width: int, height: int) -> np.ndarray:
+    """float32 ``m0 * x + (m1 * y + m2)`` over the output grid, the x term
+    fused."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    return _fma32(np.full_like(xx, m0), xx, m1 * yy + m2)
+
+
+def warp_affine_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.warpAffine(img, M, (width, height), flags=cv2.INTER_LINEAR)``
+    for a uint8 image, with a constant 0 border."""
+    m = np.asarray(M, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    m = m.astype(np.float32)
+    return _remap_linear_u8(img, _map_row(m[0], m[1], m[2], width, height),
+                            _map_row(m[3], m[4], m[5], width, height), replicate=False)
+
+
+def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``cv2.getPerspectiveTransform(src, dst)`` of four point pairs: float64
+    [3, 3] with ``M[2, 2] = 1``."""
+    A = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i in range(4):
+        x, y = float(src[i][0]), float(src[i][1])
+        u, v = float(dst[i][0]), float(dst[i][1])
+        A[i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        A[i + 4] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        b[i], b[i + 4] = u, v
+    return np.append(np.linalg.solve(A, b), 1.0).reshape(3, 3)
+
+
+def warp_perspective_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.warpPerspective(img, M, (width, height),
+    borderMode=cv2.BORDER_REPLICATE)`` (INTER_LINEAR) for a uint8 image."""
+    m = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32).ravel()
+    X, Y, W = (_map_row(m[i], m[i + 1], m[i + 2], width, height) for i in (0, 3, 6))
+    return _remap_linear_u8(img, X / W, Y / W, replicate=True)

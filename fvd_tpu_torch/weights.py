@@ -26,7 +26,9 @@ dots and renaming the leaf:
 Flax classes do.
 
 :func:`seeded_state_dict` gives a module weights drawn from a numpy seed,
-for runs at a model's geometry without a checkpoint.
+for runs at a model's geometry without a checkpoint, and
+:func:`from_state_dict` turns a trained state dict back into the flat npz
+tree.
 """
 
 from __future__ import annotations
@@ -94,16 +96,49 @@ def _leaf(path, value: np.ndarray):
     raise ValueError(f"unexpected parameter leaf {'.'.join(path)}")
 
 
-def to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Torch state dict (float32, CPU) of a flax params tree, flat or nested."""
+def to_state_dict(tree: Mapping, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """Torch state dict (``dtype``, CPU) of a flax params tree, flat or nested."""
     sd: Dict[str, torch.Tensor] = {}
     for key, value in flatten(tree).items():
         path = _KEY_PART.findall(key)
         if path and path[0] == "params":
             path = path[1:]
         name, arr = _leaf(path, value)
-        sd[".".join(name)] = torch.tensor(arr, dtype=torch.float32)
+        sd[".".join(name)] = torch.tensor(arr, dtype=dtype)
     return sd
+
+
+def from_state_dict(sd: Mapping[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, np.ndarray]:
+    """The flat ``{keystr: array}`` flax tree (``dtype``) of a state dict of the
+    port's conv, Dense and GroupNorm models, which
+    ``np.savez(path, **tree)`` writes as the JAX package's npz: the inverse
+    of :func:`to_state_dict` for a conv ``weight`` [O, I, H, W] -> ``kernel``
+    [H, W, I, O] (a 1-D conv's [O, I, K] -> [K, I, O]), an ``nn.Linear`` ``weight``
+    [O, I] -> ``kernel`` [I, O], a norm's 1-D ``weight`` -> ``scale``, and
+    ``bias`` as it is.  Embeddings and attention projections are not
+    covered."""
+    tree: Dict[str, np.ndarray] = {}
+    for name, value in sd.items():
+        *mods, leaf = name.split(".")
+        arr = value.detach().to("cpu", dtype).numpy()
+        if leaf == "weight":
+            leaf = "scale" if arr.ndim == 1 else "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        elif leaf != "bias":
+            raise ValueError(f"unexpected state dict entry {name}")
+        tree["['params']" + "".join(f"['{m}']" for m in mods + [leaf])] = np.ascontiguousarray(arr)
+    return tree
+
+
+def save_npz(path: str, model: torch.nn.Module) -> None:
+    """Write ``model`` as the JAX package's flat npz (its ``save_params``)."""
+    np.savez(path, **from_state_dict(model.state_dict()))
+
+
+def load_npz(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load an npz checkpoint into ``model`` (in place, strict); -> ``model``."""
+    model.load_state_dict(to_state_dict(read_npz(path)), strict=True)
+    return model
 
 
 def kernel_width(tree: Mapping, module: str) -> int:
@@ -174,6 +209,12 @@ def seeded_state_dict(module: torch.nn.Module, seed: int) -> Dict[str, torch.Ten
             arr = rng.randn(*shape) / np.sqrt(max(1, int(np.prod(shape[1:]))))
         sd[name] = torch.tensor(arr, dtype=torch.float32)
     return sd
+
+
+def seeded(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``module`` with :func:`seeded_state_dict` weights loaded (in place)."""
+    module.load_state_dict(seeded_state_dict(module, seed))
+    return module
 
 
 def _owner(module: torch.nn.Module, name: str) -> torch.nn.Module:

@@ -697,3 +697,72 @@ def test_gloo_collectives_on_card_tensors(cuda, tmp_path, name, takes):
                 group.run(_gloo_collective, name)
     finally:
         group.close()
+
+
+# ------------------------------------------------------------ the trainers
+def _train_step(name, device, dtype, batch):
+    """One Adam step of the tool's trainer ``name`` at width 32 from the
+    seeded weights -> (loss, {param: grad}, {param: value after})."""
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import face_ssd, landmarks_fan
+    from fvd_tpu_torch.models.layers import adam, adam_step
+
+    net, loss_fn = {"det": (face_ssd.FaceSSD, face_ssd.ssd_loss),
+                    "lmk": (landmarks_fan.LandmarkHourglass, landmarks_fan.landmark_loss),
+                    "pose": (landmarks_fan.PoseHead, landmarks_fan.pose_loss)}[name]
+    model = weights.seeded(net(32), 0).to(device, dtype)
+    opt = adam(model)
+    loss = adam_step(loss_fn, model, opt, *(torch.as_tensor(np.asarray(x), dtype=dtype, device=device) for x in batch))
+    return (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()},
+            {k: p.detach().cpu() for k, p in model.named_parameters()})
+
+
+def _train_batch(name):
+    from fvd_tpu_torch.models.synthetic_faces import detector_batch, landmark_batch
+    from fvd_tpu_torch.models.synthetic_pose import pose_batch
+
+    rng = np.random.RandomState(0)
+    return {"det": lambda: detector_batch(rng, 4)[:3], "lmk": lambda: landmark_batch(rng, 4),
+            "pose": lambda: pose_batch(rng, 4)[:2]}[name]()
+
+
+@pytest.mark.parametrize("name", ["det", "lmk", "pose"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One train step at width 32 on the card against the CPU: the float32
+    loss within 1e-4 (TF32 off), and in float64 the loss, every gradient and
+    every updated parameter within 1e-8 relative L2 (the bars of
+    ``chip_smoke.py``'s train phase; the heatmap bias's gradient is zero)."""
+    batch = _train_batch(name)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, cpu = (_train_step(name, d, torch.float32, batch) for d in (cuda, "cpu"))
+        assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+        card, cpu = (_train_step(name, d, torch.float64, batch) for d in (cuda, "cpu"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(card[0] - cpu[0]) <= 1e-8 * abs(cpu[0])
+    for k in cpu[1]:
+        if name == "lmk" and k == "Conv_1.bias":
+            continue
+        for a, b in ((card[1][k], cpu[1][k]), (card[2][k], cpu[2][k])):
+            diff, ref = float((a - b).norm()), float(b.norm())
+            assert diff <= 1e-8 * ref, (k, diff, ref)
+
+
+def test_in_dtype_follows_an_optimizer_step_on_card(cuda):
+    """The bf16 copy ``in_dtype`` keeps is cast again after Adam's default
+    (foreach) update on the card."""
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import landmarks_fan
+
+    model = weights.seeded(landmarks_fan.LandmarkHourglass(16), 0).to(cuda)
+    crops = torch.from_numpy((np.random.RandomState(0).rand(2, 128, 128, 3) * 255).astype(np.uint8)).to(cuda)
+    before = landmarks_fan.landmarks_forward(model, crops)
+    step, init_opt = landmarks_fan.make_landmark_train_step(lr=1e-2)
+    step(model, init_opt(model), crops.float() / 255.0, torch.rand(2, 68, 2, device=cuda))
+    after = landmarks_fan.landmarks_forward(model, crops)
+    clone = landmarks_fan.LandmarkHourglass(16).to(cuda)
+    clone.load_state_dict(model.state_dict())
+    assert float((after - before).abs().max()) > 1e-3
+    torch.testing.assert_close(after, landmarks_fan.landmarks_forward(clone, crops), rtol=0, atol=0)

@@ -52,7 +52,10 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.parallel", "fvd_tpu_torch.parallel.mesh", "fvd_tpu_torch.parallel.launch",
             "fvd_tpu_torch.parallel.inference", "fvd_tpu_torch.parallel.pipeline",
             "fvd_tpu_torch.parallel.tensor", "fvd_tpu_torch.parallel.stages",
-            "fvd_tpu_torch.parallel.experts", "fvd_tpu_torch.parallel.programs"} <= set(mods)
+            "fvd_tpu_torch.parallel.experts", "fvd_tpu_torch.parallel.programs",
+            "fvd_tpu_torch.models.synthetic_faces", "fvd_tpu_torch.models.synthetic_pose",
+            "fvd_tpu_torch.models.checkpointing", "fvd_tpu_torch.tools",
+            "fvd_tpu_torch.tools.pretrain_synthetic"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
