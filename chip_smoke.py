@@ -143,8 +143,10 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              card, then again with label 1: rc 0, a last line
              ``Fake probability: p`` with 0 <= p <= 1, C2 scoring with the
              bundle's CLIP, a ``providers:`` line naming the HF text encoder
-             and Whisper, and the weights file written by the labelled run;
-             prints the cold-start seconds;
+             and Whisper, one naming ``NullLLM`` and the search chain (no key
+             reaches the subprocess, so E1 has no claims to search), and the
+             weights file written by the labelled run; prints the cold-start
+             seconds;
 15. parallel the parallel layer (``fvd_tpu_torch.parallel``) through
              ``entry.dryrun_multichip``: ``dryrun_multichip(1)``, one rank on
              the card under NCCL, then ``dryrun_multichip(4)``, four ranks
@@ -172,10 +174,37 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              must be lower) and the eval metric; (c) the npz files it wrote
              served by ``SSDFaceDetector`` and ``FANLandmarks`` (with the
              pose head) on the card.  Training launches no kernel of the
-             repo's.
+             repo's;
+17. net      the production bundle with ``use_llm=True, use_search=True``:
+             ``OpenAILLM`` and the cached Serper -> Google CSE -> DuckDuckGo
+             chain, their endpoints, ``OPENAI_BASE_URL`` and dummy keys
+             pointed at a loopback server of fixed payloads
+             (``providers/loopback.py``; the search cache in a temporary
+             directory), through the 16 nodes on the card on a 10 s clip,
+             twice (the second run's searches all hit the disk cache), against
+             the same bundle with the scripted LLM and search that answer as
+             the payloads do (run once before, as a warm-up, and once after):
+             the same claims, evidence, reliability scores and texture score,
+             |dp| within ``NET_PROB_TOL``, one C1 launch a run; prints the requests the server received and the ms the
+             keyless chain takes to come back empty when DuckDuckGo's
+             connection is refused on loopback.  No process of this script
+             contacts a host outside the machine: its subprocesses run
+             without the services' keys;
+18. zoo_train the ASR and text-encoder trainers (``python -m
+             fvd_tpu_torch.tools.pretrain_asr``, ``pretrain_text_encoder``)
+             and the zoo's losses at the shipped geometries: (a) three Adam
+             steps each of ``asr_loss`` (dim 192, depth 4, batch 16,
+             ``formant_hard``), the text InfoNCE (192 / 4 / 256, batch 64),
+             ``clip_loss`` (``clip.npz``, batch 32) and ``ctc_loss``
+             (``ocr_rec.npz``, batch 32), card against CPU in float32 and
+             float64 as in ``train``; (b) each tool for 50 steps in a
+             subprocess on the card, then ``pretrain_asr --resume --steps
+             10``: the summaries' data and device ms a step, items/s, losses
+             and evals; (c) the npz files served by ``JaxASR`` and
+             ``JaxTextEncoder`` on the card.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-16 alone.  Then one JSON line with every kernel's numbers, the card's
+4-18 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -250,6 +279,19 @@ def phase(name: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+#: the variables that give the production bundle a networked LLM or search
+#: backend: no process of this script may reach a host outside the machine
+SERVICE_KEYS = ("OPENAI_API_KEY", "OPENAI_BASE_URL", "SERPER_API_KEY", "GOOGLE_API_KEY", "GOOGLE_CX")
+
+
+def _subprocess_env():
+    """The environment of the port's processes this script starts: the
+    checkout on ``PYTHONPATH`` and no key for a networked service."""
+    env = {k: v for k, v in os.environ.items() if k not in SERVICE_KEYS}
+    env["PYTHONPATH"] = REPO + os.pathsep + os.environ.get("PYTHONPATH", "")
+    return env
 
 
 # -------------------------------------------------------------------- phases
@@ -483,8 +525,10 @@ def models_phase():
     from fvd_tpu_torch.synthetic import gated_speech
 
     ckpt = os.path.join(REPO, "checkpoints")
-    card = production_providers(_npz_checkpoints(), device="cuda", compute_dtype=torch.float32)
-    cpu = production_providers(_npz_checkpoints(), device="cpu", compute_dtype=torch.float32)
+    card = production_providers(_npz_checkpoints(), use_llm=False, use_search=False, device="cuda",
+                                compute_dtype=torch.float32)
+    cpu = production_providers(_npz_checkpoints(), use_llm=False, use_search=False, device="cpu",
+                               compute_dtype=torch.float32)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         clips, _ = _video_clips(os.path.join(tmp, "clips"))
@@ -1374,7 +1418,7 @@ def _zoo_providers(device, dtype, hf=False):
     from fvd_tpu_torch.providers.factory import production_providers
 
     ckpt = os.path.join(REPO, "checkpoints") if hf else _npz_checkpoints()
-    prov = production_providers(ckpt, device=device, compute_dtype=dtype)
+    prov = production_providers(ckpt, use_llm=False, use_search=False, device=device, compute_dtype=dtype)
     scripted = _hermetic_providers(prov.face_detector, prov.landmarks)
     return dataclasses.replace(prov, llm=scripted.llm, search=scripted.search)
 
@@ -1803,7 +1847,7 @@ def _batch_cli(root, names):
     from fvd_tpu_torch import batch
     from fvd_tpu_torch.ops import fusion
 
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = _subprocess_env()
     out = {}
     for name, extra in (("concurrency_8", ["--concurrency", "8"]), ("train_device", ["--train-device"])):
         t0 = time.perf_counter()
@@ -2083,7 +2127,7 @@ def stream_phase():
         result.update(runs=summary, card_f32_vs_cpu_f32=vs_cpu, card_f32_2s_vs_5s_final=chunks)
 
         # the CLI as a user runs it, in a fresh interpreter on the card
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = _subprocess_env()
         cwd = os.path.join(tmp, "cli")
         os.makedirs(cwd)
         t0 = time.perf_counter()
@@ -2159,8 +2203,8 @@ def ui_phase():
     with tempfile.TemporaryDirectory() as tmp:
         clip, _ = _corpus_clip(os.path.join(tmp, "videos"), 0, UI_CLIP_SECONDS)
         cfg = _batch_config(tmp)
-        prov = production_providers(os.path.join(REPO, "checkpoints"), device="cuda", compute_dtype=torch.float32,
-                                    recorded_services=True)
+        prov = production_providers(os.path.join(REPO, "checkpoints"), use_llm=False, use_search=False,
+                                    recorded_services=True, device="cuda", compute_dtype=torch.float32)
         sched = Scheduler(build_graph(cfg, prov, device="cuda"))
         cold()
         sched.invoke(State(input_path=clip))  # warm-up: cuDNN picks its algorithms
@@ -2222,7 +2266,7 @@ def ui_phase():
         del prov, sched
 
         # the terminal UI as a user runs it: the path on stdin
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = _subprocess_env()
         cwd = os.path.join(tmp, "term")
         os.makedirs(cwd)
         t0 = time.perf_counter()
@@ -2252,7 +2296,7 @@ def cli_phase():
                                speech_text=ZOO_SPEECH)
         cwd = os.path.join(tmp, "run")
         os.makedirs(cwd)
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = _subprocess_env()
         weights = os.path.join(cwd, "lr_weights.json")
         out = {}
         for name, extra in (("unlabelled", []), ("label_1", ["1"])):
@@ -2270,6 +2314,9 @@ def cli_phase():
             picked = "providers: text encoder {}, CLIP {}, ASR {}".format(*_hf_kinds())
             check(picked in proc.stdout and "HFTextEncoder" in picked and "HFWhisperASR" in picked,
                   f"cli {name}: no line {picked!r} naming the HF text encoder and Whisper: {proc.stdout[-3000:]}")
+            # without a key: no LLM, so C3 extracts no claims and E1 never searches
+            check("providers: LLM NullLLM, search " in proc.stdout and "E1: no claims found" in proc.stdout,
+                  f"cli {name}: an LLM without a key, or E1 searched: {proc.stdout[-3000:]}")
             out[name] = {"seconds": seconds, "fake_probability": p, "weights_file": os.path.exists(weights),
                          "providers": [ln for ln in proc.stdout.splitlines() if ln.startswith("providers:")]}
         check(not out["unlabelled"]["weights_file"] and out["label_1"]["weights_file"],
@@ -2352,8 +2399,11 @@ def _worst_rel(a, b, skip=()):
     return worst
 
 
-def _train_parity(batches):
-    """Card against CPU for each trainer, in float32 and float64."""
+def _train_parity(batches, run=_train_run, zero_grad=lambda name, grads: TRAIN_ZERO_GRAD.get(name, ())):
+    """Card against CPU for each trainer of ``batches``, in float32 and
+    float64; ``run`` is :func:`_train_run` or :func:`_zoo_train_run`,
+    ``zero_grad(name, grads)`` the tensors whose gradient is zero in exact
+    arithmetic."""
     import torch
 
     out = {}
@@ -2361,11 +2411,11 @@ def _train_parity(batches):
         row = {}
         for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
             t0 = time.perf_counter()
-            card = _train_run(name, b, "cuda", dt)
+            card = run(name, b, "cuda", dt)
             t1 = time.perf_counter()
-            cpu = _train_run(name, b, "cpu", dt)
+            cpu = run(name, b, "cpu", dt)
             loss_rel = [abs(x - y) / abs(y) for x, y in zip(card[0], cpu[0])]
-            zero = TRAIN_ZERO_GRAD.get(name, ())
+            zero = zero_grad(name, cpu[1])
             row[tag] = {"losses_card": card[0], "losses_cpu": cpu[0], "loss_rel": loss_rel,
                         "worst_grad_rel": _worst_rel(card[1], cpu[1], zero),
                         "worst_param_rel": _worst_rel(card[2], cpu[2], zero),
@@ -2389,7 +2439,7 @@ def _train_parity(batches):
 def _train_cli(out_dir, extra):
     """``python -m fvd_tpu_torch.tools.pretrain_synthetic`` on the card in a
     fresh interpreter -> (seconds, {trainer: summary})."""
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = _subprocess_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.pretrain_synthetic", "--batch",
                            str(TRAIN_BATCH), "--out-dir", out_dir] + extra, cwd=out_dir, env=env,
@@ -2460,6 +2510,308 @@ def train_phase():
           resumed_loss=[resumed["det"]["loss_first"], resumed["det"]["loss_last"]], served=served)
 
 
+#: the net phase: a 10 s clip of the zoo bundle's speech through the 16 nodes,
+#: the networked LLM and search (on a loopback server) against the scripted
+#: ones; the probability sees the same claims, evidence and scores through the
+#: same float32 card programs, so only a non-deterministic cuDNN algorithm could
+#: move it
+NET_CLIP_SECONDS = 10.0
+NET_PROB_TOL = 1e-6
+NET_CACHED = "CachedSearch(ChainSearch(SerperSearch, GoogleCSESearch, DuckDuckGoSearch))"
+#: the DAG runs of the phase, one C1 launch each: the scripted bundle (a
+#: warm-up), the networked one, the networked one again from the disk cache,
+#: the scripted one
+NET_RUNS = 4
+
+
+def _net_run(prov, root, clip):
+    """The clip through ``graph.build_graph`` with ``prov`` on the card, from
+    cold caches -> (final state, wall ms)."""
+    import torch
+
+    from fvd_tpu_torch.graph import build_graph
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.runtime import Scheduler, io_pool
+    from fvd_tpu_torch.state import State
+
+    sched = Scheduler(build_graph(_batch_config(root), prov, device="cuda"))
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    t0 = time.perf_counter()
+    final = sched.invoke(State(input_path=clip))
+    torch.cuda.synchronize()
+    return final, (time.perf_counter() - t0) * 1e3
+
+
+def _net_decisions(f):
+    """What the LLM and search decide in a run, compared exactly (the
+    evidence as a set: E2's workers finish in any order)."""
+    return {"claims": [c["claim_text"] for c in f.claims],
+            "evidence": sorted((e["url"], e.get("source"), round(e.get("reliability_score", -1.0), 9))
+                               for e in f.evidence),
+            "texture": f.texture_ela_score}
+
+
+def _net_request_text(path, payload):
+    """The query of a search request, the first 60 characters of a chat
+    request's prompt."""
+    from fvd_tpu_torch.providers.loopback import user_text
+
+    if path == "/v1/chat/completions":
+        return user_text(payload.get("messages", []))[1][:60]
+    if path == "/customsearch/v1":
+        return payload.get("q", [""])[0]
+    return payload.get("q") if isinstance(payload, dict) else payload
+
+
+def _refused_chain_ms():
+    """ms for ``default_chain().search`` without keys to come back empty when
+    DuckDuckGo's connection is refused (its endpoint on a closed loopback
+    port); the real endpoints are never contacted."""
+    import socket
+
+    from fvd_tpu_torch.providers.search import DuckDuckGoSearch, default_chain
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    saved = DuckDuckGoSearch.ENDPOINT, {k: os.environ.pop(k, None) for k in SERVICE_KEYS + ("NO_PROXY",)}
+    DuckDuckGoSearch.ENDPOINT = f"http://127.0.0.1:{port}/html/"
+    os.environ["NO_PROXY"] = "127.0.0.1"
+    try:
+        chain = default_chain()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            check(chain.search("the moon landing happened in 1969 fact check") == [],
+                  "net: the keyless chain found results on a refused port")
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        DuckDuckGoSearch.ENDPOINT = saved[0]
+        os.environ.pop("NO_PROXY", None)
+        os.environ.update({k: v for k, v in saved[1].items() if v is not None})
+    return ms
+
+
+def net_phase():
+    """The production bundle with ``use_llm=True, use_search=True``: the
+    OpenAI LLM and the cached Serper -> CSE -> DuckDuckGo chain pointed at a
+    loopback server of fixed payloads (``providers/loopback.py``), through
+    the 16 nodes on the card, against the same bundle with the scripted LLM
+    and search that answer as the payloads do."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import loopback
+    from fvd_tpu_torch.providers.factory import production_providers
+    from fvd_tpu_torch.providers.llm import OpenAILLM
+    from fvd_tpu_torch.providers.search import describe
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = make_face_video(os.path.join(tmp, "clips"), "clip", duration=NET_CLIP_SECONDS, fps=30.0, sr=44100,
+                               speech_text=ZOO_SPEECH)
+        cache_env = os.environ.get("FVD_SEARCH_CACHE_DIR")
+        os.environ["FVD_SEARCH_CACHE_DIR"] = os.path.join(tmp, "search_cache")
+        try:
+            with loopback.LoopbackServices() as svc, svc.pointed():
+                prov = production_providers(_npz_checkpoints(), use_llm=True, use_search=True, device="cuda",
+                                            compute_dtype=torch.float32)
+                check(isinstance(prov.llm, OpenAILLM) and describe(prov.search) == NET_CACHED,
+                      f"net: the bundle has {type(prov.llm).__name__} and {describe(prov.search)}")
+                llm, search = loopback.scripted_services()
+                scripted = dataclasses.replace(prov, llm=llm, search=search)
+                _kernels.reset_launches()
+                _, warm_ms = _net_run(scripted, tmp, clip)  # warm-up: cuDNN picks its algorithms
+                first, first_ms = _net_run(prov, tmp, clip)
+                after_first = svc.counts()
+                second, second_ms = _net_run(prov, tmp, clip)
+                counts = svc.counts()
+                requests = [(m, path, _net_request_text(path, p)) for m, path, _, p in svc.requests]
+                ref, ref_ms = _net_run(scripted, tmp, clip)
+                check(svc.counts() == counts, "net: the scripted run sent a request")
+        finally:
+            if cache_env is None:
+                os.environ.pop("FVD_SEARCH_CACHE_DIR", None)
+            else:
+                os.environ["FVD_SEARCH_CACHE_DIR"] = cache_env
+    launches = _kernels.LAUNCHES["lipsync_score"]
+    check(launches == NET_RUNS, f"net: C1 launched {launches} times for {NET_RUNS} DAG runs")
+    cached = {k: counts.get(k, 0) - after_first.get(k, 0) for k in counts}
+    for path in ("/serper/search", "/customsearch/v1", "/html/", "/v1/chat/completions"):
+        check(after_first.get(path, 0) > 0, f"net: the first run sent nothing to {path}: {after_first}")
+    check(all(cached.get(p, 0) == 0 for p in ("/serper/search", "/customsearch/v1", "/html/")),
+          f"net: the second run searched again past the disk cache: {cached}")
+    want = _net_decisions(ref)
+    check(want["claims"] == loopback.CLAIMS and want["evidence"],
+          f"net: the scripted run gave {want}")
+    deltas = []
+    for name, f in (("first", first), ("cached", second)):
+        check(_net_decisions(f) == want, f"net: the {name} run decided {_net_decisions(f)}, the scripted {want}")
+        deltas.append(abs(f.fake_probability - ref.fake_probability))
+        check(deltas[-1] <= NET_PROB_TOL, f"net: the {name} run's probability {f.fake_probability} vs the "
+                                          f"scripted {ref.fake_probability}")
+    refused = _refused_chain_ms()
+    phase("net", nvidia_smi=SMI_LINE, clip_seconds=NET_CLIP_SECONDS, llm="OpenAILLM", search=NET_CACHED,
+          prob_tol=NET_PROB_TOL, abs_dp=deltas, fake_probability=ref.fake_probability,
+          wall_ms={"scripted_warm_up": warm_ms, "networked": first_ms, "networked_cached": second_ms,
+                   "scripted": ref_ms},
+          requests_first_run=after_first, requests_cached_run=cached, requests=requests,
+          evidence=len(want["evidence"]), refused_chain_ms=refused,
+          offline_chain="not measured: nothing here may contact a host outside the machine; the chain's "
+                        "DuckDuckGo was refused on a closed loopback port instead", c1_launches=launches)
+    return launches
+
+
+#: the zoo_train phase: the geometries of the shipped checkpoints
+#: (``asr_formant.json``, ``text_encoder.json``, ``clip.json``, ``ocr_rec``)
+#: and the JAX tools' batches and learning rates
+ZOO_TRAIN_BATCH = {"asr": 16, "text": 64, "clip": 32, "ctc": 32}
+ZOO_TRAIN_LR = {"asr": 1e-3, "text": 3e-4, "clip": 3e-4, "ctc": 1e-3}
+ZOO_CLI_STEPS = 50
+ZOO_RESUME_STEPS = 10
+
+
+def _zoo_train_batches():
+    """Three batches of each zoo trainer at the tool's sizes, from seeds 0-2:
+    the ASR tool's ``formant_hard`` batches, the text tool's, seeded images
+    with the text tool's sentences for the CLIP, seeded lines with random
+    labels for the recognizer."""
+    from fvd_tpu_torch.models.encoders import MAX_TEXT_LEN
+    from fvd_tpu_torch.models.ocr import CTC_VOCAB, encode_ctc_labels
+    from fvd_tpu_torch.models.transformer import ByteTokenizer
+    from fvd_tpu_torch.tools.pretrain_asr import MAX_TOKENS, MEL_FRAMES, Domain, asr_batch
+    from fvd_tpu_torch.tools.pretrain_text_encoder import make_batch
+
+    tok, out = ByteTokenizer(), {"asr": [], "text": [], "clip": [], "ctc": []}
+    for s in range(TRAIN_STEPS):
+        mel, tin, tout, _ = asr_batch(np.random.RandomState(s), ZOO_TRAIN_BATCH["asr"], tok, MEL_FRAMES, MAX_TOKENS,
+                                      Domain("formant_hard", 0.002))
+        out["asr"].append((mel.numpy(), tin, tout))
+        out["text"].append(make_batch(np.random.RandomState(s), ZOO_TRAIN_BATCH["text"], tok, MAX_TEXT_LEN))
+        rng = np.random.RandomState(100 + s)
+        out["clip"].append((rng.rand(ZOO_TRAIN_BATCH["clip"], 112, 112, 3).astype(np.float32),
+                            make_batch(rng, ZOO_TRAIN_BATCH["clip"], tok, MAX_TEXT_LEN)[0]))
+        texts = ["".join(rng.choice(CTC_VOCAB, rng.randint(4, 21))) for _ in range(ZOO_TRAIN_BATCH["ctc"])]
+        out["ctc"].append((rng.rand(ZOO_TRAIN_BATCH["ctc"], 32, 256, 1).astype(np.float32),
+                           np.stack([encode_ctc_labels(t, 32) for t in texts])))
+    return out
+
+
+def _zoo_train_run(name, batches, device, dtype):
+    """The zoo trainer ``name`` (seeded ASR and text encoder at the shipped
+    geometries, the shipped CLIP and recognizer) for one Adam step per batch
+    on ``device`` in ``dtype`` -> (losses, step-0 gradients, final
+    parameters), the last two on the CPU."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import asr, encoders, ocr
+    from fvd_tpu_torch.models.layers import adam, adam_step
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    if name == "asr":
+        meta = json.load(open(os.path.join(ckpt, "asr_formant.json")))
+        model, loss_fn = weights.seeded(asr.AsrModel(meta["dim"], meta["depth"]), 0), asr.asr_loss
+    elif name == "text":
+        meta = json.load(open(os.path.join(ckpt, "text_encoder.json")))
+        model = weights.seeded(encoders.TextTower(meta["dim"], meta["depth"], out_dim=meta["out_dim"]), 0)
+        loss_fn = encoders.text_info_nce_loss
+    elif name == "clip":
+        meta = json.load(open(os.path.join(ckpt, "clip.json")))
+        model = weights.load_npz(os.path.join(ckpt, "clip.npz"),
+                                 encoders.ClipModel(meta["dim"], meta["depth"], meta["out_dim"]))
+        loss_fn = encoders.clip_loss
+    else:
+        model, loss_fn = weights.load_npz(os.path.join(ckpt, "ocr_rec.npz"), ocr.CTCRecognizer(32)), ocr.ctc_loss
+    model.to(device, dtype)
+    opt, losses, grads = adam(model, ZOO_TRAIN_LR[name]), [], None
+    for b in batches:
+        args = [torch.as_tensor(x, device=device, dtype=dtype if np.asarray(x).dtype.kind == "f" else torch.long)
+                for x in b]
+        losses.append(adam_step(loss_fn, model, opt, *args))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _zoo_cli(tool, args):
+    """``python -m fvd_tpu_torch.tools.<tool>`` on the card in a fresh
+    interpreter -> (seconds, its summary, stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"fvd_tpu_torch.tools.{tool}"] + args, cwd=REPO,
+                          env=_subprocess_env(), capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tool} {args}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    check(proc.stdout.startswith("device: cuda"), f"{tool} did not run on the card: {proc.stdout[:300]}")
+    line = next((ln for ln in proc.stdout.splitlines() if " summary {" in ln), None)
+    check(line is not None, f"{tool}: no summary line: {proc.stdout[-2000:]}")
+    return seconds, json.loads(line.split(" summary ", 1)[1]), proc.stdout
+
+
+def zoo_train_phase():
+    """The ASR and text-encoder trainers and the zoo's losses: (a) card
+    against CPU from the same weights and batches, (b) the two tools on the
+    card in subprocesses, then ``pretrain_asr --resume``, (c) the npz files
+    they wrote served by ``JaxASR`` and ``JaxTextEncoder`` on the card."""
+    import torch
+
+    from fvd_tpu_torch.models.asr import JaxASR
+    from fvd_tpu_torch.models.encoders import JaxTextEncoder
+    from fvd_tpu_torch.models.synthetic_speech import formant_speech
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "zoo_train: TF32 must stay off for the card-vs-CPU bars")
+    t0 = time.perf_counter()
+    batches = _zoo_train_batches()
+    data_s = time.perf_counter() - t0
+    # the key projections' biases: the softmax ignores a score added to every key
+    parity = _train_parity(batches, run=_zoo_train_run,
+                           zero_grad=lambda name, grads: tuple(k for k in grads if k.endswith("key.bias")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        asr_npz, text_npz = os.path.join(tmp, "asr_formant.npz"), os.path.join(tmp, "text_encoder.npz")
+        asr_args = ["--batch", str(ZOO_TRAIN_BATCH["asr"]), "--dim", "192", "--depth", "4", "--domain",
+                    "formant_hard", "--out", asr_npz]
+        runs = {"asr": _zoo_cli("pretrain_asr", ["--steps", str(ZOO_CLI_STEPS)] + asr_args),
+                "text": _zoo_cli("pretrain_text_encoder", ["--steps", str(ZOO_CLI_STEPS), "--out", text_npz])}
+        for name, (_, r, _) in runs.items():
+            check(r["steps"] == ZOO_CLI_STEPS and r["loss_last"] < r["loss_first"],
+                  f"zoo_train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
+        resume_s, resumed, stdout = _zoo_cli("pretrain_asr", ["--steps", str(ZOO_RESUME_STEPS), "--resume"] + asr_args)
+        check(f"resumed params from {asr_npz}" in stdout and resumed["steps"] == ZOO_RESUME_STEPS
+              and resumed["loss_first"] < runs["asr"][1]["loss_first"],
+              f"zoo_train: --resume did not continue from the trained weights: {stdout[:1000]}")
+        with open(asr_npz.replace(".npz", ".json")) as f:
+            sidecar = json.load(f)
+        check(sidecar["domain"] == "formant" and sidecar["train_domain"] == "formant_hard",
+              f"zoo_train: sidecar {sidecar}")
+
+        # (c) the written checkpoints serve on the card
+        audio = formant_speech("the city", np.random.RandomState(0))
+        audio = np.concatenate([np.zeros(8000, np.float32), audio, np.zeros(8000, np.float32)])
+        transcripts = {d: JaxASR.from_checkpoint(asr_npz, device=d).transcribe(None, audio=audio)
+                       for d in ("cuda", "cpu")}
+        check(all(isinstance(t, dict) and isinstance(t["text"], str) for t in transcripts.values()),
+              f"zoo_train: transcripts {transcripts}")
+        enc = {d: JaxTextEncoder(checkpoint=text_npz, dim=192, depth=4, out_dim=256, device=d)
+               for d in ("cuda", "cpu")}
+        emb = {d: e.encode_batch(ZOO_SENTENCES) for d, e in enc.items()}
+        emb_d = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+        check(np.isfinite(emb["cuda"]).all() and emb_d <= MODEL_TOL,
+              f"zoo_train: text encoder card vs CPU |d| {emb_d}")
+        ranks = (emb["cuda"] @ emb["cuda"].T).argsort(axis=1)[:, ::-1][:, 1].tolist()
+
+    timing = {name: {k: r[k] for k in r if k.endswith(("_ms", "_per_s", "_s")) or k.startswith(("loss", "eval"))}
+              for name, (_, r, _) in runs.items()}
+    phase("zoo_train", nvidia_smi=SMI_LINE, batch=ZOO_TRAIN_BATCH, data_s=data_s, parity=parity,
+          f32_loss_tol=TRAIN_F32_LOSS_TOL, f64_tol=TRAIN_F64_TOL, cli_steps=ZOO_CLI_STEPS,
+          cli_s={name: r[0] for name, r in runs.items()}, timing=timing, resume_s=resume_s,
+          resumed_loss=[resumed["loss_first"], resumed["loss_last"]],
+          served={"transcripts": {d: t["text"] for d, t in transcripts.items()},
+                  "text_encoder_card_vs_cpu": emb_d, "nearest_sentence": ranks})
+
+
 #: the dryrun_multichip runs of the parallel phase: (ranks, the backend they
 #: must pick on a one-card machine)
 PARALLEL_RUNS = ((1, "nccl"), (4, "gloo"))
@@ -2501,7 +2853,7 @@ def parallel_phase():
 
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train")
+          "parallel", "train", "net", "zoo_train")
 
 
 def main(argv=None) -> int:
@@ -2525,13 +2877,15 @@ def main(argv=None) -> int:
     smi_line = SMI_LINE = env_phase()
     build_s = build_phase()
     entry_row = kernel_phase()
-    # each phase that drives a main path returns its C1 launches; the model
-    # zoo, the HF models and the trainers launch no kernel of the repo's, and
-    # the CLI's launches happen in its own processes and are not counted here
+    # each phase that drives a main path returns its C1 launches (net's DAG
+    # runs among them); the model zoo, the HF models and the trainers launch
+    # no kernel of the repo's, and the CLI's launches happen in its own
+    # processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
-               "parallel": parallel_phase}
-    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase}
+               "parallel": parallel_phase, "net": net_phase}
+    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
+                 "zoo_train": zoo_train_phase}
     launches = 0
     for name in PHASES:
         if name in counted and name in only:

@@ -1,6 +1,5 @@
 """Whisper-style ASR encoder-decoder: the counterpart of
-``fvd_tpu/models/asr.py`` (its inference half; the training loss is not
-ported).
+``fvd_tpu/models/asr.py``, with its training loss :func:`asr_loss`.
 
 Role (SURVEY §2.4): openai-whisper base in A2 (``a2_vad_asr.py:27-30``).
 A log-mel frontend on the port's spectral ops, a conv-subsampled transformer
@@ -92,6 +91,16 @@ class AsrModel(nn.Module):
 
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return self.decoder(tokens, self.encoder(mel))
+
+
+def asr_loss(model: AsrModel, mel: torch.Tensor, tokens_in: torch.Tensor, tokens_out: torch.Tensor,
+             pad_id: int = ByteTokenizer.PAD) -> torch.Tensor:
+    """Teacher-forced cross entropy, masked on ``tokens_out != pad_id`` and
+    divided by the count of unmasked tokens (at least 1)."""
+    logp = torch.log_softmax(model(mel, tokens_in), dim=-1)
+    nll = -logp.gather(-1, tokens_out.long()[..., None])[..., 0]
+    mask = (tokens_out != pad_id).to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1)
 
 
 def log_mel(audio: torch.Tensor, sr: int = 16000) -> torch.Tensor:

@@ -10,7 +10,8 @@ same npz checkpoints through :mod:`fvd_tpu_torch.weights`.  They run in
 float32 whatever the vision models' compute dtype, as the flax modules do.
 :class:`JaxTextEncoder` and :class:`JaxClip` keep the JAX package's class
 names, so a reader finds the counterparts; they need a checkpoint or a params
-tree (the port has no random-init model).
+tree (the port has no random-init model).  :func:`clip_loss` and
+:func:`text_info_nce_loss` are the towers' training losses.
 """
 
 from __future__ import annotations
@@ -102,6 +103,34 @@ class ClipModel(nn.Module):
 
     def forward(self, images: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return self.encode_image(images) @ self.encode_text(ids).T * self.logit_scale.exp()
+
+
+def _symmetric_info_nce(logits: torch.Tensor) -> torch.Tensor:
+    """The mean of the row-wise and column-wise cross entropy of ``logits``
+    [N, N] whose diagonal holds the positives."""
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    li = -torch.log_softmax(logits, dim=1)[labels, labels].mean()
+    lt = -torch.log_softmax(logits, dim=0)[labels, labels].mean()
+    return (li + lt) / 2
+
+
+def clip_loss(model: ClipModel, images: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Symmetric InfoNCE on ``model``'s logits (cosines times
+    ``exp(logit_scale)``)."""
+    return _symmetric_info_nce(model(images, ids))
+
+
+#: the text tower's contrastive temperature (``tools/pretrain_text_encoder.py``)
+TEXT_TEMPERATURE = 0.07
+
+
+def text_info_nce_loss(model: TextTower, q_ids: torch.Tensor, d_ids: torch.Tensor) -> torch.Tensor:
+    """Symmetric InfoNCE of query and document embeddings, unit-normalised,
+    at temperature ``TEXT_TEMPERATURE``: the text encoder's training loss."""
+    q, d = model(q_ids), model(d_ids)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return _symmetric_info_nce((q @ d.T) / TEXT_TEMPERATURE)
 
 
 def _load(model: nn.Module, params: Optional[Mapping], checkpoint: Optional[str], device) -> nn.Module:

@@ -1,6 +1,5 @@
 """OCR: text-region detector + CTC recognizer: the counterpart of
-``fvd_tpu/models/ocr.py`` (its inference half; the training loss is not
-ported).
+``fvd_tpu/models/ocr.py``.
 
 Role (SURVEY §2.4): EasyOCR's CRAFT detector + CRNN recognizer in V2
 (``v2_ocr_overlays.py:31-44``).
@@ -20,7 +19,8 @@ after the flax auto-names, so the npz checkpoints load through
 :mod:`fvd_tpu_torch.weights`.  The v2 detector computes in bfloat16 whatever
 the caller's dtype, as its flax module does (``dtype=jnp.bfloat16``), adding
 each conv's bias after the conv's rounding as flax does; the v1 detector and
-the recognizer compute in float32.
+the recognizer compute in float32.  :func:`ctc_loss` is the recognizer's
+training loss.
 """
 
 from __future__ import annotations
@@ -157,6 +157,29 @@ def ctc_greedy_decode(logits: np.ndarray) -> List[str]:
             prev = k
         out.append("".join(chars))
     return out
+
+
+def encode_ctc_labels(text: str, max_len: int = 32) -> np.ndarray:
+    ids = [CTC_VOCAB.index(c) + 1 for c in text if c in CTC_VOCAB][:max_len]
+    out = np.zeros(max_len, np.int32)
+    out[: len(ids)] = ids
+    return out
+
+
+def ctc_loss(model: CTCRecognizer, images: torch.Tensor, labels: torch.Tensor, label_pad: int = 0) -> torch.Tensor:
+    """Mean CTC negative log-likelihood of ``labels`` [B, N] (left-aligned,
+    padded with ``label_pad``) under the recognizer's logits, with
+    ``optax.ctc_loss``'s semantics: blank 0, every one of the T logit frames
+    valid.  Where no alignment exists (more labels and repeats than frames)
+    ``optax`` gives a large finite value, from its ``log_epsilon`` of -1e5
+    in place of log 0, and this gives ``inf``."""
+    logits = model(images)                                   # [B, T, K]
+    logp = torch.log_softmax(logits, dim=-1).transpose(0, 1)  # [T, B, K]
+    b, t = logits.shape[:2]
+    target_lengths = (labels != label_pad).sum(dim=-1)
+    input_lengths = torch.full((b,), t, dtype=torch.long, device=logits.device)
+    nll = F.ctc_loss(logp, labels.long(), input_lengths, target_lengths, blank=CTC_BLANK, reduction="none")
+    return nll.mean()
 
 
 @torch.no_grad()

@@ -47,12 +47,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flax's ``dot_product_attention`` as the Hugging Face Flax models call
     it: ``q`` [B, Tq, H, Dh] divided by ``sqrt(Dh)``, scores plus the additive
-    ``bias`` (broadcastable to [B, H, Tq, Tk]), a float32 softmax, the
+    ``bias`` (broadcastable to [B, H, Tq, Tk]), a softmax in float32 (float64
+    for float64 scores, as flax computes it in the inputs' dtype), the
     weighted sum of ``v`` [B, Tk, H, Dh] -> [B, Tq, H, Dh]."""
     s = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(q.shape[-1]), k)
     if bias is not None:
         s = s + bias
-    w = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    w = torch.softmax(s, dim=-1, dtype=torch.promote_types(s.dtype, torch.float32)).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 

@@ -15,14 +15,17 @@
   else the hashing encoder; the CLIP from ``clip.npz`` (calibration from its
   sidecar), else none, and C2 skips; the ASR from ``asr_formant.npz``, else
   ``asr.npz``, else EnergyVAD segments with no words;
-* no LLM and no search, or with ``recorded_services`` the deterministic
-  ``RecordedLLM`` and ``RecordedSearch`` of ``providers/recorded.py``, as the
-  JAX package's factory puts them in.
+* the LLM and search with the JAX package's precedence: with
+  ``recorded_services`` the deterministic ``RecordedLLM`` and
+  ``RecordedSearch`` of ``providers/recorded.py``; else ``OpenAILLM`` where
+  ``use_llm`` and a key (``OPENAI_API_KEY``) are given, else ``NullLLM``;
+  and ``search.default_chain()`` (Serper, Google CSE, keyless DuckDuckGo,
+  the disk cache under ``FVD_SEARCH_CACHE_DIR``) where ``use_search``, else
+  ``NullSearch``.
 
-On a machine with no network and no API keys the JAX package's bundle gives
-the same empty LLM and search results.  One ``providers:`` line names the
-classes picked for the text encoder, the CLIP and the ASR; the seams that a
-later slice of the port fills print one line naming their ROADMAP item.
+Without a key the LLM is ``NullLLM``, so C3 extracts no claims and E1 never
+searches.  One ``providers:`` line names the classes picked for the text
+encoder, the CLIP and the ASR, and a second the LLM and the search.
 """
 
 from __future__ import annotations
@@ -38,16 +41,13 @@ from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch.providers import Providers
 from fvd_tpu_torch.providers.asr import EnergyVAD
 from fvd_tpu_torch.providers.encoders import HashingTextEncoder
-from fvd_tpu_torch.providers.llm import NullLLM
-from fvd_tpu_torch.providers.search import NullSearch
+from fvd_tpu_torch.providers.llm import NullLLM, OpenAILLM
+from fvd_tpu_torch.providers.search import default_chain, describe
 
 KNOWN_CHECKPOINTS = (
     "face_ssd.npz", "landmarks.npz", "pose.npz", "clip.npz", "asr.npz",
     "ocr_rec.npz", "ocr_det.npz", "text_encoder.npz", "hf",
 )
-
-#: the seams whose backends wait for a later slice of the port
-_NOT_PORTED = "LLM and search: none, no networked backend (ROADMAP §1 item 7)"
 
 
 def _has_checkpoints(path: str) -> bool:
@@ -93,7 +93,22 @@ def _sidecar(npz: str) -> dict:
         return json.load(f)
 
 
-def bootstrap_production(device=None) -> Providers:
+def network_services(use_llm: bool = True, use_search: bool = True, recorded_services: bool = False):
+    """The bundle's (LLM, search), in the JAX package's precedence: the
+    recorded pair with ``recorded_services``; else ``OpenAILLM`` where
+    ``use_llm`` and it has a key, else ``NullLLM``; ``default_chain()``
+    where ``use_search``, else the default ``Providers().search``."""
+    if recorded_services:
+        from fvd_tpu_torch.providers.recorded import RecordedLLM, RecordedSearch
+
+        return RecordedLLM(), RecordedSearch()
+    llm = OpenAILLM() if use_llm else NullLLM()
+    if not llm.available:
+        llm = NullLLM()
+    return llm, default_chain() if use_search else Providers().search
+
+
+def bootstrap_production(use_llm: bool = True, use_search: bool = True, device=None) -> Providers:
     """Install the production bundle on ``device`` as the process default
     unless a caller already installed one via set_providers() (entry points
     call this; tests and embedders that inject their own bundle keep it)."""
@@ -103,12 +118,12 @@ def bootstrap_production(device=None) -> Providers:
         return get_providers()
     ckpt_dir = default_checkpoint_dir()
     print(f"providers: checkpoints from {os.path.abspath(ckpt_dir)}")
-    return set_providers(production_providers(ckpt_dir, device=device))
+    return set_providers(production_providers(ckpt_dir, use_llm=use_llm, use_search=use_search, device=device))
 
 
-def production_providers(checkpoint_dir: str = "checkpoints", device=None,
-                         compute_dtype: torch.dtype = torch.bfloat16,
-                         recorded_services: bool = False) -> Providers:
+def production_providers(checkpoint_dir: str = "checkpoints", use_llm: bool = True, use_search: bool = True,
+                         recorded_services: bool = False, device=None,
+                         compute_dtype: torch.dtype = torch.bfloat16) -> Providers:
     """The port's production bundle on ``device`` (default the card), the
     face and landmark backbones in ``compute_dtype``; the OCR, CLIP, text
     encoder and ASR compute as their JAX counterparts do (the v2 OCR
@@ -173,14 +188,8 @@ def production_providers(checkpoint_dir: str = "checkpoints", device=None,
         asr = EnergyVAD(device=dev)
     print(f"providers: text encoder {type(text_encoder).__name__}, CLIP {type(clip).__name__}, "
           f"ASR {type(asr).__name__}")
-    if recorded_services:
-        from fvd_tpu_torch.providers.recorded import RecordedLLM, RecordedSearch
-
-        llm, search = RecordedLLM(), RecordedSearch()
-        print("providers: LLM RecordedLLM, search RecordedSearch")
-    else:
-        llm, search = NullLLM(), NullSearch()
-        print(f"providers: {_NOT_PORTED}")
+    llm, search = network_services(use_llm, use_search, recorded_services)
+    print(f"providers: LLM {type(llm).__name__}, search {describe(search)}")
     return Providers(
         llm=llm,
         search=search,

@@ -79,10 +79,12 @@ class StepTimer:
         return list(self._steps)
 
 
-def _summary(timer: StepTimer, images: int, seconds: float, losses, **fields) -> dict:
+def step_summary(timer: StepTimer, items: int, seconds: float, losses, unit: str = "images", **fields) -> dict:
+    """The ``summary`` line's fields: steps, median data and step ms,
+    ``<unit>_per_s`` over the loop's wall time, the first and last loss."""
     losses = [float(x) for x in losses]
     return {"steps": len(timer.data_ms), "data_ms": statistics.median(timer.data_ms),
-            "step_ms": statistics.median(timer.step_ms()), "images_per_s": images / seconds,
+            "step_ms": statistics.median(timer.step_ms()), f"{unit}_per_s": items / seconds,
             "loop_s": seconds, "loss_first": losses[0], "loss_last": losses[-1], **fields}
 
 
@@ -132,7 +134,7 @@ def train_detector(steps: int, batch: int, width: int, out: str, device, seed: i
     face_ssd.save_params(out, model)
     save_train_state(train_dir, start_step + steps, model, opt)
     print(f"[det] saved {out} (+ train state at step {start_step + steps})")
-    return _summary(timer, steps * batch, seconds, losses, start_step=start_step, eval_mean_iou=mean_iou)
+    return step_summary(timer, steps * batch, seconds, losses, start_step=start_step, eval_mean_iou=mean_iou)
 
 
 def train_landmarks(steps: int, batch: int, width: int, out: str, device, seed: int = 1,
@@ -164,7 +166,7 @@ def train_landmarks(steps: int, batch: int, width: int, out: str, device, seed: 
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     landmarks_fan.save_params(out, model)
     print(f"[lmk] saved {out}")
-    return _summary(timer, steps * batch, seconds, losses, eval_mean_error=err)
+    return step_summary(timer, steps * batch, seconds, losses, eval_mean_error=err)
 
 
 def train_pose(steps: int, batch: int, width: int, out: str, device, seed: int = 2,
@@ -208,7 +210,7 @@ def train_pose(steps: int, batch: int, width: int, out: str, device, seed: int =
     print(f"[pose] saved {out} (width={width})")
     extra = {"consistency_loss_first": float(closses[0]), "consistency_loss_last": float(closses[-1])} \
         if closses else {}
-    return _summary(timer, images, seconds, losses, eval_mean_abs_err_deg=err.tolist(), **extra)
+    return step_summary(timer, images, seconds, losses, eval_mean_abs_err_deg=err.tolist(), **extra)
 
 
 def main(argv=None):

@@ -27,14 +27,14 @@ Flax classes do.
 
 :func:`seeded_state_dict` gives a module weights drawn from a numpy seed,
 for runs at a model's geometry without a checkpoint, and
-:func:`from_state_dict` turns a trained state dict back into the flat npz
-tree.
+:func:`from_state_dict` turns a trained model (or its gradients) back into
+the flat npz tree.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -108,31 +108,61 @@ def to_state_dict(tree: Mapping, dtype: torch.dtype = torch.float32) -> Dict[str
     return sd
 
 
-def from_state_dict(sd: Mapping[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, np.ndarray]:
-    """The flat ``{keystr: array}`` flax tree (``dtype``) of a state dict of the
-    port's conv, Dense and GroupNorm models, which
+def from_state_dict(sd, dtype: torch.dtype = torch.float32,
+                    model: Optional[torch.nn.Module] = None) -> Dict[str, np.ndarray]:
+    """The flat ``{keystr: array}`` flax tree (``dtype``) of a state dict, which
     ``np.savez(path, **tree)`` writes as the JAX package's npz: the inverse
-    of :func:`to_state_dict` for a conv ``weight`` [O, I, H, W] -> ``kernel``
-    [H, W, I, O] (a 1-D conv's [O, I, K] -> [K, I, O]), an ``nn.Linear`` ``weight``
-    [O, I] -> ``kernel`` [I, O], a norm's 1-D ``weight`` -> ``scale``, and
-    ``bias`` as it is.  Embeddings and attention projections are not
-    covered."""
+    of :func:`to_state_dict`.  ``sd`` is a module (its state dict) or a
+    state dict of ``model``'s entries (its gradients, say); the module
+    decides each entry's kind, so ``to_state_dict(from_state_dict(m)) ==
+    m.state_dict()`` for every model of the port:
+
+    * a conv ``weight`` [O, I, H, W] -> ``kernel`` [H, W, I, O] (a 1-D
+      conv's [O, I, K] -> [K, I, O]), an ``nn.Linear`` ``weight`` [O, I] ->
+      ``kernel`` [I, O];
+    * the ``query``/``key``/``value`` projections of a
+      ``MultiHeadDotProductAttention_*`` [H * Dh, D] -> ``kernel`` [D, H, Dh]
+      and their biases -> [H, Dh]; ``out``'s [D, H * Dh] -> [H, Dh, D], with
+      H the attention module's ``heads``;
+    * an ``nn.Embedding`` ``weight`` -> ``embedding`` as it is; a norm's 1-D
+      ``weight`` -> ``scale``;
+    * ``bias`` and the raw params ``cls`` and ``logit_scale`` as they are.
+
+    Without a module only the conv, Dense and norm entries can be told
+    apart: an attention projection or an embedding raises."""
+    if isinstance(sd, torch.nn.Module):
+        model, sd = model or sd, sd.state_dict()
     tree: Dict[str, np.ndarray] = {}
     for name, value in sd.items():
         *mods, leaf = name.split(".")
         arr = value.detach().to("cpu", dtype).numpy()
-        if leaf == "weight":
+        attention = len(mods) >= 2 and mods[-2].startswith("MultiHeadDotProductAttention")
+        if model is None and (attention or (mods and mods[-1].startswith("Embed"))):
+            raise ValueError(f"{name}: an attention projection or an embedding needs the model")
+        if leaf in _RAW_PARAMS:
+            pass
+        elif attention and mods[-1] in ("query", "key", "value", "out"):
+            heads = model.get_submodule(".".join(mods[:-1])).heads
+            if leaf == "weight":
+                leaf = "kernel"
+                arr = arr.T.reshape(arr.shape[1], heads, -1) if mods[-1] != "out" else \
+                    arr.T.reshape(heads, -1, arr.shape[0])
+            elif mods[-1] != "out":
+                arr = arr.reshape(heads, -1)
+        elif leaf == "weight" and model is not None and isinstance(_owner(model, name), torch.nn.Embedding):
+            leaf = "embedding"
+        elif leaf == "weight":
             leaf = "scale" if arr.ndim == 1 else "kernel"
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         elif leaf != "bias":
             raise ValueError(f"unexpected state dict entry {name}")
-        tree["['params']" + "".join(f"['{m}']" for m in mods + [leaf])] = np.ascontiguousarray(arr)
+        tree["['params']" + "".join(f"['{m}']" for m in mods + [leaf])] = np.array(arr, order="C")
     return tree
 
 
 def save_npz(path: str, model: torch.nn.Module) -> None:
     """Write ``model`` as the JAX package's flat npz (its ``save_params``)."""
-    np.savez(path, **from_state_dict(model.state_dict()))
+    np.savez(path, **from_state_dict(model))
 
 
 def load_npz(path: str, model: torch.nn.Module) -> torch.nn.Module:

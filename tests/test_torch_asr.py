@@ -26,6 +26,16 @@ TOL = 1e-4
 TEXT = "the mayor said the city will cut taxes next year"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module (the suite runs six workers; see
+    ``tests/test_torch_train_losses.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("length,stride", [(128, 2), (127, 2), (16, 1)])
 def test_same_conv1d_pads_as_flax(length, stride):
     """Flax "SAME" on a stride-2 conv pads (0, 1) on an even length."""

@@ -20,12 +20,30 @@ from fvd_tpu_torch.synthetic import make_face_video
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module (the suite runs six workers; see
+    ``tests/test_torch_train_losses.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+#: the variables that would give the production bundle a networked LLM or
+#: search backend, or a cache directory
+SERVICE_ENV = ("OPENAI_API_KEY", "OPENAI_BASE_URL", "SERPER_API_KEY", "GOOGLE_API_KEY", "GOOGLE_CX",
+               "FVD_SEARCH_CACHE_DIR")
+
+
 @pytest.fixture
 def workdir(tmp_path, monkeypatch):
     """A scratch cwd (the nodes write ``processed/``, ``features/`` and
-    ``lr_weights.json`` there) and the process-wide provider bundle restored
-    after the CLI installs its own."""
+    ``lr_weights.json`` there), no key for a networked service, and the
+    process-wide provider bundle restored after the CLI installs its own."""
     monkeypatch.chdir(tmp_path)
+    for k in SERVICE_ENV:
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr(tprov, "_default", tprov.Providers())
     monkeypatch.setattr(tprov, "_default_is_custom", False)
     yield tmp_path
@@ -48,7 +66,7 @@ def test_cli_prints_fake_probability_and_trains_with_a_label(workdir, clip, caps
     assert line.startswith("Fake probability: ")
     p = float(line.split(": ")[1])
     assert 0.0 <= p <= 1.0
-    assert "providers: LLM and search: none, no networked backend (ROADMAP §1 item 7)" in out
+    assert "providers: LLM NullLLM, search ChainSearch(SerperSearch, GoogleCSESearch, DuckDuckGoSearch)" in out
     # checkpoints/hf is there: its models run
     assert "providers: text encoder HFTextEncoder, CLIP HFClip, ASR HFWhisperASR" in out
     assert tprov.get_providers().landmarks.device == torch.device("cpu")
@@ -82,9 +100,24 @@ def test_cli_without_a_card_and_without_cpu_raises(workdir, clip):
         cli.main([clip])
 
 
-def test_production_bundle_on_the_shipped_checkpoints():
+def test_production_bundle_on_the_shipped_checkpoints(monkeypatch):
+    """Without keys: no LLM, and a search chain whose keyed backends send
+    nothing and whose DuckDuckGo is refused (pointed at a closed loopback
+    port: nothing here may reach an outside host), so it returns []."""
+    import socket
+
+    from fvd_tpu_torch.providers import search as tsearch
+
+    for k in SERVICE_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(tsearch.DuckDuckGoSearch, "ENDPOINT", f"http://127.0.0.1:{port}/html/")
+    monkeypatch.setenv("NO_PROXY", "127.0.0.1")
     prov = factory.production_providers(os.path.join(ROOT, "checkpoints"), device="cpu")
     assert prov.llm.available is False
+    assert tsearch.describe(prov.search) == "ChainSearch(SerperSearch, GoogleCSESearch, DuckDuckGoSearch)"
     assert prov.search.search("anything") == []
     # checkpoints/hf before the npz models: Whisper base, CLIP ViT-B/32, MiniLM-L6
     assert prov.clip.device == torch.device("cpu") and prov.clip.cal_scale != 1.0 and prov.clip.image_size == 224
@@ -100,7 +133,8 @@ def test_production_bundle_on_the_shipped_checkpoints():
 
 def test_module_entry_point_runs(tmp_path, clip):
     """``python -m fvd_tpu_torch.cli`` in a subprocess, from another cwd."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = {k: v for k, v in os.environ.items() if k not in SERVICE_ENV}
+    env["PYTHONPATH"] = ROOT
     proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", clip, "--cpu"], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]

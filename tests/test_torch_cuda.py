@@ -766,3 +766,48 @@ def test_in_dtype_follows_an_optimizer_step_on_card(cuda):
     clone.load_state_dict(model.state_dict())
     assert float((after - before).abs().max()) > 1e-3
     torch.testing.assert_close(after, landmarks_fan.landmarks_forward(clone, crops), rtol=0, atol=0)
+
+
+# ------------------------------------------ the networked services, the zoo
+def test_networked_services_on_card_match_the_scripted(cuda):
+    """``chip_smoke.py``'s net phase: the DAG on the card with the OpenAI LLM
+    and the cached search chain on a loopback server, against the scripted
+    LLM and search (the same decisions, |dp| <= 1e-6, one C1 launch for
+    each of its four DAG runs)."""
+    cs = _chip_smoke()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        assert cs.net_phase() == cs.NET_RUNS == 4
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.fixture(scope="module")
+def zoo_train_batches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the losses are compared card against CPU")
+    return _chip_smoke()._zoo_train_batches()
+
+
+@pytest.mark.parametrize("name", ["asr", "text", "clip", "ctc"])
+def test_zoo_train_step_on_card_matches_cpu(zoo_train_batches, name):
+    """One Adam step of ``asr_loss``, the text InfoNCE, ``clip_loss`` and
+    ``ctc_loss`` at the shipped geometries on the card against the CPU: the
+    float32 loss within 1e-4 (TF32 off), and in float64 the loss, every
+    gradient and every updated parameter within 1e-8 relative L2 (the key
+    projections' biases have a zero gradient and are left out)."""
+    cs = _chip_smoke()
+    batch = zoo_train_batches[name][:1]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, cpu = (cs._zoo_train_run(name, batch, d, torch.float32) for d in ("cuda", "cpu"))
+        assert abs(card[0][0] - cpu[0][0]) <= 1e-4 * abs(cpu[0][0])
+        card, cpu = (cs._zoo_train_run(name, batch, d, torch.float64) for d in ("cuda", "cpu"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(card[0][0] - cpu[0][0]) <= 1e-8 * abs(cpu[0][0])
+    skip = tuple(k for k in cpu[1] if k.endswith("key.bias"))
+    for side in (1, 2):
+        assert cs._worst_rel(card[side], cpu[side], skip)[0] <= 1e-8

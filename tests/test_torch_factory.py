@@ -88,14 +88,18 @@ def test_a_checkpoint_that_does_not_load_raises(tmp_path):
         factory.production_providers(d, device="cpu")
 
 
-def test_hf_dir_is_named_and_the_npz_models_run(tmp_path, capsys):
+def test_hf_dir_is_named_and_the_npz_models_run(tmp_path, capsys, monkeypatch):
     """An ``hf/`` with none of the three model directories: the npz models,
     as the JAX package's ``_try`` gives them, named on the ``providers:``
-    line."""
+    line (and, with no key in the environment, no LLM and the default search
+    chain on the next)."""
+    for k in ("OPENAI_API_KEY", "FVD_SEARCH_CACHE_DIR"):
+        monkeypatch.delenv(k, raising=False)
     d = _linked(tmp_path, VISION + ZOO)
     os.mkdir(os.path.join(d, "hf"))
     t = factory.production_providers(d, device="cpu")
     out = capsys.readouterr().out
     assert "providers: text encoder JaxTextEncoder, CLIP JaxClip, ASR JaxASR" in out
-    assert "ROADMAP §1 item 7" in out and "failed to load HF" not in out
+    assert "providers: LLM NullLLM, search ChainSearch(SerperSearch, GoogleCSESearch, DuckDuckGoSearch)" in out
+    assert "failed to load HF" not in out
     assert isinstance(t.asr, JaxASR) and isinstance(t.clip, JaxClip)

@@ -35,6 +35,16 @@ HF = os.path.join(ROOT, "checkpoints", "hf")
 EMBED_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module (the suite runs six workers; see
+    ``tests/test_torch_train_losses.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flax(cls, path):
     """A Flax model of ``path`` as ``from_local`` has it, without the init."""
     model, params = cls.from_pretrained(path, _do_init=False)

@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import HealthCheck, given, settings, strategies as st
 
 pytest.importorskip("transformers")
@@ -40,6 +41,16 @@ FIXED = [
     "ΣΑΣ σας İstanbul ǅ", "½ Ⅻ ① ٣ ๓ 𝟘", "emoji \U0001F600\U0001F44D\U0001F3FD \U0001F9D1\u200d\U0001F33E",
     "word " * 200, "x" * 300, "a" * 100 + " " + "b" * 101,
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module (the suite runs six workers; see
+    ``tests/test_torch_train_losses.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,7 @@
 """The port stands alone: ``fvd_tpu_torch`` and ``chip_smoke.py`` import with
-JAX, flax, OpenCV, transformers, tokenizers, msgpack and regex blocked, and no
-source of theirs names ``fvd_tpu`` or imports one of those."""
+JAX, flax, OpenCV, transformers, tokenizers, msgpack, regex, requests and
+openai blocked, and no source of theirs names ``fvd_tpu`` or imports one of
+those."""
 
 import os
 import pkgutil
@@ -19,7 +20,7 @@ def _modules():
         m.name for m in pkgutil.walk_packages([PKG_DIR], prefix="fvd_tpu_torch.")])
 
 
-BLOCKED = ("jax", "flax", "cv2", "transformers", "tokenizers", "msgpack", "regex")
+BLOCKED = ("jax", "flax", "cv2", "transformers", "tokenizers", "msgpack", "regex", "requests", "openai")
 
 
 def test_every_module_imports_with_jax_flax_cv2_blocked():
@@ -55,7 +56,9 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.parallel.experts", "fvd_tpu_torch.parallel.programs",
             "fvd_tpu_torch.models.synthetic_faces", "fvd_tpu_torch.models.synthetic_pose",
             "fvd_tpu_torch.models.checkpointing", "fvd_tpu_torch.tools",
-            "fvd_tpu_torch.tools.pretrain_synthetic"} <= set(mods)
+            "fvd_tpu_torch.tools.pretrain_synthetic", "fvd_tpu_torch.tools.pretrain_asr",
+            "fvd_tpu_torch.tools.pretrain_text_encoder", "fvd_tpu_torch.models.synthetic_speech",
+            "fvd_tpu_torch.providers.loopback"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
