@@ -201,10 +201,30 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              subprocess on the card, then ``pretrain_asr --resume --steps
              10``: the summaries' data and device ms a step, items/s, losses
              and evals; (c) the npz files served by ``JaxASR`` and
-             ``JaxTextEncoder`` on the card.
+             ``JaxTextEncoder`` on the card;
+19. corpus   the labeled-corpus experiment (``python -m
+             fvd_tpu_torch.tools.{make_labeled_corpus,accuracy_trajectory,
+             calibrate_lr}``): (a) ``build_corpus`` draws 2 real, 2 fake, 1
+             ambiguous and 1 hard-real clip of 10 s at 30 fps and 320x240
+             with OpenCV's shapes (the labels the names encode are
+             checked); (b) ``accuracy_trajectory.main`` in process on them
+             with the shipped bundle in bf16 and the recorded services, a
+             baseline run and 3 ``--train`` runs: the order the harness
+             takes the clips in (online SGD depends on it: ``get_videos``
+             sorts by duration, so equal clips keep the directory's glob
+             order), per run the accuracy, the SGD attempts, the seconds and
+             every clip's probability (each results table scores every clip
+             in that order), run 0's features, at least one C1 launch per
+             clip; (c) a
+             ``texture_noise`` fake and a hard real of 5 s through the 16
+             nodes, card f32 against CPU f32 at the batch phase's bars; (d)
+             ``calibrate_lr.main`` on 1 real, 2 fakes and 1 hard real of 5 s
+             for training and again for validation: the accuracies, the
+             vector (its sign constraints hold), one C1 launch per clip, and
+             ``--refit-from-meta`` giving the same vector exactly.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-18 alone.  Then one JSON line with every kernel's numbers, the card's
+4-19 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -2851,9 +2871,193 @@ def parallel_phase():
     return launches
 
 
+#: the corpus phase's labeled corpus: 2 real, 2 fake, 1 ambiguous and 1 hard
+#: real clip of 10 s at 30 fps and 320x240 (the JAX experiment's corpus holds
+#: 12-23 of them), and the trajectory's trained runs after the baseline
+CORPUS_FAMILIES = {"n_real": 2, "n_fake": 2, "n_ambiguous": 1, "n_hard_real": 1}
+CORPUS_CLIP_SECONDS = 10.0
+CORPUS_RUNS = 3
+#: (c)'s two lever clips, each cut to 5 s under its own seed: the texture
+#: fake (FAKE_RECIPES[1]) and the first hard real
+CORPUS_LEVER_SECONDS = 5.0
+#: (d)'s calibration corpus: 1 real, 2 fakes, 1 hard real of 5 s for train
+#: and again for validation (the JAX tool's default is 18 of 10 s each)
+CORPUS_CALIBRATE = ["--n-real", "1", "--n-fake", "2", "--ambiguous", "0", "--hard-reals", "1", "--duration", "5"]
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output caught -> (result, output, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue(), time.perf_counter() - t0
+
+
+def _corpus_trajectory(root):
+    """``accuracy_trajectory.main`` in process on the corpus in
+    ``root/videos``: a baseline run and ``CORPUS_RUNS`` trained runs with
+    the shipped bundle (bf16) and the recorded services -> the order the
+    harness takes the clips in (online SGD depends on it), per run its
+    accuracy line, seconds and every clip's probability, run 0's features,
+    the C1 launches."""
+    from fvd_tpu_torch import _kernels, batch
+    from fvd_tpu_torch import providers as tprov
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.runtime import io_pool
+    from fvd_tpu_torch.tools import accuracy_trajectory
+
+    seconds = []
+    batch_main = batch.main
+
+    def timed(argv):
+        t0 = time.perf_counter()
+        try:
+            return batch_main(argv)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    cwd, bundle = os.getcwd(), (tprov._default, tprov._default_is_custom)
+    batch.main = timed
+    media.clear_frame_cache()
+    io_pool.clear_artifact_caches()
+    try:
+        _kernels.reset_launches()
+        rc, out, _ = _quiet(accuracy_trajectory.main, ["--workdir", root, "--runs", str(CORPUS_RUNS),
+                                                       "--baseline-eval"])
+        launches = _kernels.LAUNCHES["lipsync_score"]
+    finally:
+        batch.main = batch_main
+        os.chdir(cwd)
+        tprov._default, tprov._default_is_custom = bundle
+        media.clear_frame_cache()
+        io_pool.clear_artifact_caches()
+    check(rc == 0, f"corpus (b): accuracy_trajectory returned {rc}: {out[-3000:]}")
+    order = [os.path.basename(p) for p in batch.get_videos(os.path.join(root, "videos"))]
+    probs, wrong = [], []
+    for run in range(CORPUS_RUNS + 1):
+        with open(os.path.join(root, "results", f"batch_results{run}.txt")) as f:
+            table = f.read()
+        rows = [[c.strip() for c in ln.split("|")] for ln in table.splitlines() if ln.startswith("clip")]
+        check([r[0] for r in rows] == order and all(0.0 <= float(r[2]) <= 1.0 for r in rows),
+              f"corpus (b): run {run}'s table does not score every clip in the order {order}: {table}")
+        probs.append({r[0]: float(r[2]) for r in rows})
+        wrong.append([r[0] for r in rows if r[4] == "WRONG"])
+    features = {}
+    for name in order:
+        with open(os.path.join(root, "features", f"{name}.json")) as f:
+            features[name] = json.load(f)
+    runs = [ln for ln in out.splitlines() if ln.startswith("run ")]
+    check(len(runs) == CORPUS_RUNS + 1 and len(seconds) == CORPUS_RUNS + 1, f"corpus (b): {runs}, {seconds}")
+    check(launches >= len(order), f"corpus (b): {launches} C1 launches for {len(order)} clips' first runs")
+    lines = out.strip().splitlines()
+    return {"order": order, "runs": [{"line": r, "seconds": s, "wrong": w, "probabilities": p}
+                                     for r, s, w, p in zip(runs, seconds, wrong, probs)],
+            "run0_features": features, "trajectory": lines[-2], "attempts": lines[-1],
+            "lipsync_score_launches": launches}
+
+
+def _corpus_levers(root):
+    """(c): a texture fake and a hard real of ``CORPUS_LEVER_SECONDS``
+    through the 16 nodes, card f32 against CPU f32 at the batch phase's
+    bars -> the gaps and the card run's C1 launches."""
+    import torch
+
+    from fvd_tpu_torch.providers.factory import production_providers
+    from fvd_tpu_torch.tools.make_labeled_corpus import (FAKE_RECIPES, HARD_REAL_RECIPES, SENTENCES, corpus_speech,
+                                                         write_clip)
+
+    ckpt = os.path.join(REPO, "checkpoints")
+    speech = corpus_speech()
+    hard_real, exclamation = HARD_REAL_RECIPES[0]
+    paths = [write_clip(os.path.join(root, "videos"), name, speech, duration=CORPUS_LEVER_SECONDS, fps=30.0,
+                        seed=seed, speech_text=text, **levers)
+             for name, seed, text, levers in (("lever_texture_deepfake", 600, SENTENCES[1], FAKE_RECIPES[1]),
+                                              ("lever_sensor_real_vlog", 601, exclamation, hard_real))]
+    card = production_providers(ckpt, device="cuda", compute_dtype=torch.float32, recorded_services=True)
+    a = _batch_run(card, paths, os.path.join(root, "card"), "cuda", 1)
+    del card
+    cpu = production_providers(ckpt, device="cpu", compute_dtype=torch.float32, recorded_services=True)
+    b = _batch_run(cpu, paths, os.path.join(root, "cpu"), "cpu", 1)
+    del cpu
+    for r, what in ((a, "card f32"), (b, "CPU f32")):
+        check(all(v == len(paths) for v in r["nodes_done"].values()), f"corpus (c) {what}: {r['nodes_done']}")
+    check(a["launches"] == len(paths), f"corpus (c): {a['launches']} C1 launches for {len(paths)} clips")
+    errs = _batch_compare(a["finals"], b["finals"], "corpus (c) lever clips, card f32 vs CPU f32")
+    return {"clips": [os.path.basename(p) for p in paths], "card_vs_cpu": errs,
+            "fake_probabilities": {"card": a["probs"], "cpu": b["probs"]},
+            "texture": [f.features["texture"] for f in a["finals"]], "seconds": {"card": a["seconds"],
+                                                                                "cpu": b["seconds"]},
+            "lipsync_score_launches": a["launches"]}
+
+
+def _corpus_calibrate(root):
+    """(d): ``calibrate_lr.main`` on the card on a small corpus, then
+    ``--refit-from-meta`` on what it wrote, which must give the same vector."""
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.tools import calibrate_lr
+
+    out = os.path.join(root, "cal.json")
+    _kernels.reset_launches()
+    rc, log, seconds = _quiet(calibrate_lr.main, CORPUS_CALIBRATE + ["--out", out])
+    launches = _kernels.LAUNCHES["lipsync_score"]
+    check(rc == 0, f"corpus (d): calibrate_lr returned {rc}: {log[-3000:]}")
+    with open(out) as f:
+        vector = json.load(f)
+    with open(out.replace(".json", "_meta.json")) as f:
+        meta = json.load(f)
+    n = len(meta["train"]["videos"]) + len(meta["val"]["videos"])
+    check(n == 8 and launches == n, f"corpus (d): {launches} C1 launches for {n} clips")
+    bad = {k: vector[k] for k, sign in calibrate_lr.SIGN.items() if vector[k] * sign < 0}
+    check(not bad, f"corpus (d): the vector breaks the sign constraints: {bad}")
+    rc, refit_log, _ = _quiet(calibrate_lr.main, ["--refit-from-meta", "--out", out])
+    with open(out) as f:
+        refit = json.load(f)
+    check(rc == 0 and refit == vector, f"corpus (d): the refit gave {refit} against {vector}: {refit_log}")
+    return {"seconds": seconds, "train_acc": meta["train_acc"], "val_acc": meta["val_acc"], "vector": vector,
+            "train_videos": meta["train"]["videos"], "val_videos": meta["val"]["videos"],
+            "lines": [ln for ln in log.splitlines() if ln.startswith(("train acc", "val acc", "  clip"))],
+            "lipsync_score_launches": launches}
+
+
+def corpus_phase():
+    """The labeled-corpus experiment on the card: (a) a corpus of every
+    family from ``make_labeled_corpus.build_corpus``, (b)
+    ``accuracy_trajectory`` on it, (c) two lever clips card against CPU,
+    (d) ``calibrate_lr`` and its refit."""
+    from fvd_tpu_torch import batch
+    from fvd_tpu_torch.tools.make_labeled_corpus import build_corpus
+
+    result = {"cut": {"families": CORPUS_FAMILIES, "clip_seconds": CORPUS_CLIP_SECONDS, "trained_runs": CORPUS_RUNS,
+                      "lever_clip_seconds": CORPUS_LEVER_SECONDS, "calibrate": " ".join(CORPUS_CALIBRATE)},
+              "feature_tolerance": BATCH_FEATURE_TOL, "prob_tolerance": BATCH_PROB_TOL}
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "traj")
+        t0 = time.perf_counter()
+        paths = build_corpus(os.path.join(traj, "videos"), CORPUS_FAMILIES["n_real"], CORPUS_FAMILIES["n_fake"],
+                             CORPUS_CLIP_SECONDS, n_ambiguous=CORPUS_FAMILIES["n_ambiguous"],
+                             n_hard_real=CORPUS_FAMILIES["n_hard_real"])
+        result["make_clips_s"] = time.perf_counter() - t0
+        names = [os.path.basename(p) for p in paths]
+        labels = [batch.get_label(p) for p in paths]
+        want = [0 if "_real_" in n else 1 for n in names]
+        check(labels == want == [0, 0, 1, 1, 1, 0], f"corpus (a): labels {dict(zip(names, labels))}")
+        result.update(clips=names, labels=labels)
+        result["b_trajectory"] = _corpus_trajectory(traj)
+        shutil.rmtree(traj)
+        result["c_levers"] = _corpus_levers(os.path.join(tmp, "levers"))
+        result["d_calibrate"] = _corpus_calibrate(tmp)
+    phase("corpus", **result)
+    return (result["b_trajectory"]["lipsync_score_launches"] + result["c_levers"]["lipsync_score_launches"]
+            + result["d_calibrate"]["lipsync_score_launches"])
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train")
+          "parallel", "train", "net", "zoo_train", "corpus")
 
 
 def main(argv=None) -> int:
@@ -2883,7 +3087,7 @@ def main(argv=None) -> int:
     # processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
-               "parallel": parallel_phase, "net": net_phase}
+               "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase}
     launches = 0

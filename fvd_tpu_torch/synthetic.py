@@ -6,8 +6,10 @@ so that they can be made where OpenCV is not installed.
 
 The clip is an elliptical face whose mouth aperture follows the same gate as
 its audio track, with a slow centre drift that exercises IoU tracking; it is
-written as a raw-RGBA AVI with a sibling ``.wav``.  The pixels are not
-OpenCV's: the face outline and the background blur differ a little.
+written as a raw-RGBA AVI with a sibling ``.wav``.  By default the face is
+drawn with pixel-centre shapes; ``opencv=True`` draws OpenCV's, and then the
+frames equal the JAX package's before its mp4 encoding, manipulation levers
+included.
 
 :func:`formant_speech` is the port's copy of
 ``fvd_tpu/models/synthetic_speech.py``'s source-filter synthesizer (the
@@ -399,8 +401,14 @@ def make_face_video(
     sr: int = 16000,
     seed: int = 0,
     speech_text: str | None = None,
+    audio_offset_s: float = 0.0,
+    texture_noise: float = 0.0,
+    sensor_noise: float = 0.0,
+    pose_jitter: float = 0.0,
     mouth_gate_hz: float | None = None,
     speech: str = "tone",
+    heldout: bool = False,
+    opencv: bool = False,
 ) -> str:
     """A face clip ``<dirpath>/<name>.avi`` and its audio ``<name>.wav``.
 
@@ -410,17 +418,60 @@ def make_face_video(
     ``speech_text`` as one :func:`formant_speech` utterance from 0.5 s; with
     ``speech="formant_gated"``, formant phrases in the gate's on-windows, the
     JAX package's ``speech_renderer="formant"``; both formant kinds at 16 kHz
-    only).  ``mouth_gate_hz`` (default ``gate_hz``) drives the mouth at
-    another rate than the audio: the dubbed mouth no lag can align."""
+    only).  ``opencv``: draw the face with OpenCV's rasterisation
+    (:func:`draw_face`), the JAX package's pixels; else pixel-centre shapes.
+
+    Deepfake-style manipulation levers (the labeled-corpus generator's,
+    mirroring the signals the reference's LR weights act on —
+    lr_weights.json: texture +0.82, lip_sync -0.46, headpose_jerk +0.08):
+
+    * ``audio_offset_s`` — delay the audio track relative to the mouth
+      gate (circular shift).  C1 searches lags up to ±max_lag_s (0.5 s),
+      and a periodic gate realigns at full periods — a true lip-sync break
+      needs ``mouth_gate_hz``.
+    * ``mouth_gate_hz`` (default ``gate_hz``) — drive the mouth at a
+      different (incommensurate) frequency than the audio gate: the
+      dubbed/face-swapped mouth that no lag can align, collapsing C1's score.
+    * ``texture_noise`` — additive Gaussian noise (that sigma) inside the
+      face region only: the blend-seam/GAN-artifact analog V5's forensic
+      analysis reacts to.
+    * ``pose_jitter`` — per-frame random head-centre displacement (pixels):
+      raises V4's headpose_jerk and destabilizes landmark tracks.
+    * ``sensor_noise`` — additive Gaussian noise over the WHOLE frame: not
+      a manipulation but real-world capture degradation (low-light sensor
+      noise, heavy recompression).  Applied to label-real clips it builds
+      the classic false-positive hard case: V5's forensic texture score
+      rises and landmark and lip tracking degrade on a genuine video, the
+      signature of the reference corpus's noisy reals (its BBC News real
+      carries texture 0.65).
+    * ``heldout`` — the held-out face distribution as a video: a striped
+      gradient background, eccentricity and skin outside the training
+      ranges, glasses and hair the training renderer never draws (always
+      with OpenCV's rasterisation, whatever ``opencv`` says) — whether the
+      pipeline's signals survive on faces the models never trained on.
+
+    Every random draw comes from one ``RandomState(seed)`` in the JAX
+    package's order: background and skin, then per frame the jitter pair,
+    the face-region noise and the whole-frame noise."""
     formant = speech in ("formant", "formant_gated")
     if speech not in ("tone", "formant", "formant_gated") or (formant and sr != FORMANT_SR):
         raise ValueError(f"speech={speech!r} at {sr} Hz: tone at any rate, or formant at {FORMANT_SR} Hz")
     os.makedirs(dirpath, exist_ok=True)
     rng = np.random.RandomState(seed)
-    background = _box_blur5((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
-    skin = np.array([rng.randint(160, 230), rng.randint(120, 190), rng.randint(100, 170)])
     fh = 0.62 * height
-    fw = fh / 1.25
+    if heldout:
+        background = np.zeros((height, width, 3), np.uint8)
+        base = rng.rand(3) * 150
+        grad = np.linspace(0, 80, height)[:, None]
+        for c in range(3):
+            background[..., c] = np.clip(
+                base[c] + grad + 25 * np.sin(np.arange(width)[None, :] / rng.uniform(6, 18)), 0, 255)
+        skin = np.array([rng.randint(130, 255), rng.randint(100, 210), rng.randint(80, 200)])
+        fw = fh / 1.52  # eccentricity outside the training [1.1, 1.4]
+    else:
+        background = _box_blur5((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
+        skin = np.array([rng.randint(160, 230), rng.randint(120, 190), rng.randint(100, 170)])
+        fw = fh / 1.25
     n = int(fps * duration)
     frames = np.zeros((n, height, width, 3), np.uint8)
     mouth_hz = gate_hz if mouth_gate_hz is None else mouth_gate_hz
@@ -429,8 +480,33 @@ def make_face_video(
         gate = 0.5 * (1 + np.sin(2 * np.pi * mouth_hz * t))
         cx = width / 2 + 0.06 * width * np.sin(2 * np.pi * 0.05 * t)
         cy = height / 2 + 0.04 * height * np.cos(2 * np.pi * 0.07 * t)
+        if pose_jitter > 0:
+            cx += pose_jitter * rng.randn()
+            cy += pose_jitter * rng.randn()
         frame = background.copy()
-        draw_face(frame, cx, cy, fw, fh, skin, aperture=gate, opencv=False)
+        pts = draw_face(frame, cx, cy, fw, fh, skin, aperture=gate, opencv=opencv)
+        if heldout:  # glasses rings, their bridge, the hair arc
+            dark = tuple((skin * 0.3).astype(int).tolist())
+            for base_i in (36, 42):
+                c = pts[base_i: base_i + 6].mean(axis=0).astype(int)
+                draw.circle(frame, c, max(3, int(fw * 0.12)), dark, 2)
+            left = pts[36:42].mean(axis=0).astype(int)
+            right = pts[42:48].mean(axis=0).astype(int)
+            draw.line(frame, left, right, 2, dark)
+            draw.fill_ellipse(frame, (int(cx), int(cy - 0.1 * fh)), (int(fw * 0.55), int(fh * 0.5)), dark,
+                              0.0, 180, 360)
+        if texture_noise > 0:
+            # only the top-left corner is clamped: numpy's slice clipping
+            # sets how many draws the region takes at the far edges
+            y0, y1 = int(cy - fh / 2), int(cy + fh / 2)
+            x0, x1 = int(cx - fw / 2), int(cx + fw / 2)
+            y0, x0 = max(y0, 0), max(x0, 0)
+            region = frame[y0:y1, x0:x1].astype(np.float32)
+            region += texture_noise * rng.randn(*region.shape)
+            frame[y0:y1, x0:x1] = np.clip(region, 0, 255).astype(np.uint8)
+        if sensor_noise > 0:
+            noisy = frame.astype(np.float32) + sensor_noise * rng.randn(*frame.shape)
+            frame = np.clip(noisy, 0, 255).astype(np.uint8)
         frames[i] = frame
     video_path = os.path.join(dirpath, f"{name}.avi")
     write_video(video_path, frames, fps)
@@ -446,6 +522,8 @@ def make_face_video(
         t = np.arange(int(sr * duration)) / sr
         gate = (np.sin(2 * np.pi * gate_hz * t) > 0).astype(np.float32)
         sig = 0.5 * np.sin(2 * np.pi * 330 * t).astype(np.float32) * gate
+    if audio_offset_s:
+        sig = np.roll(sig, int(audio_offset_s * sr))
     write_wav(os.path.join(dirpath, f"{name}.wav"), sig, sr)
     return video_path
 

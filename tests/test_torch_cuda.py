@@ -811,3 +811,30 @@ def test_zoo_train_step_on_card_matches_cpu(zoo_train_batches, name):
     skip = tuple(k for k in cpu[1] if k.endswith("key.bias"))
     for side in (1, 2):
         assert cs._worst_rel(card[side], cpu[side], skip)[0] <= 1e-8
+
+
+# ------------------------------------------------- the labeled-corpus levers
+def test_texture_noise_clip_on_card_matches_cpu(cuda, tmp_path):
+    """``chip_smoke.py``'s corpus phase (c) on one clip: a ``texture_noise``
+    fake of the labeled corpus through the production bundle's 16 nodes,
+    card f32 against CPU f32 within the batch phase's bars (features 1e-4,
+    probability 1e-5, the same decisions), one C1 launch on the card."""
+    import os
+
+    from fvd_tpu_torch.providers.factory import production_providers
+    from fvd_tpu_torch.tools.make_labeled_corpus import FAKE_RECIPES, SENTENCES, corpus_speech, write_clip
+
+    cs = _chip_smoke()
+    ckpt = os.path.join(cs.REPO, "checkpoints")
+    clip = write_clip(str(tmp_path / "videos"), "texture_deepfake", corpus_speech(), duration=3.0, fps=30.0,
+                      seed=602, speech_text=SENTENCES[1], **FAKE_RECIPES[1])
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {d: cs._batch_run(production_providers(ckpt, device=d, compute_dtype=torch.float32,
+                                                      recorded_services=True), [clip], str(tmp_path / d), d, 1)
+                for d in ("cuda", "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert runs["cuda"]["launches"] == 1
+    cs._batch_compare(runs["cuda"]["finals"], runs["cpu"]["finals"], "texture_noise clip, card vs CPU")

@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.models.checkpointing", "fvd_tpu_torch.tools",
             "fvd_tpu_torch.tools.pretrain_synthetic", "fvd_tpu_torch.tools.pretrain_asr",
             "fvd_tpu_torch.tools.pretrain_text_encoder", "fvd_tpu_torch.models.synthetic_speech",
-            "fvd_tpu_torch.providers.loopback"} <= set(mods)
+            "fvd_tpu_torch.providers.loopback", "fvd_tpu_torch.tools.make_labeled_corpus",
+            "fvd_tpu_torch.tools.accuracy_trajectory", "fvd_tpu_torch.tools.calibrate_lr"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"

@@ -283,3 +283,40 @@ def test_train_until_correct_flips_prediction_and_caps():
     # a video no update can flip within the budget stops at max_epochs
     _, _, iters = tfusion.train_until_correct(feats, _t([1.0]), _t(np.zeros(9)), _t(-50.0), max_epochs=5)
     assert iters.tolist() == [5]
+
+
+#: the full pipeline's vectors on the four HARD_REAL_RECIPES clips (sensor
+#: noise 20-26, claimless speech of under four words), as
+#: tests/test_lr_fusion.py records them
+HARD_REALS = [
+    {"speech_rate": 0.06, "pause_ratio": 0.135, "lip_sync": 0.563, "gesture_score": 1.0, "blink_rate": 1.0,
+     "headpose_jerk": 0.058, "texture": 0.925, "claim_reliability": 0.0, "evidence_reliability": 0.0},
+    {"speech_rate": 0.06, "pause_ratio": 0.127, "lip_sync": 0.719, "gesture_score": 0.889, "blink_rate": 1.0,
+     "headpose_jerk": 0.081, "texture": 0.98, "claim_reliability": 0.0, "evidence_reliability": 0.0},
+    {"speech_rate": 0.04, "pause_ratio": 0.048, "lip_sync": 0.432, "gesture_score": 0.857, "blink_rate": 1.0,
+     "headpose_jerk": 0.073, "texture": 0.98, "claim_reliability": 0.0, "evidence_reliability": 0.0},
+    {"speech_rate": 0.06, "pause_ratio": 0.127, "lip_sync": 0.569, "gesture_score": 0.889, "blink_rate": 1.0,
+     "headpose_jerk": 0.073, "texture": 0.98, "claim_reliability": 0.0, "evidence_reliability": 0.0},
+]
+
+
+@pytest.mark.parametrize("index", range(len(HARD_REALS)))
+def test_hard_real_vectors_misclassify_untrained_but_converge(index):
+    """The hard-real contract of ``tests/test_lr_fusion.py`` on the port's
+    host math: under the shipped pretrained weights a noisy genuine clip
+    scores on the fake side (the eval baseline's false positive), and
+    per-attempt retraining crosses the threshold within the reference's
+    100-attempt budget, in the same number of attempts as the JAX
+    package's."""
+    feats = HARD_REALS[index]
+    pretrained = tlr.load_weights(tlr._pretrained_weights_path())
+    assert tfusion.predict_host(feats, pretrained) > 0.5
+    w, jw = dict(pretrained), dict(pretrained)
+    for attempt in range(1, 101):
+        w, p = tfusion.sgd_update_host(feats, w, 0)
+        jw, jp = jfusion.sgd_update_host(feats, jw, 0)
+        assert p == jp
+        if p <= 0.5:
+            break
+    assert p <= 0.5, f"did not converge within 100: {feats}"
+    assert w == jw
