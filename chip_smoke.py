@@ -233,8 +233,10 @@ present.  Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import shutil
@@ -1701,8 +1703,10 @@ BATCH_SENTENCES = (
     "the team won the final game by six points",
     "the museum opened a wing for modern art",
 )
-#: the batch phase's one cut: bench.py's clips are 30 s
+#: the batch phase's cuts: bench.py's clips are 30 s; (d)'s profiled passes
+#: and (e)'s CLI take 4 of the 8 clips (they paid for the text phase)
 BATCH_CLIP_SECONDS, BENCH_CLIP_SECONDS = 10.0, 30.0
+BATCH_PROFILE_CLIPS = BATCH_CLI_CLIPS = 4
 #: every LR feature and the probability, coalesced against alone and card
 #: against CPU, all f32: the bars of tests/test_torch_full_dag.py
 BATCH_FEATURE_TOL, BATCH_PROB_TOL = 1e-4, 1e-5
@@ -1857,11 +1861,20 @@ def _batch_summary(r, n):
             "fake_probabilities": [f.fake_probability for f in r["finals"]]}
 
 
+def _zero_lr_weights(root):
+    """An empty ``lr_weights.json`` in ``root``: all-zero weights, so p = 0.5
+    calls every clip real and the first fake clip takes at least one update,
+    whichever CLIP the checkout loads (the shipped weights may already call
+    every clip right, and then nothing trains)."""
+    with open(os.path.join(root, "lr_weights.json"), "w") as f:
+        f.write("{}")
+
+
 def _batch_cli(root, names):
     """``python -m fvd_tpu_torch.batch`` as a user runs it from ``root``:
-    8 at a time, then ``--train-device`` over the feature cache it left; the
-    weights against the host replay of ``run_local_lr(train=True)`` in the
-    same order."""
+    8 at a time, then ``--train-device`` over the feature cache it left, from
+    all-zero weights; the weights against the host replay of
+    ``run_local_lr(train=True)`` from the same start in the same order."""
     import glob
 
     from fvd_tpu_torch import batch
@@ -1870,6 +1883,8 @@ def _batch_cli(root, names):
     env = _subprocess_env()
     out = {}
     for name, extra in (("concurrency_8", ["--concurrency", "8"]), ("train_device", ["--train-device"])):
+        if name == "train_device":
+            _zero_lr_weights(root)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.batch", "--videos-dir", "videos"] + extra,
                               cwd=root, env=env, capture_output=True, text=True, timeout=600)
@@ -1891,6 +1906,7 @@ def _batch_cli(root, names):
     # files' sorted order, until the prediction matches the label
     replay = os.path.join(root, "replay")
     shutil.copytree(os.path.join(root, "features"), os.path.join(replay, "features"))
+    _zero_lr_weights(replay)
     cfg = _batch_config(replay)
     iters = []
     for path in sorted(glob.glob(os.path.join(replay, "features", "*.json"))):
@@ -1904,7 +1920,7 @@ def _batch_cli(root, names):
     with open(os.path.join(root, "lr_weights.json")) as f, open(cfg.fusion.weights_path) as g:
         dev, host = json.load(f), json.load(g)
     gap = max(abs(dev[k] - host.get(k, 0.0)) for k in ("bias",) + fusion.FEATURE_ORDER)
-    check(out["train_device"]["trained"].endswith(f"iters={iters}") and gap <= BATCH_TRAIN_TOL,
+    check(sum(iters) > 0 and out["train_device"]["trained"].endswith(f"iters={iters}") and gap <= BATCH_TRAIN_TOL,
           f"batch cli: --train-device {out['train_device']['trained']} vs host replay iters {iters}, |d w| {gap}")
     out["train_device"].update(host_replay_iters=iters, weights_max_abs_err=gap)
     return out
@@ -1920,7 +1936,8 @@ def batch_phase():
     from fvd_tpu_torch.providers.factory import production_providers
 
     ckpt = os.path.join(REPO, "checkpoints")
-    result = {"cut": {"clip_seconds": BATCH_CLIP_SECONDS, "bench_clip_seconds": BENCH_CLIP_SECONDS},
+    result = {"cut": {"clip_seconds": BATCH_CLIP_SECONDS, "bench_clip_seconds": BENCH_CLIP_SECONDS,
+                      "profiled_clips": BATCH_PROFILE_CLIPS, "cli_clips": BATCH_CLI_CLIPS},
               "feature_tolerance": BATCH_FEATURE_TOL, "prob_tolerance": BATCH_PROB_TOL,
               "train_tolerance": BATCH_TRAIN_TOL, "tf32": False}
     launches = 0
@@ -1979,7 +1996,8 @@ def batch_phase():
                 os.environ["FVD_TPU_NO_COALESCE"] = env
             try:
                 d = _batch_run(bf16, paths, os.path.join(tmp, f"d_{half}"), "cuda", 8)
-                prof = _batch_run(bf16, paths, os.path.join(tmp, f"p_{half}"), "cuda", 8, profile=True)
+                prof = _batch_run(bf16, paths[:BATCH_PROFILE_CLIPS], os.path.join(tmp, f"p_{half}"), "cuda", 8,
+                                  profile=True)
             finally:
                 os.environ.pop("FVD_TPU_NO_COALESCE", None)
             check(all(v == n for v in d["nodes_done"].values()), f"batch (d) {half}: nodes done {d['nodes_done']}")
@@ -1991,14 +2009,20 @@ def batch_phase():
             summary["profile"] = {k: v for k, v in p.items() if k != "top10"}
             summary["profile"]["top10"] = p.get("top10", [])[:5]
             if "kernels_per_call" in p:
-                summary["kernels_per_video"] = p["kernels_per_call"] / n
+                summary["kernels_per_video"] = p["kernels_per_call"] / BATCH_PROFILE_CLIPS
             result.setdefault("runs", {})[f"d_card_bf16_concurrency_8_{half}"] = summary
             launches += d["launches"] + prof["launches"]
         del bf16
         result["d_coalesced_vs_no_coalesce_max_prob"] = max(
             abs(x - y) for x, y in zip(result["runs"]["d_card_bf16_concurrency_8_coalesced"]["fake_probabilities"],
                                        result["runs"]["d_card_bf16_concurrency_8_no_coalesce"]["fake_probabilities"]))
-        result["e_cli"] = _batch_cli(tmp, names)
+        # the CLI on 4 of the clips (a cut that pays for the text phase)
+        cli_root = os.path.join(tmp, "cli")
+        os.makedirs(os.path.join(cli_root, "videos"))
+        for p in paths[:BATCH_CLI_CLIPS]:
+            for f in (p, p[:-len(".mp4")] + ".wav"):
+                os.link(f, os.path.join(cli_root, "videos", os.path.basename(f)))
+        result["e_cli"] = _batch_cli(cli_root, names[:BATCH_CLI_CLIPS])
     phase("batch", **result)
     return launches
 
@@ -2419,17 +2443,20 @@ def _worst_rel(a, b, skip=()):
     return worst
 
 
-def _train_parity(batches, run=_train_run, zero_grad=lambda name, grads: TRAIN_ZERO_GRAD.get(name, ())):
+def _train_parity(batches, run=_train_run, zero_grad=lambda name, grads: TRAIN_ZERO_GRAD.get(name, ()),
+                  tags=("f32", "f64")):
     """Card against CPU for each trainer of ``batches``, in float32 and
-    float64; ``run`` is :func:`_train_run` or :func:`_zoo_train_run`,
-    ``zero_grad(name, grads)`` the tensors whose gradient is zero in exact
-    arithmetic."""
+    float64 (``tags``); ``run`` is :func:`_train_run`, :func:`_zoo_train_run`
+    or :func:`_text_train_run`, ``zero_grad(name, grads)`` the tensors whose
+    gradient is zero in exact arithmetic."""
     import torch
 
     out = {}
     for name, b in batches.items():
         row = {}
         for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            if tag not in tags:
+                continue
             t0 = time.perf_counter()
             card = run(name, b, "cuda", dt)
             t1 = time.perf_counter()
@@ -2755,18 +2782,24 @@ def _zoo_train_run(name, batches, device, dtype):
     return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
-def _zoo_cli(tool, args):
+def _tool_cli(tool, args):
     """``python -m fvd_tpu_torch.tools.<tool>`` on the card in a fresh
-    interpreter -> (seconds, its summary, stdout)."""
+    interpreter -> (seconds, {part: its summary line's JSON}, stdout)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", f"fvd_tpu_torch.tools.{tool}"] + args, cwd=REPO,
                           env=_subprocess_env(), capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     check(proc.returncode == 0, f"{tool} {args}: rc {proc.returncode}: {proc.stderr[-3000:]}")
     check(proc.stdout.startswith("device: cuda"), f"{tool} did not run on the card: {proc.stdout[:300]}")
-    line = next((ln for ln in proc.stdout.splitlines() if " summary {" in ln), None)
-    check(line is not None, f"{tool}: no summary line: {proc.stdout[-2000:]}")
-    return seconds, json.loads(line.split(" summary ", 1)[1]), proc.stdout
+    summaries = {ln.split(" ", 1)[0].strip("[]"): json.loads(ln.split(" summary ", 1)[1])
+                 for ln in proc.stdout.splitlines() if " summary {" in ln}
+    check(bool(summaries), f"{tool}: no summary line: {proc.stdout[-2000:]}")
+    return seconds, summaries, proc.stdout
+
+
+def _summary_timing(r):
+    """A tool summary's steps, times, rates, losses and eval."""
+    return {k: r[k] for k in r if k.endswith(("_ms", "_per_s", "_s")) or k.startswith(("loss", "eval", "steps"))}
 
 
 def zoo_train_phase():
@@ -2793,12 +2826,14 @@ def zoo_train_phase():
         asr_npz, text_npz = os.path.join(tmp, "asr_formant.npz"), os.path.join(tmp, "text_encoder.npz")
         asr_args = ["--batch", str(ZOO_TRAIN_BATCH["asr"]), "--dim", "192", "--depth", "4", "--domain",
                     "formant_hard", "--out", asr_npz]
-        runs = {"asr": _zoo_cli("pretrain_asr", ["--steps", str(ZOO_CLI_STEPS)] + asr_args),
-                "text": _zoo_cli("pretrain_text_encoder", ["--steps", str(ZOO_CLI_STEPS), "--out", text_npz])}
+        runs = {"asr": _tool_cli("pretrain_asr", ["--steps", str(ZOO_CLI_STEPS)] + asr_args),
+                "text": _tool_cli("pretrain_text_encoder", ["--steps", str(ZOO_CLI_STEPS), "--out", text_npz])}
+        runs = {name: (r[0], r[1][name], r[2]) for name, r in runs.items()}
         for name, (_, r, _) in runs.items():
             check(r["steps"] == ZOO_CLI_STEPS and r["loss_last"] < r["loss_first"],
                   f"zoo_train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
-        resume_s, resumed, stdout = _zoo_cli("pretrain_asr", ["--steps", str(ZOO_RESUME_STEPS), "--resume"] + asr_args)
+        resume_s, resumed, stdout = _tool_cli("pretrain_asr", ["--steps", str(ZOO_RESUME_STEPS), "--resume"] + asr_args)
+        resumed = resumed["asr"]
         check(f"resumed params from {asr_npz}" in stdout and resumed["steps"] == ZOO_RESUME_STEPS
               and resumed["loss_first"] < runs["asr"][1]["loss_first"],
               f"zoo_train: --resume did not continue from the trained weights: {stdout[:1000]}")
@@ -2822,8 +2857,7 @@ def zoo_train_phase():
               f"zoo_train: text encoder card vs CPU |d| {emb_d}")
         ranks = (emb["cuda"] @ emb["cuda"].T).argsort(axis=1)[:, ::-1][:, 1].tolist()
 
-    timing = {name: {k: r[k] for k in r if k.endswith(("_ms", "_per_s", "_s")) or k.startswith(("loss", "eval"))}
-              for name, (_, r, _) in runs.items()}
+    timing = {name: _summary_timing(r) for name, (_, r, _) in runs.items()}
     phase("zoo_train", nvidia_smi=SMI_LINE, batch=ZOO_TRAIN_BATCH, data_s=data_s, parity=parity,
           f32_loss_tol=TRAIN_F32_LOSS_TOL, f64_tol=TRAIN_F64_TOL, cli_steps=ZOO_CLI_STEPS,
           cli_s={name: r[0] for name, r in runs.items()}, timing=timing, resume_s=resume_s,
@@ -3055,9 +3089,161 @@ def corpus_phase():
             + result["d_calibrate"]["lipsync_score_launches"])
 
 
+#: the text phase: the OCR and CLIP trainers and the held-out evaluation.
+#: Data draws are timed at the tools' batch; card against CPU at the shipped
+#: recognizer and CLIP geometries and the v2 detector at width 32 (batch 8:
+#: float64 convolutions at 256x256 on the CPU); the tools 20 steps
+TEXT_BATCH = 32
+TEXT_PARITY_BATCH = {"rec": 32, "det_v2": 8, "clip": 32}
+TEXT_LR = {"rec": 1e-3, "det_v2": 1e-3, "clip": 3e-4}
+TEXT_CLI_STEPS = 20
+TEXT_RESUME_STEPS = 5
+TEXT_EVAL_N = 16
+#: the held-out evaluation on the card against the CPU: the recognizer's
+#: exact-match rate and character accuracy within one line of 16, the v2
+#: detector's mask IoU (bfloat16: pixels near the threshold may flip)
+TEXT_EVAL_OCR_TOL, TEXT_EVAL_IOU_TOL = 1.0 / TEXT_EVAL_N, 0.01
+#: the floor of ``tests/test_models.py::test_ocr_detector_heldout_font_floor``
+#: (n 16, seed 19: ``eval_ocr_det``'s held-out column)
+TEXT_HELDOUT_IOU_FLOOR = 0.85
+
+
+def _text_train_batches(names=("rec", "det_v2", "clip")):
+    """Three batches of each text trainer from the port's generators (seeds
+    0-2; the second augmented where the generator can)."""
+    from fvd_tpu_torch.models.encoders import MAX_TEXT_LEN
+    from fvd_tpu_torch.models.synthetic_text import detector_batch, recognizer_batch
+    from fvd_tpu_torch.models.transformer import ByteTokenizer
+    from fvd_tpu_torch.tools.pretrain_clip import clip_batch
+
+    tok, out = ByteTokenizer(), {}
+    for name in names:
+        b = TEXT_PARITY_BATCH[name]
+        draw = {"rec": lambda r, aug: recognizer_batch(r, b, augment=aug)[:2],
+                "det_v2": lambda r, aug: detector_batch(r, b, augment=aug),
+                "clip": lambda r, aug: clip_batch(r, b, tok, MAX_TEXT_LEN)[:2]}[name]
+        out[name] = [draw(np.random.RandomState(s), s == 1) for s in range(TRAIN_STEPS)]
+    return out
+
+
+def _text_train_run(name, batches, device, dtype):
+    """The text trainer ``name`` (the tools' seeded recognizer at width 32,
+    v2 detector at width 32 computing in ``dtype``, CLIP at 128 / 4) for one
+    Adam step per batch on ``device`` in ``dtype`` -> (losses, step-0
+    gradients, final parameters), the last two on the CPU."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import encoders, ocr
+    from fvd_tpu_torch.models.layers import adam, adam_step
+
+    model, loss_fn = {"rec": lambda: (weights.seeded(ocr.CTCRecognizer(32), 0), ocr.ctc_loss),
+                      "det_v2": lambda: (weights.seeded(ocr.TextRegionNetV2(32, compute_dtype=dtype), 1),
+                                         ocr.detector_loss),
+                      "clip": lambda: (weights.seeded(encoders.ClipModel(128, 4, 128), 0), encoders.clip_loss)}[name]()
+    model.to(device, dtype)
+    opt, losses, grads = adam(model, TEXT_LR[name]), [], None
+    for b in batches:
+        args = [torch.as_tensor(x, device=device, dtype=dtype if np.asarray(x).dtype.kind == "f" else torch.long)
+                for x in b]
+        losses.append(adam_step(loss_fn, model, opt, *args))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def text_phase():
+    """The OCR and CLIP trainers and the held-out evaluation on the card:
+    (a) the host data draws timed at the tools' batch, (b) card against CPU
+    over three Adam steps in float64 for the recognizer, the v2 detector and
+    CLIP, (c) ``pretrain_ocr`` (both parts, v2 at the shipped width 128) and
+    ``pretrain_clip`` at the shipped geometries in subprocesses, then
+    ``pretrain_ocr --only rec --resume`` in this process, (d) ``eval_heldout``
+    over all five models on the shipped checkpoints in a subprocess, the OCR
+    columns against the CPU."""
+    import torch
+
+    from fvd_tpu_torch.models.synthetic_text import detector_batch, recognizer_batch
+    from fvd_tpu_torch.tools import eval_heldout, pretrain_ocr
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "text: TF32 must stay off for the card-vs-CPU bars")
+    result = {"nvidia_smi": SMI_LINE, "cut": {"cli_steps": TEXT_CLI_STEPS, "resume_steps": TEXT_RESUME_STEPS,
+                                              "eval_n": TEXT_EVAL_N}}
+    draw_ms = {}
+    for what, fn in (("rec", lambda r: recognizer_batch(r, TEXT_BATCH)),
+                     ("rec_augment", lambda r: recognizer_batch(r, TEXT_BATCH, augment=True)),
+                     ("det", lambda r: detector_batch(r, TEXT_BATCH))):
+        t0 = time.perf_counter()
+        fn(np.random.RandomState(0))
+        draw_ms[what] = (time.perf_counter() - t0) * 1e3
+    result["a_draw_ms_per_batch"] = draw_ms
+
+    t0 = time.perf_counter()
+    batches = _text_train_batches()
+    result["b_data_s"] = time.perf_counter() - t0
+    result["b_parity"] = _train_parity(batches, run=_text_train_run, tags=("f64",),
+                                       zero_grad=lambda name, grads: tuple(k for k in grads if k.endswith("key.bias")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ocr_dir, clip_npz = os.path.join(tmp, "ocr"), os.path.join(tmp, "clip", "clip.npz")
+        common = ["--batch", str(TEXT_BATCH), "--out-dir", ocr_dir]
+        runs = {"ocr": _tool_cli("pretrain_ocr", ["--steps", str(TEXT_CLI_STEPS), "--det-steps", str(TEXT_CLI_STEPS),
+                                                  "--det-arch", "v2"] + common),
+                "clip": _tool_cli("pretrain_clip", ["--steps", str(TEXT_CLI_STEPS), "--batch", str(TEXT_BATCH),
+                                                    "--dim", "128", "--depth", "4", "--out", clip_npz])}
+        parts = {**runs["ocr"][1], **runs["clip"][1]}
+        check(set(parts) == {"rec", "det", "clip"}, f"text: summaries {sorted(parts)}")
+        for name, r in parts.items():
+            check(r["steps"] == TEXT_CLI_STEPS and r["loss_last"] < r["loss_first"], f"text {name}: summary {r}")
+        with open(os.path.join(ocr_dir, "ocr_det.json")) as f:
+            sidecar = json.load(f)
+        check(sidecar == {"arch": "v2", "width": 128}, f"text: ocr_det.json {sidecar}")
+        with open(clip_npz.replace(".npz", ".json")) as f:
+            clip_meta = json.load(f)
+        check(np.isfinite([clip_meta["cal_offset"], clip_meta["cal_scale"]]).all(), f"text: clip.json {clip_meta}")
+        # the resume in this process: a fresh interpreter costs ~20 s here
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resumed = pretrain_ocr.main(["--only", "rec", "--resume", "--steps", str(TEXT_RESUME_STEPS)] + common)
+        resume_s, stdout = time.perf_counter() - t0, out.getvalue()
+        rec_npz = os.path.join(ocr_dir, "ocr_rec.npz")
+        check(f"resumed params from {rec_npz}" in stdout and resumed["rec"]["steps"] == TEXT_RESUME_STEPS
+              and resumed["rec"]["loss_first"] < parts["rec"]["loss_first"],
+              f"text: --resume did not continue from the trained weights: {stdout[:1000]}")
+        result["c_cli_s"] = {name: r[0] for name, r in runs.items()}
+        result["c_timing"] = {name: _summary_timing(r) for name, r in parts.items()}
+        result["c_eval_lines"] = [ln for name in ("ocr", "clip") for ln in runs[name][2].splitlines()
+                                  if " eval" in ln]
+        result["c_resume"] = {"s": resume_s, "loss": [resumed["rec"]["loss_first"], resumed["rec"]["loss_last"]]}
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.eval_heldout", "--n", str(TEXT_EVAL_N)],
+                          cwd=REPO, env=_subprocess_env(), capture_output=True, text=True, timeout=600)
+    result["d_eval_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0 and proc.stdout.startswith("device: cuda"),
+          f"eval_heldout: rc {proc.returncode}: {proc.stdout[:300]} {proc.stderr[-3000:]}")
+    card = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()[1:]}
+    check(set(card) == set(eval_heldout.EVALS), f"eval_heldout printed {sorted(card)}")
+    check(all(np.isfinite([r["in_domain"], r["held_out"]]).all() for r in card.values()), f"eval_heldout: {card}")
+    t0 = time.perf_counter()
+    cpu = {name: eval_heldout.EVALS[name](TEXT_EVAL_N, device="cpu") for name in ("ocr", "ocr_det")}
+    result["d_cpu_ocr_s"] = time.perf_counter() - t0
+    for name, keys, tol in (("ocr", ("in_domain", "held_out", "char_in_domain", "char_held_out"), TEXT_EVAL_OCR_TOL),
+                            ("ocr_det", ("in_domain", "held_out"), TEXT_EVAL_IOU_TOL)):
+        for k in keys:
+            check(abs(card[name][k] - cpu[name][k]) <= tol, f"eval_heldout {name} {k}: card {card[name][k]}, "
+                                                           f"CPU {cpu[name][k]}")
+    check(card["ocr_det"]["held_out"] >= TEXT_HELDOUT_IOU_FLOOR,
+          f"eval_heldout: held-out-font detection IoU {card['ocr_det']['held_out']}")
+    result["d_eval"] = {"card": card, "cpu": cpu}
+    phase("text", **result)
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train", "corpus")
+          "parallel", "train", "net", "zoo_train", "corpus", "text")
 
 
 def main(argv=None) -> int:
@@ -3082,14 +3268,14 @@ def main(argv=None) -> int:
     build_s = build_phase()
     entry_row = kernel_phase()
     # each phase that drives a main path returns its C1 launches (net's DAG
-    # runs among them); the model zoo, the HF models and the trainers launch
-    # no kernel of the repo's, and the CLI's launches happen in its own
-    # processes and are not counted here
+    # runs among them); the model zoo, the HF models, the trainers and the
+    # held-out evaluation launch no kernel of the repo's, and the CLI's
+    # launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
-                 "zoo_train": zoo_train_phase}
+                 "zoo_train": zoo_train_phase, "text": text_phase}
     launches = 0
     for name in PHASES:
         if name in counted and name in only:

@@ -20,7 +20,7 @@ after the flax auto-names, so the npz checkpoints load through
 the caller's dtype, as its flax module does (``dtype=jnp.bfloat16``), adding
 each conv's bias after the conv's rounding as flax does; the v1 detector and
 the recognizer compute in float32.  :func:`ctc_loss` is the recognizer's
-training loss.
+training loss and :func:`detector_loss` the detectors'.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, in_dtype
+from fvd_tpu_torch.models.layers import SameConv2d
 from fvd_tpu_torch.ops.image import resize
 from fvd_tpu_torch.parallel.inference import shard_for_inference
 
@@ -83,11 +83,17 @@ class TextRegionNet(nn.Module):
 class TextRegionNetV2(nn.Module):
     """The v2 U-Net (space-to-depth 4x4 input, bf16 convs at 128/256
     channels, a depth-to-space head): float NHWC [B, H, W, 3] in 0..1, H and
-    W multiples of 16 -> float32 logits [B, H, W]."""
+    W multiples of 16 -> float32 logits [B, H, W].
 
-    def __init__(self, width: int = 128):
+    ``compute_dtype`` is flax's ``dtype=jnp.bfloat16``: the input and each
+    conv's weights are cast to it inside the forward, differentiably, so
+    training updates the float32 parameters as optax does.  Another dtype
+    (float64 for parity checks) computes the same graph in it."""
+
+    def __init__(self, width: int = 128, compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         w = width
+        self.compute_dtype = compute_dtype
         self.Conv_0 = SameConv2d(48, w, 3)
         self.Conv_1 = SameConv2d(w, 2 * w, 3)
         self.Conv_2 = SameConv2d(2 * w, 2 * w, 3)
@@ -96,26 +102,27 @@ class TextRegionNetV2(nn.Module):
         self.Conv_5 = SameConv2d(w, 16, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        net = in_dtype(self, torch.bfloat16)
+        dt = self.compute_dtype
         b, h, wd, c = x.shape
-        x = x.to(torch.bfloat16)
+        x = x.to(dt)
         # space-to-depth: channel (dy, dx, c), as the flax reshape/transpose
         x = x.reshape(b, h // 4, 4, wd // 4, 4, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h // 4, wd // 4, 16 * c)
         x = x.permute(0, 3, 1, 2)
-        d1 = F.relu(_conv_then_bias(net.Conv_0, x))                                  # H/4, w
-        d2 = F.relu(_conv_then_bias(net.Conv_1, _pool2(d1)))                         # H/8, 2w
-        d3 = F.relu(_conv_then_bias(net.Conv_2, _pool2(d2)))                         # H/16, 2w
-        u2 = F.relu(_conv_then_bias(net.Conv_3, torch.cat([_up2(d3), d2], dim=1)))   # H/8, w
-        u1 = F.relu(_conv_then_bias(net.Conv_4, torch.cat([_up2(u2), d1], dim=1)))   # H/4, w
-        out = _conv_then_bias(net.Conv_5, u1).float()                                # 4x4 subpixels
+        d1 = F.relu(_conv_then_bias(self.Conv_0, x, dt))                                  # H/4, w
+        d2 = F.relu(_conv_then_bias(self.Conv_1, _pool2(d1), dt))                         # H/8, 2w
+        d3 = F.relu(_conv_then_bias(self.Conv_2, _pool2(d2), dt))                         # H/16, 2w
+        u2 = F.relu(_conv_then_bias(self.Conv_3, torch.cat([_up2(d3), d2], dim=1), dt))   # H/8, w
+        u1 = F.relu(_conv_then_bias(self.Conv_4, torch.cat([_up2(u2), d1], dim=1), dt))   # H/4, w
+        out = _conv_then_bias(self.Conv_5, u1, dt)                                        # 4x4 subpixels
+        out = out.to(torch.promote_types(out.dtype, torch.float32))
         out = out.permute(0, 2, 3, 1).reshape(b, h // 4, wd // 4, 4, 4)
         return out.permute(0, 1, 3, 2, 4).reshape(b, h, wd)
 
 
-def _conv_then_bias(conv: SameConv2d, x: torch.Tensor) -> torch.Tensor:
+def _conv_then_bias(conv: SameConv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax's conv with a reduced-precision dtype: the conv rounded to the
     dtype, then the bias added in it."""
-    return F.conv2d(conv.pad_same(x), conv.weight) + conv.bias[:, None, None]
+    return F.conv2d(conv.pad_same(x), conv.weight.to(dtype)) + conv.bias.to(dtype)[:, None, None]
 
 
 DET_ARCHS = {"v1": TextRegionNet, "v2": TextRegionNetV2}
@@ -180,6 +187,19 @@ def ctc_loss(model: CTCRecognizer, images: torch.Tensor, labels: torch.Tensor, l
     input_lengths = torch.full((b,), t, dtype=torch.long, device=logits.device)
     nll = F.ctc_loss(logp, labels.long(), input_lengths, target_lengths, blank=CTC_BLANK, reduction="none")
     return nll.mean()
+
+
+def detector_loss(model: nn.Module, images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Mean per-pixel binary cross-entropy of the detector's logits against
+    the text ``masks`` [B, H, W], in the JAX tool's stable form
+    ``max(z, 0) - z * m + log1p(exp(-|z|))``, with JAX's derivatives at
+    ``z == 0`` (a pixel whose features are all dead has the bias alone for
+    logit, 0 at the seeded init): ``jnp.maximum`` splits the gradient, as
+    ``torch.maximum`` does, and ``jnp.abs`` takes slope 1 there, where
+    ``torch.abs`` takes 0."""
+    z = model(images)
+    abs_z = torch.where(z >= 0, z, -z)
+    return (torch.maximum(z, torch.zeros_like(z)) - z * masks + torch.log1p(torch.exp(-abs_z))).mean()
 
 
 @torch.no_grad()

@@ -23,7 +23,7 @@ import numpy as np
 
 from fvd_tpu_torch.models.face_ssd import MEAN_RGB, anchors
 from fvd_tpu_torch.ops import detection
-from fvd_tpu_torch.synthetic import TEMPLATE_68, _box_blur5, draw_face
+from fvd_tpu_torch.synthetic import TEMPLATE_68, draw_face
 from fvd_tpu_torch.utils import cv, draw
 
 __all__ = ["TEMPLATE_68", "draw_face", "render_face", "detector_batch", "landmark_batch"]
@@ -76,7 +76,7 @@ def render_face(
         img = np.ascontiguousarray(img)
     else:
         # blurred noise texture
-        img = _box_blur5((rng.rand(size, size, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
+        img = cv.blur_u8((rng.rand(size, size, 3) * 60 + rng.rand(3) * 120).astype(np.uint8), 5)
 
     if augment:
         fw = rng.uniform(0.22, 0.62) * size

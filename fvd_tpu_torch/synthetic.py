@@ -26,7 +26,7 @@ import numpy as np
 
 from fvd_tpu_torch.providers.media import write_video
 from fvd_tpu_torch.providers.vision import FaceBox
-from fvd_tpu_torch.utils import draw
+from fvd_tpu_torch.utils import cv, draw
 from fvd_tpu_torch.utils.wav import write_wav
 
 
@@ -131,14 +131,6 @@ def draw_face(img: np.ndarray, cx: float, cy: float, fw: float, fh: float, skin:
     fill_ellipse(img, mouth_c, (max(2, int(fw * 0.16)), mouth_ry), (120, 40, 40))
     polyline(img, pts[27:31].astype(np.int32), max(1, int(fw * 0.015)), dark)  # nose
     return pts.astype(np.float32)
-
-
-def _box_blur5(img: np.ndarray) -> np.ndarray:
-    """5x5 mean with mirrored borders (``cv2.blur(img, (5, 5))``)."""
-    pad = np.pad(img.astype(np.float32), ((2, 2), (2, 2), (0, 0)), mode="reflect")
-    h, w = img.shape[:2]
-    acc = sum(pad[dy:dy + h, dx:dx + w] for dy in range(5) for dx in range(5))
-    return np.round(acc / 25.0).astype(np.uint8)
 
 
 TONE_ALPHABET = "abcdefghijklmnopqrstuvwxyz "
@@ -469,7 +461,7 @@ def make_face_video(
         skin = np.array([rng.randint(130, 255), rng.randint(100, 210), rng.randint(80, 200)])
         fw = fh / 1.52  # eccentricity outside the training [1.1, 1.4]
     else:
-        background = _box_blur5((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8))
+        background = cv.blur_u8((rng.rand(height, width, 3) * 60 + rng.rand(3) * 120).astype(np.uint8), 5)
         skin = np.array([rng.randint(160, 230), rng.randint(120, 190), rng.randint(100, 170)])
         fw = fh / 1.25
     n = int(fps * duration)

@@ -30,6 +30,22 @@ host, for a machine without OpenCV.
 * :func:`perspective_transform` is ``cv2.getPerspectiveTransform``: the same
   8x8 system, solved by LAPACK instead of OpenCV's own LU (the matrices
   agree to rounding; the warps of ``synthetic_pose`` come out bit-equal).
+* :func:`warp_affine_f32` is ``cv2.warpAffine(img, M, (w, h),
+  borderMode=cv2.BORDER_REPLICATE)`` on float32: the same map and blend as
+  the uint8 warp without the final rounding, bit for bit on the OCR's
+  ``[32, 256]`` lines.
+* :func:`blur_u8` is ``cv2.blur(img, (k, k))`` on uint8: the integer window
+  sum over ``BORDER_REFLECT_101``, divided by ``k * k`` and rounded (no ties
+  for odd ``k``), bit for bit.
+* :func:`gaussian_blur3_f32` is ``cv2.GaussianBlur(img, (3, 3), sigma)`` on
+  float32: the float32 kernel of ``cv2.getGaussianKernel``, a row pass
+  ``fma(k0, centre, k1 * (left + right))`` and a column pass
+  ``fma(k1, up + down, k0 * centre)`` as OpenCV's vector filters order
+  them, over ``BORDER_REFLECT_101``; bit for bit on ``[32, 256]``.
+* :func:`dilate2_f32` and :func:`erode2_f32` are ``cv2.dilate`` and
+  ``cv2.erode`` with ``np.ones((2, 2))``: the anchor at (1, 1), so each
+  output takes the max (min) of itself and its upper and left neighbours,
+  and taps outside the image are ignored; exact.
 """
 
 from __future__ import annotations
@@ -157,10 +173,10 @@ def _fma32(a, b, c) -> np.ndarray:
             + np.asarray(c, np.float32)).astype(np.float32)
 
 
-def _remap_linear_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, replicate: bool) -> np.ndarray:
-    """Bilinear sampling of uint8 ``img`` at float32 source coordinates
-    ``sx``, ``sy`` [h, w]: taps outside the image read 0, or the nearest edge
-    pixel when ``replicate``."""
+def _remap_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, replicate: bool) -> np.ndarray:
+    """Bilinear sampling of ``img`` at float32 source coordinates ``sx``,
+    ``sy`` [h, w], in float32 before any rounding: taps outside the image
+    read 0, or the nearest edge pixel when ``replicate``."""
     h, w = img.shape[:2]
     ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
     ax = (sx - ix.astype(np.float32))[..., None]
@@ -177,8 +193,12 @@ def _remap_linear_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, replicate:
     p00, p01, p10, p11 = tap(iy, ix), tap(iy, ix + 1), tap(iy + 1, ix), tap(iy + 1, ix + 1)
     top = _fma32(ax, p01 - p00, p00)
     bottom = _fma32(ax, p11 - p10, p10)
-    out = np.clip(np.rint(_fma32(ay, bottom - top, top)), 0, 255).astype(np.uint8)
-    return out.reshape(sx.shape + img.shape[2:])
+    return _fma32(ay, bottom - top, top).reshape(sx.shape + img.shape[2:])
+
+
+def _remap_linear_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, replicate: bool) -> np.ndarray:
+    """:func:`_remap_linear` of a uint8 image, rounded half to even."""
+    return np.clip(np.rint(_remap_linear(img, sx, sy, replicate)), 0, 255).astype(np.uint8)
 
 
 def _map_row(m0: np.float32, m1: np.float32, m2: np.float32, width: int, height: int) -> np.ndarray:
@@ -188,9 +208,9 @@ def _map_row(m0: np.float32, m1: np.float32, m2: np.float32, width: int, height:
     return _fma32(np.full_like(xx, m0), xx, m1 * yy + m2)
 
 
-def warp_affine_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
-    """``cv2.warpAffine(img, M, (width, height), flags=cv2.INTER_LINEAR)``
-    for a uint8 image, with a constant 0 border."""
+def _affine_maps(M: np.ndarray, width: int, height: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The float32 source coordinates of ``cv2.warpAffine``'s output grid:
+    ``M`` inverted in double, then each row in float32."""
     m = np.asarray(M, np.float64).ravel().copy()
     d = m[0] * m[4] - m[1] * m[3]
     d = 1.0 / d if d != 0 else 0.0
@@ -198,8 +218,76 @@ def warp_affine_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> n
     m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
     m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
     m = m.astype(np.float32)
-    return _remap_linear_u8(img, _map_row(m[0], m[1], m[2], width, height),
-                            _map_row(m[3], m[4], m[5], width, height), replicate=False)
+    return _map_row(m[0], m[1], m[2], width, height), _map_row(m[3], m[4], m[5], width, height)
+
+
+def warp_affine_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.warpAffine(img, M, (width, height), flags=cv2.INTER_LINEAR)``
+    for a uint8 image, with a constant 0 border."""
+    return _remap_linear_u8(img, *_affine_maps(M, width, height), replicate=False)
+
+
+def warp_affine_f32(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.warpAffine(img, M, (width, height),
+    borderMode=cv2.BORDER_REPLICATE)`` (INTER_LINEAR) for a float32 image."""
+    return _remap_linear(np.asarray(img, np.float32), *_affine_maps(M, width, height), replicate=True)
+
+
+def _reflect101(img: np.ndarray, r: int) -> np.ndarray:
+    """``img`` padded by ``r`` on both spatial axes with
+    ``BORDER_REFLECT_101`` (numpy's ``reflect``)."""
+    return np.pad(img, ((r, r), (r, r)) + ((0, 0),) * (img.ndim - 2), mode="reflect")
+
+
+def blur_u8(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.blur(img, (k, k))`` for a uint8 image and odd ``k``, bit for
+    bit."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or k % 2 != 1:
+        raise ValueError(f"blur_u8 takes uint8 and an odd window, got {img.dtype} and {k}")
+    h, w = img.shape[:2]
+    p = _reflect101(img.astype(np.int32), k // 2)
+    # window sums from running sums along each axis (exact in int32)
+    c = np.cumsum(p, axis=1, dtype=np.int32)
+    rows = c[:, k - 1:].copy()
+    rows[:, 1:] -= c[:, :w - 1]
+    c = np.cumsum(rows, axis=0, dtype=np.int32)
+    acc = c[k - 1:].copy()
+    acc[1:] -= c[:h - 1]
+    return ((2 * acc + k * k) // (2 * k * k)).astype(np.uint8)
+
+
+def gaussian_kernel3_f32(sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel(3, sigma, cv2.CV_32F)``: [k1, k0, k1]."""
+    t = np.exp(-0.5 / (sigma * sigma) * np.array([1.0, 0.0, 1.0]))
+    return (t / t.sum()).astype(np.float32)
+
+
+def gaussian_blur3_f32(img: np.ndarray, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (3, 3), sigma)`` for a float32 ``[H, W]``
+    image."""
+    k1, k0, _ = gaussian_kernel3_f32(sigma)
+    p = _reflect101(np.asarray(img, np.float32), 1)
+    h, w = img.shape[:2]
+    rows = _fma32(k0, p[:, 1:w + 1], (p[:, 0:w] + p[:, 2:w + 2]) * k1)
+    return _fma32(k1, rows[0:h] + rows[2:h + 2], rows[1:h + 1] * k0)
+
+
+def _morph2(img: np.ndarray, op, fill: float) -> np.ndarray:
+    x = np.asarray(img, np.float32)
+    p = np.pad(x, ((1, 0), (1, 0)) + ((0, 0),) * (x.ndim - 2), constant_values=fill)
+    h, w = x.shape[:2]
+    return op(op(p[:h, :w], p[:h, 1:]), op(p[1:, :w], p[1:, 1:]))
+
+
+def dilate2_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.dilate(img, np.ones((2, 2), np.uint8))`` for float32."""
+    return _morph2(img, np.maximum, -np.inf)
+
+
+def erode2_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.erode(img, np.ones((2, 2), np.uint8))`` for float32."""
+    return _morph2(img, np.minimum, np.inf)
 
 
 def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:

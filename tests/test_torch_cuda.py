@@ -838,3 +838,29 @@ def test_texture_noise_clip_on_card_matches_cpu(cuda, tmp_path):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     assert runs["cuda"]["launches"] == 1
     cs._batch_compare(runs["cuda"]["finals"], runs["cpu"]["finals"], "texture_noise clip, card vs CPU")
+
+
+# ------------------------------------------------- the OCR and CLIP trainers
+@pytest.mark.parametrize("name", ["rec", "det_v2"])
+def test_text_train_step_on_card_matches_cpu(cuda, name):
+    """One Adam step of the recognizer's ``ctc_loss`` (width 32, batch 32)
+    and the v2 detector's BCE (width 32, batch 8, computing in float64) on
+    ``chip_smoke.py``'s text batches, card against CPU in float64: the loss,
+    every gradient and every updated parameter within 1e-8 relative L2."""
+    cs = _chip_smoke()
+    batch = cs._text_train_batches((name,))[name][:1]
+    card, cpu = (cs._text_train_run(name, batch, d, torch.float64) for d in ("cuda", "cpu"))
+    assert abs(card[0][0] - cpu[0][0]) <= cs.TRAIN_F64_TOL * abs(cpu[0][0])
+    for side in (1, 2):
+        assert cs._worst_rel(card[side], cpu[side])[0] <= cs.TRAIN_F64_TOL
+
+
+def test_eval_ocr_det_on_card_matches_cpu(cuda):
+    """``eval_heldout.eval_ocr_det`` at n 4 on the shipped v2 detector:
+    the card's mask IoUs within the text phase's bar of the CPU's."""
+    from fvd_tpu_torch.tools.eval_heldout import eval_ocr_det
+
+    cs = _chip_smoke()
+    card, cpu = eval_ocr_det(4, device="cuda"), eval_ocr_det(4, device="cpu")
+    for k in ("in_domain", "held_out"):
+        assert np.isfinite(card[k]) and abs(card[k] - cpu[k]) <= cs.TEXT_EVAL_IOU_TOL, (k, card[k], cpu[k])

@@ -59,7 +59,10 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.tools.pretrain_synthetic", "fvd_tpu_torch.tools.pretrain_asr",
             "fvd_tpu_torch.tools.pretrain_text_encoder", "fvd_tpu_torch.models.synthetic_speech",
             "fvd_tpu_torch.providers.loopback", "fvd_tpu_torch.tools.make_labeled_corpus",
-            "fvd_tpu_torch.tools.accuracy_trajectory", "fvd_tpu_torch.tools.calibrate_lr"} <= set(mods)
+            "fvd_tpu_torch.tools.accuracy_trajectory", "fvd_tpu_torch.tools.calibrate_lr",
+            "fvd_tpu_torch.utils.text", "fvd_tpu_torch.models.synthetic_text", "fvd_tpu_torch.tools.pretrain_ocr",
+            "fvd_tpu_torch.tools.pretrain_clip", "fvd_tpu_torch.tools.eval_heldout",
+            "fvd_tpu_torch.tools.make_text_atlas"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
@@ -88,7 +91,10 @@ def test_no_source_names_the_jax_package():
             text = f.read()
         for pat in (names_pkg, imports_jax):
             offenders += [f"{os.path.relpath(path, ROOT)}: {m.group(0)!r}" for m in pat.finditer(text)]
-    assert not offenders, offenders
+    # the glyph atlas' generator measures OpenCV itself, inside its main()
+    # (the module imports without cv2, as the first test shows)
+    allowed = [f"{os.path.join('fvd_tpu_torch', 'tools', 'make_text_atlas.py')}: '    import cv2'"]
+    assert sorted(offenders) == allowed, offenders
 
 
 def test_default_device_is_the_card():
