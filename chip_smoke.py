@@ -167,14 +167,16 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              port's batches (seeds 0-2), in float32 (TF32 off; the first
              step's loss) and float64 (every step's loss, the first step's
              gradients and the last parameters per tensor); (b) the tool in a
-             subprocess on the card, ``--steps 50 --consistency``, then
-             ``--only det --resume --steps 10``, which must continue from
-             step 50: per trainer the median host data ms and device ms of a
+             subprocess on the card, ``--steps 30 --consistency``, then in
+             this process ``--only det --resume --steps 10``, which must
+             continue from step 30: per trainer the median host data ms and device ms of a
              step (CUDA events), images/s, the first and last loss (the last
              must be lower) and the eval metric; (c) the npz files it wrote
              served by ``SSDFaceDetector`` and ``FANLandmarks`` (with the
-             pose head) on the card.  Training launches no kernel of the
-             repo's;
+             pose head) on the card; (d) the tool in this process with the
+             realism levers, ``--dense --photometric --shading --portrait
+             --augment --steps 3``, writing its checkpoints.  Training
+             launches no kernel of the repo's;
 17. net      the production bundle with ``use_llm=True, use_search=True``:
              ``OpenAILLM`` and the cached Serper -> Google CSE -> DuckDuckGo
              chain, their endpoints, ``OPENAI_BASE_URL`` and dummy keys
@@ -198,7 +200,8 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``clip_loss`` (``clip.npz``, batch 32) and ``ctc_loss``
              (``ocr_rec.npz``, batch 32), card against CPU in float32 and
              float64 as in ``train``; (b) each tool for 50 steps in a
-             subprocess on the card, then ``pretrain_asr --resume --steps
+             subprocess on the card, then in this process ``pretrain_asr
+             --resume --steps
              10``: the summaries' data and device ms a step, items/s, losses
              and evals; (c) the npz files served by ``JaxASR`` and
              ``JaxTextEncoder`` on the card;
@@ -221,10 +224,33 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``calibrate_lr.main`` on 1 real, 2 fakes and 1 hard real of 5 s
              for training and again for validation: the accuracies, the
              vector (its sign constraints hold), one C1 launch per clip, and
-             ``--refit-from-meta`` giving the same vector exactly.
+             ``--refit-from-meta`` giving the same vector exactly;
+20. text     the OCR and CLIP trainers and the held-out evaluation: (a) a
+             batch of 32 recognizer lines and detector scenes drawn on the
+             host; (b) three Adam steps of the recognizer, the v2 detector
+             and CLIP, card against CPU in float64; (c) ``pretrain_ocr`` and
+             ``pretrain_clip`` in subprocesses, then ``pretrain_ocr --only
+             rec --resume``; (d) ``eval_heldout`` over the five shipped
+             models, its OCR columns against the CPU;
+21. fan      the reference-scale FAN trainer and ``PoseResNet50``: (a) the
+             host ms to draw one batch of 16 of ``detector_batch`` with
+             ``dense`` and every realism lever at 300 px and of
+             ``pretrain_fan``'s ``landmark_batch`` at 256 px; (b) three steps
+             of ``pretrain_fan``'s loss and clipped AdamW (width 32, 2
+             stacks, the tool's 256-px crops), card against CPU in float64;
+             (c) ``pretrain_fan.main`` at the full geometry (width 256, 4
+             stacks, batch 16, bfloat16 on float32 parameters) from seeded
+             weights for ``FAN_CLI_STEPS`` steps and its paired evaluation
+             against ``checkpoints/landmarks.npz``: the summary's data and
+             device ms a step, crops/s, losses and both errors, and a
+             ``torch.profiler`` view of one step (top kernels); (d)
+             ``PoseResNet50`` at 224 px: ms a call at batch 16 in bfloat16
+             and float32, card f32 against CPU f32 on 4 crops, card bf16
+             against card f32.  The FAN trainer launches no kernel of the
+             repo's.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-19 alone.  Then one JSON line with every kernel's numbers, the card's
+4-21 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -1703,10 +1729,11 @@ BATCH_SENTENCES = (
     "the team won the final game by six points",
     "the museum opened a wing for modern art",
 )
-#: the batch phase's cuts: bench.py's clips are 30 s; (d)'s profiled passes
-#: and (e)'s CLI take 4 of the 8 clips (they paid for the text phase)
+#: the batch phase's cuts: bench.py's clips are 30 s; (e)'s CLI takes 4 of
+#: the 8 clips (it paid for the text phase), (d)'s profiled passes 2 (they
+#: pay for the fan phase)
 BATCH_CLIP_SECONDS, BENCH_CLIP_SECONDS = 10.0, 30.0
-BATCH_PROFILE_CLIPS = BATCH_CLI_CLIPS = 4
+BATCH_PROFILE_CLIPS, BATCH_CLI_CLIPS = 2, 4
 #: every LR feature and the probability, coalesced against alone and card
 #: against CPU, all f32: the bars of tests/test_torch_full_dag.py
 BATCH_FEATURE_TOL, BATCH_PROB_TOL = 1e-4, 1e-5
@@ -2386,8 +2413,11 @@ TRAIN_ZERO_GRAD = {"lmk": ("Conv_1.bias",)}
 TRAIN_ZERO_GRAD_TOL = 1e-12
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3
-TRAIN_CLI_STEPS = 50
+TRAIN_CLI_STEPS = 30
 TRAIN_RESUME_STEPS = 10
+#: the realism levers' run of the tool (the JAX tool's flags)
+TRAIN_LEVERS = ["--dense", "--photometric", "--shading", "--portrait", "--augment"]
+TRAIN_LEVER_STEPS = 3
 
 
 def _train_batches():
@@ -2502,13 +2532,15 @@ def _train_cli(out_dir, extra):
 
 def train_phase():
     """The vision trainers: (a) card against CPU from the same weights and
-    batches, (b) the tool on the card in a subprocess, then ``--resume``, (c)
+    batches, (b) the tool on the card in a subprocess, then ``--resume`` in
+    this process, (c)
     the npz files it wrote served by the providers on the card."""
     import torch
 
     from fvd_tpu_torch.models.face_ssd import MEAN_RGB, SSDFaceDetector
     from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
     from fvd_tpu_torch.models.synthetic_faces import detector_batch
+    from fvd_tpu_torch.tools import pretrain_synthetic
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "train: TF32 must stay off for the card-vs-CPU bars")
@@ -2523,7 +2555,13 @@ def train_phase():
         for name, r in runs.items():
             check(r["steps"] == TRAIN_CLI_STEPS and r["loss_last"] < r["loss_first"],
                   f"train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
-        resume_s, resumed, stdout = _train_cli(tmp, ["--only", "det", "--resume", "--steps", str(TRAIN_RESUME_STEPS)])
+        # the resume in this process: a fresh interpreter costs ~20 s here
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resumed = pretrain_synthetic.main(["--only", "det", "--resume", "--steps", str(TRAIN_RESUME_STEPS),
+                                               "--batch", str(TRAIN_BATCH), "--out-dir", tmp])
+        resume_s, stdout = time.perf_counter() - t0, out.getvalue()
         check(resumed["det"]["start_step"] == TRAIN_CLI_STEPS
               and f"resumed train state at step {TRAIN_CLI_STEPS}" in stdout,
               f"train: --resume did not continue from step {TRAIN_CLI_STEPS}: {stdout[:1000]}")
@@ -2548,13 +2586,25 @@ def train_phase():
         served = {"faces": [len(f) for f in faces], "top_scores": [f[0].confidence if f else 0.0 for f in faces],
                   "landmark_sets": [len(f) for f in lm], "poses": [len(f) for f in poses]}
 
+        # (d) the realism levers, in this process
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            levers = pretrain_synthetic.main(TRAIN_LEVERS + ["--steps", str(TRAIN_LEVER_STEPS), "--batch",
+                                                             str(TRAIN_BATCH), "--out-dir", os.path.join(tmp, "lev")])
+        levers_s = time.perf_counter() - t0
+        check(set(levers) == {"det", "lmk", "pose"} and all(r["steps"] == TRAIN_LEVER_STEPS for r in levers.values())
+              and all(os.path.exists(os.path.join(tmp, "lev", f)) for f in ("face_ssd.npz", "landmarks.npz", "pose.npz")),
+              f"train: the lever run gave {levers}")
+
     timing = {name: {k: r[k] for k in ("data_ms", "step_ms", "images_per_s", "loop_s", "loss_first", "loss_last")}
               for name, r in runs.items()}
     evals = {name: {k: v for k, v in r.items() if k.startswith(("eval", "consistency"))} for name, r in runs.items()}
     phase("train", nvidia_smi=SMI_LINE, batch=TRAIN_BATCH, widths=32, data_s=data_s, parity=parity,
           f32_loss_tol=TRAIN_F32_LOSS_TOL, f64_tol=TRAIN_F64_TOL, cli_steps=TRAIN_CLI_STEPS, cli_s=cli_s,
           timing=timing, eval=evals, resume_s=resume_s, resumed_from=resumed["det"]["start_step"],
-          resumed_loss=[resumed["det"]["loss_first"], resumed["det"]["loss_last"]], served=served)
+          resumed_loss=[resumed["det"]["loss_first"], resumed["det"]["loss_last"]], served=served,
+          levers={"argv": TRAIN_LEVERS, "steps": TRAIN_LEVER_STEPS, "s": levers_s,
+                  "timing": {name: _summary_timing(r) for name, r in levers.items()}})
 
 
 #: the net phase: a 10 s clip of the zoo bundle's speech through the 16 nodes,
@@ -2805,13 +2855,15 @@ def _summary_timing(r):
 def zoo_train_phase():
     """The ASR and text-encoder trainers and the zoo's losses: (a) card
     against CPU from the same weights and batches, (b) the two tools on the
-    card in subprocesses, then ``pretrain_asr --resume``, (c) the npz files
-    they wrote served by ``JaxASR`` and ``JaxTextEncoder`` on the card."""
+    card in subprocesses, then ``pretrain_asr --resume`` in this process,
+    (c) the npz files they wrote served by ``JaxASR`` and ``JaxTextEncoder``
+    on the card."""
     import torch
 
     from fvd_tpu_torch.models.asr import JaxASR
     from fvd_tpu_torch.models.encoders import JaxTextEncoder
     from fvd_tpu_torch.models.synthetic_speech import formant_speech
+    from fvd_tpu_torch.tools import pretrain_asr
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "zoo_train: TF32 must stay off for the card-vs-CPU bars")
@@ -2832,8 +2884,12 @@ def zoo_train_phase():
         for name, (_, r, _) in runs.items():
             check(r["steps"] == ZOO_CLI_STEPS and r["loss_last"] < r["loss_first"],
                   f"zoo_train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
-        resume_s, resumed, stdout = _tool_cli("pretrain_asr", ["--steps", str(ZOO_RESUME_STEPS), "--resume"] + asr_args)
-        resumed = resumed["asr"]
+        # the resume in this process: a fresh interpreter costs ~20 s here
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            resumed = pretrain_asr.main(["--steps", str(ZOO_RESUME_STEPS), "--resume"] + asr_args)
+        resume_s, stdout = time.perf_counter() - t0, out.getvalue()
         check(f"resumed params from {asr_npz}" in stdout and resumed["steps"] == ZOO_RESUME_STEPS
               and resumed["loss_first"] < runs["asr"][1]["loss_first"],
               f"zoo_train: --resume did not continue from the trained weights: {stdout[:1000]}")
@@ -3241,9 +3297,161 @@ def text_phase():
     phase("text", **result)
 
 
+#: the fan phase: (b)'s chain, the CPU test's (``tests/test_torch_pretrain_fan.py``)
+#: at the tool's 256-px crops, so that the first steps clip and move the weights
+FAN_PARITY = {"width": 32, "stacks": 2, "batch": 2, "lr": 1e-2, "warmup": 2}
+#: the host-bound tool loop at the full geometry: a handful of steps
+FAN_CLI_STEPS = 6
+FAN_DATA_BATCH = POSE50_BATCH = 16
+POSE50_CPU_BATCH = 4
+#: PoseResNet50 card f32 against CPU f32 (TF32 off): 16 GroupNorm'd
+#: bottlenecks to a 6D output of |d6| ~ 1 (the CPU test's bar against flax)
+POSE50_TOL = 1e-4
+
+
+def _fan_batches():
+    """Three batches of ``pretrain_fan``'s data (seeds 0-2) at (b)'s size."""
+    from fvd_tpu_torch.models.synthetic_faces import landmark_batch
+    from fvd_tpu_torch.tools.pretrain_fan import TRAIN_DATA
+
+    return {"fan": [landmark_batch(np.random.RandomState(s), FAN_PARITY["batch"], **TRAIN_DATA)
+                    for s in range(TRAIN_STEPS)]}
+
+
+def _fan_train_run(name, batches, device, dtype):
+    """``pretrain_fan``'s loss and clipped AdamW on its warmup-cosine
+    schedule at ``FAN_PARITY`` from seeded weights, one step per batch on
+    ``device`` in ``dtype`` -> (losses, the first step's clipped
+    gradients, final parameters), the last two on the CPU."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarkNet
+    from fvd_tpu_torch.models.optim import adamw_warmup_cosine, clipped_adamw_step
+    from fvd_tpu_torch.tools.pretrain_fan import fan_loss
+
+    model = weights.seeded(FANLandmarkNet(FAN_PARITY["width"], FAN_PARITY["stacks"]), 0).to(device, dtype)
+    opt, sched = adamw_warmup_cosine(model, FAN_PARITY["lr"], FAN_PARITY["warmup"], len(batches))
+    losses, grads = [], None
+    for b in batches:
+        losses.append(clipped_adamw_step(fan_loss, model, opt, sched,
+                                         *(torch.as_tensor(np.asarray(x), dtype=dtype, device=device) for x in b)))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _tiny_grads(name, grads):
+    """The tensors whose gradient is zero in exact arithmetic, by their
+    size against the whole (the last heatmap bias; conv biases ahead of a
+    GroupNorm of one channel per group)."""
+    total = sum(float(g.double().pow(2).sum()) for g in grads.values()) ** 0.5
+    return tuple(k for k, g in grads.items() if float(g.double().norm()) <= TRAIN_ZERO_GRAD_TOL * total)
+
+
+def _pose50_outputs(device, dtype, crops):
+    """``PoseResNet50`` from seeded weights computing in ``dtype`` on
+    ``device`` -> (the model, its 6D output of ``crops`` on the CPU)."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models.landmarks_fan import PoseResNet50
+
+    model = weights.seeded(PoseResNet50(compute_dtype=dtype), 0).to(device).eval()
+    with torch.no_grad():
+        return model, model(torch.from_numpy(crops).to(device)).float().cpu().numpy()
+
+
+def fan_phase():
+    """The face-data realism levers' host cost, ``pretrain_fan`` and
+    ``PoseResNet50`` on the card."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarkNet
+    from fvd_tpu_torch.models.optim import adamw_warmup_cosine, clipped_adamw_step
+    from fvd_tpu_torch.models.synthetic_faces import detector_batch, landmark_batch
+    from fvd_tpu_torch.tools import pretrain_fan
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "fan: TF32 must stay off for the card-vs-CPU bars")
+    result = {"nvidia_smi": SMI_LINE, "cut": {"cli_steps": FAN_CLI_STEPS, "parity": FAN_PARITY}}
+    draw_ms = {}
+    for what, fn in (("detector_dense_all_levers_300", lambda r: detector_batch(
+                         r, FAN_DATA_BATCH, augment=True, photometric=True, dense=True, shaded=True, portrait=True)),
+                     ("landmark_fan_256", lambda r: landmark_batch(r, FAN_DATA_BATCH, **pretrain_fan.TRAIN_DATA))):
+        t0 = time.perf_counter()
+        fn(np.random.RandomState(0))
+        draw_ms[what] = (time.perf_counter() - t0) * 1e3
+    result["a_draw_ms_per_batch"] = draw_ms
+
+    t0 = time.perf_counter()
+    batches = _fan_batches()
+    result["b_data_s"] = time.perf_counter() - t0
+    result["b_parity"] = _train_parity(batches, run=_fan_train_run, tags=("f64",), zero_grad=_tiny_grads)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(REPO, "checkpoints", "landmarks.npz"), os.path.join(tmp, "landmarks.npz"))
+        out = os.path.join(tmp, "fan_landmarks.npz")
+        t0 = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            summary = pretrain_fan.main(["--steps", str(FAN_CLI_STEPS), "--batch", str(FAN_DATA_BATCH), "--out", out])
+        result["c_s"] = time.perf_counter() - t0
+        lines = stdout.getvalue().splitlines()
+        check(lines[0].startswith("device: cuda") and "FAN-geometry params: 12.2M" in lines[1],
+              f"pretrain_fan: {lines[:2]}")
+        check(summary["steps"] == FAN_CLI_STEPS and np.isfinite([summary["loss_first"], summary["loss_last"]]).all(),
+              f"pretrain_fan: summary {summary}")
+        paired = summary["paired_eval_pct_crop"]
+        check(all(np.isfinite(v) for split in paired.values() for v in split.values())
+              and paired["clean"]["shipped_128px"] < 3.0,
+              f"pretrain_fan: paired evaluation {paired}")
+        with open(out.replace(".npz", ".json")) as f:
+            check(json.load(f)["paired_eval_pct_crop"] == paired, "pretrain_fan: the sidecar's paired evaluation")
+        result["c_summary"] = summary
+        result["c_lines"] = [ln for ln in lines if ln.startswith(("[fan] step", "  "))]
+
+    # (c) where a step's device time goes: one step of the tool's model,
+    # chain and batch size under the profiler, after two to warm up
+    model = weights.seeded(FANLandmarkNet(compute_dtype=torch.bfloat16), 0).cuda()
+    opt, sched = adamw_warmup_cosine(model, 3e-4, 200, 3000)
+    batch = [torch.from_numpy(x).cuda() for x in landmark_batch(np.random.RandomState(0), FAN_DATA_BATCH,
+                                                                  **pretrain_fan.TRAIN_DATA)]
+
+    def step():
+        return clipped_adamw_step(pretrain_fan.fan_loss, model, opt, sched, *batch)
+
+    step(), step()
+    result["c_step_profile"] = _profile_top_kernels(step, (), calls=1)
+    del model, opt, sched, batch
+
+    rng = np.random.RandomState(0)
+    crops = rng.rand(POSE50_BATCH, 224, 224, 3).astype(np.float32)
+    pose = {}
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", None)):
+        model, pose[tag] = _pose50_outputs("cuda", dt, crops)
+        x = torch.from_numpy(crops).cuda()
+
+        def call(model=model, x=x):
+            with torch.no_grad():
+                return model(x)
+
+        pose[f"{tag}_row"] = _model_row(call)
+        del model
+    _, cpu = _pose50_outputs("cpu", None, crops[:POSE50_CPU_BATCH])
+    gap = float(np.abs(pose["f32"][:POSE50_CPU_BATCH] - cpu).max())
+    check(gap <= POSE50_TOL and np.isfinite(pose["bf16"]).all(), f"PoseResNet50 card f32 vs CPU f32: {gap}")
+    result["d_pose50"] = {"batch": POSE50_BATCH, "bf16": pose["bf16_row"], "f32": pose["f32_row"],
+                          "card_f32_vs_cpu_f32_max_abs": gap, "cpu_batch": POSE50_CPU_BATCH,
+                          "card_bf16_vs_card_f32_max_abs": float(np.abs(pose["bf16"] - pose["f32"]).max()),
+                          "tolerance": POSE50_TOL}
+    phase("fan", **result)
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train", "corpus", "text")
+          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan")
 
 
 def main(argv=None) -> int:
@@ -3275,7 +3483,7 @@ def main(argv=None) -> int:
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
-                 "zoo_train": zoo_train_phase, "text": text_phase}
+                 "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase}
     launches = 0
     for name in PHASES:
         if name in counted and name in only:

@@ -4,7 +4,7 @@ counterpart of ``ResBlock``, ``Hourglass``, ``LandmarkHourglass``,
 ``euler_from_matrix_deg``, ``_device_crops``, ``landmarks_from_frames``,
 ``pose_from_frames``, ``landmarks_pose_from_frames``, ``_pad_bucket``,
 ``_marshal_boxes``, the ``FANLandmarks`` provider and the reference-scale
-``Bottleneck``, ``HourglassB`` and ``FANLandmarkNet`` (forward only) in
+``Bottleneck``, ``HourglassB``, ``FANLandmarkNet`` and ``PoseResNet50`` in
 ``fvd_tpu/models/landmarks_fan.py``.  The hourglass and the pose head run
 their crop batches through :func:`~fvd_tpu_torch.parallel.inference.shard_for_inference`,
 so an installed inference mesh splits them over its devices.
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d, adam, adam_step, group_norm, in_dtype
+from fvd_tpu_torch.models.layers import (SameConv2d, adam, adam_step, conv_in_dtype, group_norm,
+                                         group_norm_in_dtype, in_dtype, same_pads)
 from fvd_tpu_torch.ops.image import resize, scale_and_translate
 from fvd_tpu_torch.parallel.inference import shard_for_inference
 
@@ -489,17 +490,21 @@ def pose_forward(pose_model: PoseHead, crops: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Reference-scale vision models (FAN geometry), forward only
+# Reference-scale vision models (FAN and ResNet-50 geometry)
 # ---------------------------------------------------------------------------
 FAN_CROP_SIZE = 256
 FAN_HEATMAP_SIZE = 64
+
+
+def _gn_relu(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.relu(group_norm_in_dtype(gn, x))
 
 
 class Bottleneck(nn.Module):
     """Pre-activation 1x1-3x3-1x1 bottleneck residual; ``mid`` defaults to
     ``features // 4`` (the FAN hourglass passes ``features // 2``).  A 1x1
     projection ``Conv_3`` carries the residual where the width or the stride
-    changes."""
+    changes.  It computes in its input's dtype (flax's ``dtype=``)."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, mid: Optional[int] = None):
         super().__init__()
@@ -514,10 +519,10 @@ class Bottleneck(nn.Module):
             self.Conv_3 = nn.Conv2d(in_ch, features, 1, stride=stride)
 
     def forward(self, x):
-        y = self.Conv_0(F.relu(self.GroupNorm_0(x)))
-        y = self.Conv_1(F.relu(self.GroupNorm_1(y)))
-        y = self.Conv_2(F.relu(self.GroupNorm_2(y)))
-        return y + (self.Conv_3(x) if hasattr(self, "Conv_3") else x)
+        y = conv_in_dtype(self.Conv_0, _gn_relu(self.GroupNorm_0, x))
+        y = conv_in_dtype(self.Conv_1, _gn_relu(self.GroupNorm_1, y))
+        y = conv_in_dtype(self.Conv_2, _gn_relu(self.GroupNorm_2, y))
+        return y + (conv_in_dtype(self.Conv_3, x) if hasattr(self, "Conv_3") else x)
 
 
 class HourglassB(nn.Module):
@@ -548,11 +553,18 @@ class FANLandmarkNet(nn.Module):
     hourglasses, NHWC crops [B, 256, 256, 3] -> the LAST stack's heatmaps
     NHWC [B, 64, 64, 68] (:func:`decode_heatmaps` applies unchanged).
     Submodules carry flax's auto-names in its call order, so a flax tree
-    loads through :func:`fvd_tpu_torch.weights.to_state_dict`."""
+    loads through :func:`fvd_tpu_torch.weights.to_state_dict`.
 
-    def __init__(self, width: int = 256, n_stacks: int = 4):
+    ``compute_dtype`` is flax's ``dtype=``: the crops and every weight are
+    cast to it inside the forward (bfloat16 on float32 parameters, as the
+    JAX trainer runs it), the GroupNorm statistics stay float32, and the
+    heatmaps come back in float32 (float64 where it computes in float64).
+    ``None`` computes in the parameters' dtype."""
+
+    def __init__(self, width: int = 256, n_stacks: int = 4, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_stacks = n_stacks
+        self.compute_dtype = compute_dtype
         self.Conv_0 = SameConv2d(3, 64, 7, stride=2)
         self.GroupNorm_0 = group_norm(64)
         self.Bottleneck_0 = Bottleneck(64, 128)
@@ -575,15 +587,52 @@ class FANLandmarkNet(nn.Module):
             self.heads.append(names)
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))                     # 128
-        x = F.max_pool2d(self.Bottleneck_0(x), 2, 2)                    # 64
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype or self.Conv_0.weight.dtype)
+        x = _gn_relu(self.GroupNorm_0, conv_in_dtype(self.Conv_0, x))        # 128
+        x = F.max_pool2d(self.Bottleneck_0(x), 2, 2)                         # 64
         x = self.Bottleneck_1(x)
         hm = None
         for s, names in enumerate(self.heads):
             y = getattr(self, f"Bottleneck_{2 + s}")(getattr(self, f"HourglassB_{s}")(x))
-            y = F.relu(getattr(self, f"GroupNorm_{1 + s}")(getattr(self, names[0])(y)))
-            hm = getattr(self, names[1])(y)
+            y = _gn_relu(getattr(self, f"GroupNorm_{1 + s}"), conv_in_dtype(getattr(self, names[0]), y))
+            hm = conv_in_dtype(getattr(self, names[1]), y)
             if len(names) == 4:
-                x = x + getattr(self, names[2])(y) + getattr(self, names[3])(hm)
-        return hm.permute(0, 2, 3, 1)
+                x = x + conv_in_dtype(getattr(self, names[2]), y) + conv_in_dtype(getattr(self, names[3]), hm)
+        return hm.permute(0, 2, 3, 1).to(torch.promote_types(hm.dtype, torch.float32))
+
+
+#: (features, blocks, stride) of the four ResNet-50 stages
+POSE50_STAGES = ((256, 3, 1), (512, 4, 2), (1024, 6, 2), (2048, 3, 2))
+
+
+class PoseResNet50(nn.Module):
+    """ResNet-50-scale 6D pose backbone (SixDRepNet's backbone class): NHWC
+    crops [B, 224, 224, 3] -> 6D rotation [B, 6].  A 7x7/2 conv with
+    GroupNorm and ReLU, a 3x3/2 max-pool padded as flax's ``SAME`` (with
+    -inf), ``[3, 4, 6, 3]`` :class:`Bottleneck` stages at 256/512/1024/2048
+    with strides 1, 2, 2, 2, a float32 spatial mean and ``Dense(6)``.
+    ``compute_dtype`` as :class:`FANLandmarkNet`'s; the head is float32."""
+
+    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.Conv_0 = SameConv2d(3, 64, 7, stride=2)
+        self.GroupNorm_0 = group_norm(64)
+        in_ch, i = 64, 0
+        for ch, blocks, stride in POSE50_STAGES:
+            for b in range(blocks):
+                setattr(self, f"Bottleneck_{i}", Bottleneck(in_ch, ch, stride=stride if b == 0 else 1))
+                in_ch, i = ch, i + 1
+        self.n_blocks = i
+        self.Dense_0 = nn.Linear(in_ch, 6)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype or self.Conv_0.weight.dtype)
+        x = _gn_relu(self.GroupNorm_0, conv_in_dtype(self.Conv_0, x))
+        top, bottom = same_pads(x.shape[-2], 3, 2)
+        left, right = same_pads(x.shape[-1], 3, 2)
+        x = F.max_pool2d(F.pad(x, (left, right, top, bottom), value=float("-inf")), 3, 2)
+        for i in range(self.n_blocks):
+            x = getattr(self, f"Bottleneck_{i}")(x)
+        x = x.to(torch.promote_types(x.dtype, torch.float32)).mean(dim=(2, 3))
+        return F.linear(x, self.Dense_0.weight.to(x.dtype), self.Dense_0.bias.to(x.dtype))

@@ -9,6 +9,10 @@
   torch defaults to 1e-5.
 * :func:`in_dtype` is the model with every parameter cast to the compute
   dtype, as the reference casts its params tree inside each jitted forward.
+* :func:`conv_in_dtype` and :func:`group_norm_in_dtype` are flax's ``Conv``
+  and ``GroupNorm`` with ``dtype=`` (bfloat16 on float32 parameters): the
+  weights cast to the input's dtype inside the forward, differentiably, so
+  training updates the float32 parameters as optax does.
 * :func:`adam` is ``optax.adam`` as a ``torch.optim.Adam`` and
   :func:`adam_step` one ``value_and_grad`` + update of a train step.
 """
@@ -83,6 +87,23 @@ class SameConv1d(nn.Conv1d):
 
 def group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(8, channels, eps=1e-6)
+
+
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """flax's conv computing in ``x``'s dtype: the convolution with the
+    weights cast to it, rounded to it, then the bias added in it."""
+    if isinstance(conv, SameConv2d):
+        x = conv.pad_same(x)
+    dt = x.dtype
+    return F.conv2d(x, conv.weight.to(dt), None, conv.stride, conv.padding) + conv.bias.to(dt)[:, None, None]
+
+
+def group_norm_in_dtype(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``GroupNorm`` with ``dtype`` ``x.dtype``: the statistics and the
+    normalisation in float32 (float64 for float64), the result in ``x``'s
+    dtype."""
+    st = torch.promote_types(x.dtype, torch.float32)
+    return F.group_norm(x.to(st), gn.num_groups, gn.weight.to(st), gn.bias.to(st), gn.eps).to(x.dtype)
 
 
 def adam(model: nn.Module, lr: float = 1e-3) -> torch.optim.Adam:

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from fvd_tpu_torch import resolve_device
 from fvd_tpu_torch import weights as weights_mod
-from fvd_tpu_torch.models.layers import SameConv2d
+from fvd_tpu_torch.models.layers import SameConv2d, conv_in_dtype
 from fvd_tpu_torch.ops.image import resize
 from fvd_tpu_torch.parallel.inference import shard_for_inference
 
@@ -102,27 +102,20 @@ class TextRegionNetV2(nn.Module):
         self.Conv_5 = SameConv2d(w, 16, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
         b, h, wd, c = x.shape
-        x = x.to(dt)
+        x = x.to(self.compute_dtype)
         # space-to-depth: channel (dy, dx, c), as the flax reshape/transpose
         x = x.reshape(b, h // 4, 4, wd // 4, 4, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h // 4, wd // 4, 16 * c)
         x = x.permute(0, 3, 1, 2)
-        d1 = F.relu(_conv_then_bias(self.Conv_0, x, dt))                                  # H/4, w
-        d2 = F.relu(_conv_then_bias(self.Conv_1, _pool2(d1), dt))                         # H/8, 2w
-        d3 = F.relu(_conv_then_bias(self.Conv_2, _pool2(d2), dt))                         # H/16, 2w
-        u2 = F.relu(_conv_then_bias(self.Conv_3, torch.cat([_up2(d3), d2], dim=1), dt))   # H/8, w
-        u1 = F.relu(_conv_then_bias(self.Conv_4, torch.cat([_up2(u2), d1], dim=1), dt))   # H/4, w
-        out = _conv_then_bias(self.Conv_5, u1, dt)                                        # 4x4 subpixels
+        d1 = F.relu(conv_in_dtype(self.Conv_0, x))                                   # H/4, w
+        d2 = F.relu(conv_in_dtype(self.Conv_1, _pool2(d1)))                          # H/8, 2w
+        d3 = F.relu(conv_in_dtype(self.Conv_2, _pool2(d2)))                          # H/16, 2w
+        u2 = F.relu(conv_in_dtype(self.Conv_3, torch.cat([_up2(d3), d2], dim=1)))    # H/8, w
+        u1 = F.relu(conv_in_dtype(self.Conv_4, torch.cat([_up2(u2), d1], dim=1)))    # H/4, w
+        out = conv_in_dtype(self.Conv_5, u1)                                         # 4x4 subpixels
         out = out.to(torch.promote_types(out.dtype, torch.float32))
         out = out.permute(0, 2, 3, 1).reshape(b, h // 4, wd // 4, 4, 4)
         return out.permute(0, 1, 3, 2, 4).reshape(b, h, wd)
-
-
-def _conv_then_bias(conv: SameConv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax's conv with a reduced-precision dtype: the conv rounded to the
-    dtype, then the bias added in it."""
-    return F.conv2d(conv.pad_same(x), conv.weight.to(dtype)) + conv.bias.to(dtype)[:, None, None]
 
 
 DET_ARCHS = {"v1": TextRegionNet, "v2": TextRegionNetV2}

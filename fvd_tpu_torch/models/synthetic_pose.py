@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 
 from fvd_tpu_torch.models.landmarks_fan import CROP_SIZE
-from fvd_tpu_torch.models.synthetic_faces import _occluders, refuse_levers, render_face
+from fvd_tpu_torch.models.synthetic_faces import _occluders, photometric_randomize, render_face
 from fvd_tpu_torch.utils import cv, draw
 
 
@@ -59,15 +59,19 @@ def pose_batch(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (crops float32 [B, 128, 128, 3] in 0..1, R [B, 3, 3], euler degrees
     [B, 3]).  ``augment`` renders the even samples augmented, every fourth
-    one ``hard``, or all of them with ``hard_half``."""
-    refuse_levers(photometric=photometric, shaded=shaded, portrait=portrait)
+    one ``hard``, or all of them with ``hard_half``; ``photometric``
+    randomises the augmented ones, ``portrait`` draws on them, and
+    ``shaded`` shades all but every fourth sample."""
     crops = np.zeros((batch, CROP_SIZE, CROP_SIZE, 3), np.float32)
     Rs = np.zeros((batch, 3, 3), np.float64)
     eulers = np.zeros((batch, 3), np.float64)
     for i in range(batch):
         aug_i = augment and i % 2 == 0
         img, box, _ = render_face(rng, 192, augment=aug_i,
-                                  hard=aug_i if hard_half else (augment and i % 4 == 0))
+                                  hard=aug_i if hard_half else (augment and i % 4 == 0),
+                                  shaded=shaded and i % 4 != 3, portrait=portrait and aug_i)
+        if photometric and aug_i:
+            img = photometric_randomize(img, rng)
         face = _face_crop(img, box, 192)
         pitch = rng.uniform(-max_angle, max_angle)
         yaw = rng.uniform(-max_angle, max_angle)
@@ -112,15 +116,17 @@ def pose_batch_paired(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (crops A, crops B float32 [B, 128, 128, 3] in 0..1, R [B, 3, 3]):
     the same face under the same rotation, A clean and B with accessory
-    strokes, for the pose consistency loss."""
-    refuse_levers(photometric=photometric, shaded=shaded)
+    strokes, for the pose consistency loss.  ``shaded`` shades a face with
+    probability 3/4, ``photometric`` randomises B with probability 1/2."""
     size = 192
     cropsA = np.zeros((batch, CROP_SIZE, CROP_SIZE, 3), np.float32)
     cropsB = np.zeros((batch, CROP_SIZE, CROP_SIZE, 3), np.float32)
     Rs = np.zeros((batch, 3, 3), np.float64)
     for i in range(batch):
-        img, box, pts = render_face(rng, size)
+        img, box, pts = render_face(rng, size, shaded=shaded and rng.rand() < 0.75)
         imgB = _accessory_pass(img, box, pts, rng, size)
+        if photometric and rng.rand() < 0.5:
+            imgB = photometric_randomize(imgB, rng)
         R = euler_to_matrix(*rng.uniform(-max_angle, max_angle, 3))
         for crops, src in ((cropsA, img), (cropsB, imgB)):
             crops[i] = warp_by_rotation(_face_crop(src, box, size), R).astype(np.float32) / 255.0

@@ -53,7 +53,7 @@ def _augment_line(rng: np.random.RandomState, line: np.ndarray) -> np.ndarray:
     if rng.rand() < 0.5:  # stroke width: dilate or erode one step
         img = cv.dilate2_f32(img) if rng.rand() < 0.5 else cv.erode2_f32(img)
     if rng.rand() < 0.5:
-        img = cv.gaussian_blur3_f32(img, rng.uniform(0.3, 1.0))
+        img = cv.gaussian_blur_f32(img, 3, rng.uniform(0.3, 1.0))
     if rng.rand() < 0.5:  # contrast/gamma jitter
         img = np.clip(img ** rng.uniform(0.7, 1.4) * rng.uniform(0.8, 1.2), 0, 1)
     if rng.rand() < 0.3:

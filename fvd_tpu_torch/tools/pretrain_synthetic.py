@@ -10,8 +10,8 @@ its flags and defaults: ``face_ssd.npz``, ``landmarks.npz`` and ``pose.npz``
 ``<out-dir>/train_state_det`` (saved every 500 steps and at the end,
 continued by ``--resume``).  It runs on the card unless ``--cpu`` is given,
 and raises where there is none.  The realism levers ``--photometric``,
-``--shading``, ``--portrait`` and ``--dense`` are not ported yet and exit
-with a message.
+``--shading`` and ``--portrait`` and the detector's ``--dense`` mixture go
+to the generators as the JAX tool passes them.
 
 After each trainer one line ``[det] summary {...}`` (``lmk``, ``pose``)
 gives, as JSON: the steps, the median host data ms and device ms of a step
@@ -26,7 +26,6 @@ import argparse
 import json
 import os
 import statistics
-import sys
 import time
 
 import numpy as np
@@ -36,13 +35,9 @@ from fvd_tpu_torch import resolve_device, weights
 from fvd_tpu_torch.models import face_ssd, landmarks_fan
 from fvd_tpu_torch.models.checkpointing import load_train_state, save_train_state
 from fvd_tpu_torch.models.layers import adam, adam_step
-from fvd_tpu_torch.models.synthetic_faces import LEVERS_TODO, detector_batch, landmark_batch
+from fvd_tpu_torch.models.synthetic_faces import detector_batch, landmark_batch
 from fvd_tpu_torch.models.synthetic_pose import pose_batch, pose_batch_paired
 from fvd_tpu_torch.ops import detection
-
-#: the JAX tool's flags that the port refuses until the realism levers land
-LEVER_FLAGS = ("photometric", "shading", "portrait", "dense")
-
 
 class StepTimer:
     """Host data ms and device step ms of each step; on the card the step is
@@ -93,7 +88,9 @@ def _to(device, *arrays):
 
 
 def train_detector(steps: int, batch: int, width: int, out: str, device, seed: int = 0,
-                   resume: bool = False, lr: float = 1e-3, augment: bool = False) -> dict:
+                   resume: bool = False, lr: float = 1e-3, augment: bool = False,
+                   photometric: bool = False, dense: bool = False, shading: bool = False,
+                   portrait: bool = False) -> dict:
     rng = np.random.RandomState(seed)
     model = weights.seeded(face_ssd.FaceSSD(width), seed).to(device)
     step_fn, init_opt = face_ssd.make_train_step(lr=lr)
@@ -112,7 +109,8 @@ def train_detector(steps: int, batch: int, width: int, out: str, device, seed: i
     timer, losses = StepTimer(device), []
     t0 = time.perf_counter()
     for i in range(start_step, start_step + steps):
-        frames, labels, locs, _ = timer.data(detector_batch, rng, batch, augment=augment)
+        frames, labels, locs, _ = timer.data(detector_batch, rng, batch, augment=augment, photometric=photometric,
+                                             dense=dense, shaded=shading, portrait=portrait)
         loss = timer.step(lambda: step_fn(model, opt, *_to(device, frames, labels, locs)))
         losses.append(loss)
         if i % 50 == 0 or i == start_step + steps - 1:
@@ -139,7 +137,8 @@ def train_detector(steps: int, batch: int, width: int, out: str, device, seed: i
 
 def train_landmarks(steps: int, batch: int, width: int, out: str, device, seed: int = 1,
                     resume: bool = False, lr: float = 1e-3, augment: bool = False,
-                    hard_half: bool = False) -> dict:
+                    photometric: bool = False, shading: bool = False, hard_half: bool = False,
+                    portrait: bool = False) -> dict:
     rng = np.random.RandomState(seed)
     model = weights.seeded(landmarks_fan.LandmarkHourglass(width), seed).to(device)
     if resume and os.path.exists(out):
@@ -151,7 +150,8 @@ def train_landmarks(steps: int, batch: int, width: int, out: str, device, seed: 
     timer, losses = StepTimer(device), []
     t0 = time.perf_counter()
     for i in range(steps):
-        crops, targets = timer.data(landmark_batch, rng, batch, augment=augment, hard_half=hard_half)
+        crops, targets = timer.data(landmark_batch, rng, batch, augment=augment, photometric=photometric,
+                                    shaded=shading, hard_half=hard_half, portrait=portrait)
         loss = timer.step(lambda: step_fn(model, opt, *_to(device, crops, targets)))
         losses.append(loss)
         if i % 50 == 0 or i == steps - 1:
@@ -171,7 +171,8 @@ def train_landmarks(steps: int, batch: int, width: int, out: str, device, seed: 
 
 def train_pose(steps: int, batch: int, width: int, out: str, device, seed: int = 2,
                resume: bool = False, lr: float = 1e-3, augment: bool = False,
-               hard_half: bool = False, consistency: bool = False) -> dict:
+               photometric: bool = False, shading: bool = False, hard_half: bool = False,
+               portrait: bool = False, consistency: bool = False) -> dict:
     rng = np.random.RandomState(seed)
     model = weights.seeded(landmarks_fan.PoseHead(width), seed).to(device)
     if resume and os.path.exists(out):
@@ -185,12 +186,14 @@ def train_pose(steps: int, batch: int, width: int, out: str, device, seed: int =
     t0 = time.perf_counter()
     for i in range(steps):
         if consistency and i % 2 == 1:
-            ca, cb, Rs = timer.data(pose_batch_paired, rng, max(batch // 2, 4))
+            ca, cb, Rs = timer.data(pose_batch_paired, rng, max(batch // 2, 4), photometric=photometric,
+                                    shaded=shading)
             closses.append(timer.step(lambda: adam_step(landmarks_fan.pose_consistency_loss, model, opt,
                                                         *_to(device, ca, cb, Rs))))
             images += 2 * len(ca)
             continue
-        crops, Rs, _ = timer.data(pose_batch, rng, batch, augment=augment, hard_half=hard_half)
+        crops, Rs, _ = timer.data(pose_batch, rng, batch, augment=augment, photometric=photometric,
+                                  shaded=shading, hard_half=hard_half, portrait=portrait)
         loss = timer.step(lambda: adam_step(landmarks_fan.pose_loss, model, opt, *_to(device, crops, Rs)))
         losses.append(loss)
         images += len(crops)
@@ -230,21 +233,27 @@ def main(argv=None):
                     help="pose: odd steps train on clean/accessory pairs with the divergence penalty")
     ap.add_argument("--augment", action="store_true",
                     help="robustness augmentations on half of each batch (a quarter hard)")
-    for flag in LEVER_FLAGS:
-        ap.add_argument(f"--{flag}", action="store_true", help=f"not ported yet ({LEVERS_TODO})")
+    ap.add_argument("--dense", action="store_true",
+                    help="det: 3/4 of each batch augmented, half of it hard, every augmented sample photometric")
+    ap.add_argument("--photometric", action="store_true",
+                    help="lighting ramp, white balance, motion blur, noise, desaturation and JPEG on the "
+                         "augmented samples")
+    ap.add_argument("--portrait", action="store_true",
+                    help="hair, jaw, hat band, eye and mouth detail and background clutter")
+    ap.add_argument("--shading", action="store_true",
+                    help="rim and directional shading, skin mottling, sheen and a feathered face edge on 3/4 "
+                         "of each batch")
     ap.add_argument("--cpu", action="store_true", help="train on the CPU instead of the card")
     args = ap.parse_args(argv)
-    refused = [f"--{f}" for f in LEVER_FLAGS if getattr(args, f)]
-    if refused:
-        sys.exit(f"pretrain_synthetic: {', '.join(refused)} not ported yet; see {LEVERS_TODO}")
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    common = dict(resume=args.resume, lr=args.lr, augment=args.augment)
+    common = dict(resume=args.resume, lr=args.lr, augment=args.augment, photometric=args.photometric,
+                  shading=args.shading, portrait=args.portrait)
     out = {}
     if args.only in (None, "det"):
         out["det"] = train_detector(args.steps, args.batch, args.det_width,
-                                    os.path.join(args.out_dir, "face_ssd.npz"), device, **common)
+                                    os.path.join(args.out_dir, "face_ssd.npz"), device, dense=args.dense, **common)
         print("[det] summary " + json.dumps(out["det"]), flush=True)
     if args.only in (None, "lmk"):
         out["lmk"] = train_landmarks(args.steps, args.batch, args.lmk_width,

@@ -23,10 +23,10 @@ host, for a machine without OpenCV.
   borderMode=cv2.BORDER_REPLICATE)``, both as OpenCV 5 computes them for
   uint8: the inverse map in double, the source coordinates in float32 (a
   fused multiply-add along the row), the bilinear blend in float32 fused
-  multiply-adds, rounded half to even.  The perspective warp matches bit for
-  bit; the affine warp differs by one level on a few values, all in the
-  last 12 columns of a 300-wide image, which OpenCV computes outside its
-  16-lane vector loop.
+  multiply-adds, rounded half to even.  The columns past the affine warp's
+  16-pixel vector loop (all of them in an image under 16 wide) take their
+  source coordinates as its scalar C++ does, ``fma(x, m0, y * m1) + m2``.
+  Both warps match bit for bit.
 * :func:`perspective_transform` is ``cv2.getPerspectiveTransform``: the same
   8x8 system, solved by LAPACK instead of OpenCV's own LU (the matrices
   agree to rounding; the warps of ``synthetic_pose`` come out bit-equal).
@@ -37,11 +37,39 @@ host, for a machine without OpenCV.
 * :func:`blur_u8` is ``cv2.blur(img, (k, k))`` on uint8: the integer window
   sum over ``BORDER_REFLECT_101``, divided by ``k * k`` and rounded (no ties
   for odd ``k``), bit for bit.
-* :func:`gaussian_blur3_f32` is ``cv2.GaussianBlur(img, (3, 3), sigma)`` on
-  float32: the float32 kernel of ``cv2.getGaussianKernel``, a row pass
-  ``fma(k0, centre, k1 * (left + right))`` and a column pass
-  ``fma(k1, up + down, k0 * centre)`` as OpenCV's vector filters order
-  them, over ``BORDER_REFLECT_101``; bit for bit on ``[32, 256]``.
+* :func:`gaussian_blur_f32` is ``cv2.GaussianBlur(img, (k, k), sigma)`` on
+  float32 for any odd ``k``:
+  the kernel of ``cv2.getGaussianKernel(k, sigma, cv2.CV_32F)``
+  (:func:`gaussian_kernel_f32`), a row pass and a column pass over
+  ``BORDER_REFLECT_101`` in the orders of OpenCV's separable filters.  The
+  row pass of ``k = 3`` is ``fma(s0, g0, g1 * (s-1 + s+1))``, of ``k = 5``
+  ``fma(g2, s-2 + s+2, fma(s0, g0, g1 * (s-1 + s+1)))`` (its small
+  symmetric row filter), of ``k >= 7`` every tap left to right; the column
+  pass is ``g0 * s0`` and then ``g_j * (s-j + s+j)`` added for ``j = 1 ..
+  k // 2``.  Each step is a fused multiply-add in OpenCV's 8-lane vector
+  loop and in the 2- (``k <= 5``) or 4-wide steps of its scalar row tail,
+  a rounded product and sum in the rest of a row's tail.  Bit for bit
+  where a row's values (pixels times channels) are a multiple of 4, as at
+  every shape of the realism levers; otherwise the last one to three values
+  of a row's pass at some ``k >= 7`` are summed in an order not ported
+  (a few units in the last place).
+* :func:`filter2d` is ``cv2.filter2D(img, -1, kernel)`` on float32 or float64
+  for kernels under 130 taps, over ``BORDER_REFLECT_101``.  On float32
+  (OpenCV's direct filter) the nonzero taps in row-major order, each a
+  fused multiply-add in the vector loop and a rounded product and sum in a
+  row's last ``n % 8`` values: bit for bit.  On float64 the same taps as
+  rounded products and sums, which is OpenCV's direct filter for kernels
+  under 50 taps (bit for bit); from 50 taps OpenCV filters float64 through
+  the DFT and agrees within 2e-13 at 255.
+* :func:`resize_linear_f32` is ``cv2.resize(img, (w, h))`` (INTER_LINEAR) on
+  float32, which OpenCV 5 computes as its warps do: float32 source
+  coordinates ``fma(src / dst, x, (src / dst - 1) / 2)`` and the float32
+  fused-multiply-add blend of :func:`warp_affine_f32`, edges replicated.  Bit
+  for bit where ``src / dst`` is exact in float32 (the 2x shrink of 256-px
+  crops); at other ratios OpenCV's coordinates round apart from these, by
+  about 1e-3 of a level at 255.
+* :func:`warp_affine_zero_f32` is ``cv2.warpAffine(img, M, (w, h))``
+  (INTER_LINEAR, constant 0 border) on float32.
 * :func:`dilate2_f32` and :func:`erode2_f32` are ``cv2.dilate`` and
   ``cv2.erode`` with ``np.ones((2, 2))``: the anchor at (1, 1), so each
   output takes the max (min) of itself and its upper and left neighbours,
@@ -208,6 +236,10 @@ def _map_row(m0: np.float32, m1: np.float32, m2: np.float32, width: int, height:
     return _fma32(np.full_like(xx, m0), xx, m1 * yy + m2)
 
 
+#: pixels per step of OpenCV's vectorised warpAffine loop
+_WARP_LANES = 16
+
+
 def _affine_maps(M: np.ndarray, width: int, height: int) -> Tuple[np.ndarray, np.ndarray]:
     """The float32 source coordinates of ``cv2.warpAffine``'s output grid:
     ``M`` inverted in double, then each row in float32."""
@@ -218,7 +250,16 @@ def _affine_maps(M: np.ndarray, width: int, height: int) -> Tuple[np.ndarray, np
     m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
     m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
     m = m.astype(np.float32)
-    return _map_row(m[0], m[1], m[2], width, height), _map_row(m[3], m[4], m[5], width, height)
+    maps = []
+    for a, b, c in (m[0:3], m[3:6]):
+        out = _map_row(a, b, c, width, height)
+        # the columns past OpenCV's 16-pixel vector loop: fma(x, a, y * b) + c
+        tail = width - width % _WARP_LANES
+        if tail < width:
+            yy, xx = np.mgrid[0:height, tail:width].astype(np.float32)
+            out[:, tail:] = _fma32(xx, a, yy * b) + c
+        maps.append(out)
+    return maps[0], maps[1]
 
 
 def warp_affine_u8(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -257,20 +298,144 @@ def blur_u8(img: np.ndarray, k: int) -> np.ndarray:
     return ((2 * acc + k * k) // (2 * k * k)).astype(np.uint8)
 
 
-def gaussian_kernel3_f32(sigma: float) -> np.ndarray:
-    """``cv2.getGaussianKernel(3, sigma, cv2.CV_32F)``: [k1, k0, k1]."""
-    t = np.exp(-0.5 / (sigma * sigma) * np.array([1.0, 0.0, 1.0]))
-    return (t / t.sum()).astype(np.float32)
+#: ``getGaussianKernel``'s fixed kernels for ``k`` <= 9 and ``sigma`` <= 0
+_SMALL_GAUSSIAN = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+                   7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
+                   9: [0.015625, 0.05078125, 0.1171875, 0.19921875, 0.234375, 0.19921875, 0.1171875,
+                       0.05078125, 0.015625]}
 
 
-def gaussian_blur3_f32(img: np.ndarray, sigma: float) -> np.ndarray:
-    """``cv2.GaussianBlur(img, (3, 3), sigma)`` for a float32 ``[H, W]``
-    image."""
-    k1, k0, _ = gaussian_kernel3_f32(sigma)
-    p = _reflect101(np.asarray(img, np.float32), 1)
+def gaussian_kernel_f32(k: int, sigma: float = 0.0) -> np.ndarray:
+    """``cv2.getGaussianKernel(k, sigma, cv2.CV_32F)``: float32 [k]; a
+    ``sigma`` <= 0 takes OpenCV's fixed kernel up to ``k = 9``, and beyond is
+    ``0.3 * ((k - 1) / 2 - 1) + 0.8``."""
+    if sigma <= 0 and k in _SMALL_GAUSSIAN:
+        return np.asarray(_SMALL_GAUSSIAN[k], np.float32)
+    sigma = sigma if sigma > 0 else ((k - 1) * 0.5 - 1) * 0.3 + 0.8
+    x = np.arange(k, dtype=np.float64) - (k - 1) * 0.5
+    t = np.exp(-0.5 / (sigma * sigma) * x * x)
+    return (t * (1.0 / t.sum())).astype(np.float32)
+
+
+#: float32 lanes of OpenCV's AVX2 filter loops: of a row of ``n`` values
+#: (pixels times channels) the last ``n % 8`` are computed by its scalar C++,
+#: without fused multiply-adds
+_FILTER_LANES = 8
+
+
+def _mac(a, b, acc, fused: bool) -> np.ndarray:
+    """float32 ``a * b + acc``: fused (one rounding), or the product rounded
+    and then the sum."""
+    if fused:
+        return _fma32(a, b, acc)
+    return (np.asarray(a, np.float32) * np.float32(b)).astype(np.float32) + acc
+
+
+def _lanes_then_tail(n: int, compute, unrolled: int = 0) -> np.ndarray:
+    """``compute(lo, hi, fused)`` gives the flat columns ``lo:hi`` of a
+    filter's output rows: fused in OpenCV's vector loop and in the
+    ``unrolled``-wide steps of its scalar tail, plain in the rest."""
+    cut = n - n % _FILTER_LANES
+    if unrolled:
+        cut += (n - cut) // unrolled * unrolled
+    parts = ([compute(0, cut, True)] if cut else []) + ([compute(cut, n, False)] if cut < n else [])
+    return np.concatenate(parts, axis=1)
+
+
+def _sep_rows(p: np.ndarray, g: np.ndarray, n: int, cn: int) -> np.ndarray:
+    """OpenCV's float32 row filter of the symmetric kernel ``g`` over the
+    flat padded rows ``p`` [rows, n + (k - 1) * cn] -> [rows, n]."""
+    k, r = len(g), len(g) // 2
+
+    def compute(lo, hi, fused):
+        tap = lambda j: p[:, (r + j) * cn + lo:(r + j) * cn + hi]  # noqa: E731
+        if k == 3:
+            return _mac(tap(0), g[1], (tap(-1) + tap(1)) * g[0], fused)
+        if k == 5:
+            return _mac(tap(-2) + tap(2), g[0], _mac(tap(0), g[2], (tap(-1) + tap(1)) * g[1], fused), fused)
+        acc = tap(-r) * g[0]
+        for j in range(1, k):
+            acc = _mac(tap(j - r), g[j], acc, fused)
+        return acc
+
+    # the scalar tail: steps of two values (k <= 5) or four, fused as the
+    # vector loop; a last odd value is not matched for k >= 7
+    return _lanes_then_tail(n, compute, 2 if k <= 5 else 4)
+
+
+def gaussian_blur_f32(img: np.ndarray, k: int, sigma: float = 0.0) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), sigma)`` for a float32 ``[H, W]`` or
+    ``[H, W, C]`` image and odd ``k``; bit for bit where a row holds a
+    multiple of 4 values (the module docstring says where not)."""
+    img = np.asarray(img, np.float32)
+    if k % 2 != 1:
+        raise ValueError(f"gaussian_blur_f32 takes an odd kernel size, got {k}")
+    if k == 1:
+        return img.copy()
+    g, r = gaussian_kernel_f32(k, sigma), k // 2
     h, w = img.shape[:2]
-    rows = _fma32(k0, p[:, 1:w + 1], (p[:, 0:w] + p[:, 2:w + 2]) * k1)
-    return _fma32(k1, rows[0:h] + rows[2:h + 2], rows[1:h + 1] * k0)
+    cn = img.shape[2] if img.ndim == 3 else 1
+    n = w * cn
+    rows = _sep_rows(_reflect101(img, r).reshape(h + 2 * r, -1), g, n, cn)
+
+    def compute(lo, hi, fused):
+        acc = rows[r:r + h, lo:hi] * g[r]
+        for j in range(1, r + 1):
+            acc = _mac(rows[r - j:r - j + h, lo:hi] + rows[r + j:r + j + h, lo:hi], g[r + j], acc, fused)
+        return acc
+
+    return _lanes_then_tail(n, compute).reshape(img.shape)
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel)`` for a float32 or float64 ``[H, W]``
+    or ``[H, W, C]`` image and a kernel of fewer than 130 taps (the anchor at
+    its centre), in the image's dtype."""
+    img = np.asarray(img)
+    if img.dtype not in (np.float32, np.float64):
+        raise TypeError(f"filter2d takes float32 or float64, got {img.dtype}")
+    kern = np.asarray(kernel, img.dtype)
+    kh, kw = kern.shape
+    if kh * kw >= 130:
+        raise ValueError(f"filter2d: OpenCV filters a {kh}x{kw} kernel through the DFT, not ported")
+    h, w = img.shape[:2]
+    cn = img.shape[2] if img.ndim == 3 else 1
+    ay, ax = kh // 2, kw // 2
+    pads = ((ay, kh - 1 - ay), (ax, kw - 1 - ax)) + ((0, 0),) * (img.ndim - 2)
+    p = np.pad(img, pads, mode="reflect").reshape(h + kh - 1, -1)
+    taps = list(zip(*np.nonzero(kern)))
+
+    def compute(lo, hi, fused):
+        acc = np.zeros((h, hi - lo), img.dtype)
+        for i, j in taps:
+            src = p[i:i + h, j * cn + lo:j * cn + hi]
+            acc = _mac(src, kern[i, j], acc, fused) if img.dtype == np.float32 else acc + src * kern[i, j]
+        return acc
+
+    if img.dtype == np.float64:  # OpenCV's double filter has no vector loop
+        return compute(0, w * cn, False).reshape(img.shape)
+    return _lanes_then_tail(w * cn, compute).reshape(img.shape)
+
+
+def resize_linear_f32(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height))`` (INTER_LINEAR) for a float32
+    ``[H, W]`` or ``[H, W, C]`` image."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+
+    def coords(n, src):
+        s = src / n
+        return _fma32(np.float32(s), np.arange(n, dtype=np.float32), np.float32(0.5 * s - 0.5))
+
+    sx = np.broadcast_to(coords(width, w)[None], (height, width))
+    sy = np.broadcast_to(coords(height, h)[:, None], (height, width))
+    return _remap_linear(img, np.ascontiguousarray(sx), np.ascontiguousarray(sy), replicate=True)
+
+
+def warp_affine_zero_f32(img: np.ndarray, M: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.warpAffine(img, M, (width, height))`` (INTER_LINEAR, a constant
+    0 border) for a float32 image."""
+    return _remap_linear(np.asarray(img, np.float32), *_affine_maps(M, width, height), replicate=False)
 
 
 def _morph2(img: np.ndarray, op, fill: float) -> np.ndarray:

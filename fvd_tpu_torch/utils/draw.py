@@ -113,15 +113,9 @@ def _line8_points(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
     return x1 + along, y1 + sy * across
 
 
-def _line2(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
-    """One-pixel line between 16.16 fixed-point points (``Line2``)."""
-    pts = _line2_points(img.shape[1], img.shape[0], x1, y1, x2, y2)
-    if pts is not None:
-        _put(img, *pts, color)
-
-
 def _line2_points(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
-    """The pixels of :func:`_line2` as (xs, ys), the end point first, or None."""
+    """The pixels of OpenCV's ``Line2`` (a one-pixel line between 16.16
+    fixed-point points) as (xs, ys), the end point first, or None."""
     inside, x1, y1, x2, y2 = _clip_line(w << XY_SHIFT, h << XY_SHIFT, x1, y1, x2, y2)
     if not inside:
         return None
@@ -289,11 +283,10 @@ def _thick_line(img: np.ndarray, p0, p1, color, thickness: int, flags: int, shif
     up = XY_SHIFT - shift
     p0, p1 = (p0[0] << up, p0[1] << up), (p1[0] << up, p1[1] << up)
     if thickness <= 1:
-        if shift == 0:
-            _line8(img, (p0[0] + _HALF) >> XY_SHIFT, (p0[1] + _HALF) >> XY_SHIFT,
-                   (p1[0] + _HALF) >> XY_SHIFT, (p1[1] + _HALF) >> XY_SHIFT, color)
-        else:
-            _line2(img, p0[0], p0[1], p1[0], p1[1], color)
+        # OpenCV 5 draws a one-pixel LINE_8 line between the rounded end
+        # points whatever its fraction bits
+        _line8(img, (p0[0] + _HALF) >> XY_SHIFT, (p0[1] + _HALF) >> XY_SHIFT,
+               (p1[0] + _HALF) >> XY_SHIFT, (p1[1] + _HALF) >> XY_SHIFT, color)
         return
     dx, dy = (p0[0] - p1[0]) / XY_ONE, (p1[1] - p0[1]) / XY_ONE
     r = dx * dx + dy * dy
@@ -375,6 +368,14 @@ def fill_ellipse(img: np.ndarray, center, axes, color, angle: float = 0.0, start
     degrees fills the sector between the arc and the centre (``0, 180`` the
     lower half, ``180, 360`` the upper)."""
     _ellipse(img, center, axes, angle, start, end, color, -1)
+
+
+def ellipse(img: np.ndarray, center, axes, angle: float, start: float, end: float, color,
+            thickness: int) -> None:
+    """``cv2.ellipse(img, center, axes, angle, start, end, color,
+    thickness)``: an arc outline ``thickness`` wide, or filled where
+    ``thickness`` < 0."""
+    _ellipse(img, center, axes, angle, start, end, color, int(thickness))
 
 
 def circle(img: np.ndarray, center, radius: int, color, thickness: int) -> None:

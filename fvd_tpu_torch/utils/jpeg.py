@@ -1,9 +1,10 @@
-"""Baseline JPEG encode and grayscale decode with numpy, byte for byte what
-OpenCV's libjpeg-turbo gives.
+"""Baseline JPEG encode and grayscale and colour decode with numpy, byte for
+byte what OpenCV's libjpeg-turbo gives.
 
 * :func:`encode_jpeg` is ``cv2.imencode(".jpg", cv2.cvtColor(rgb,
-  cv2.COLOR_RGB2BGR))`` with OpenCV's defaults: baseline JFIF 1.01 at quality
-  95 (the Annex K tables scaled by ``jpeg_quality_scaling``), Y at 2x2 over Cb
+  cv2.COLOR_RGB2BGR), [cv2.IMWRITE_JPEG_QUALITY, quality])`` with OpenCV's
+  defaults otherwise: baseline JFIF 1.01 at ``quality`` (95 by default; the
+  Annex K tables scaled by ``jpeg_quality_scaling``), Y at 2x2 over Cb
   and Cr at 1x1 (4:2:0), the Annex K Huffman tables, no restart markers.  The
   stages follow libjpeg's C, which its SIMD paths equal bit for bit:
   ``jccolor.c``'s 16-bit fixed-point RGB -> YCbCr, ``jcsample.c``'s h2v2
@@ -17,6 +18,11 @@ OpenCV's libjpeg-turbo gives.
   every component, then dequantisation and ``jidctint.c``'s islow IDCT with
   libjpeg's range limit on the first component only, which is libjpeg's
   grayscale output of a YCbCr or grayscale file.
+* :func:`decode_jpeg_color` is ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` with
+  the channels reversed to RGB: the islow IDCT on every component,
+  ``jdsample.c``'s h2v2 fancy upsampling of 4:2:0 chroma and ``jdcolor.c``'s
+  fixed-point YCbCr -> RGB.  The photometric realism lever round-trips its
+  images through it.
 
 The vision LLM of V5 and C2 reads these bytes, as it reads OpenCV's in the
 JAX package.
@@ -256,16 +262,18 @@ def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
-def encode_jpeg(rgb_u8: np.ndarray) -> bytes:
-    """uint8 RGB [H, W, 3] -> the bytes of ``cv2.imencode(".jpg", bgr)``
-    (OpenCV's defaults, quality 95)."""
+def encode_jpeg(rgb_u8: np.ndarray, quality: int = QUALITY) -> bytes:
+    """uint8 RGB [H, W, 3] -> the bytes of ``cv2.imencode(".jpg", bgr,
+    [cv2.IMWRITE_JPEG_QUALITY, quality])`` (OpenCV's defaults otherwise;
+    ``quality`` 1..100, default 95)."""
     img = np.asarray(rgb_u8)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3 or img.shape[0] < 1 or img.shape[1] < 1:
         raise ValueError(f"encode_jpeg: expected uint8 [H, W, 3], got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     mcu_y, mcu_x = -(-h // 16), -(-w // 16)
     bh, bw = -(-h // 8), -(-w // 8)  # Y's blocks in the image
-    q = (_scaled_qtable(_STD_LUMA_Q, QUALITY), _scaled_qtable(_STD_CHROMA_Q, QUALITY))
+    quality = min(max(int(quality), 1), 100)
+    q = (_scaled_qtable(_STD_LUMA_Q, quality), _scaled_qtable(_STD_CHROMA_Q, quality))
     y, cb, cr = _rgb_to_ycc(img)
 
     # Y: edge-replicated to the MCU grid; the blocks past (bh, bw) are
@@ -396,11 +404,11 @@ def _read_bits(w24, p: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
-def _decode_scan(segments: List[bytes], comps, restart: int, mcus: Tuple[int, int], out: np.ndarray) -> None:
+def _decode_scan(segments: List[bytes], comps, restart: int, mcus: Tuple[int, int]) -> None:
     """Huffman-decode one scan.  ``comps``: per scan component (dc table, ac
-    table, blocks per MCU as (dy, dx) pairs, keep) where ``keep`` maps (MCU
-    row, MCU col, dy, dx) to a block of ``out`` ([by, bx, 64], zigzag order)
-    for the frame's first component, else None."""
+    table, blocks per MCU as (dy, dx) pairs, keep, out) where ``keep`` maps
+    (MCU row, MCU col, dy, dx) to a block of ``out`` ([by, bx, 64], zigzag
+    order) for a component whose coefficients are kept, else None."""
     mcu_rows, mcu_cols = mcus
     total = mcu_rows * mcu_cols
     per_seg = restart or total
@@ -415,14 +423,14 @@ def _decode_scan(segments: List[bytes], comps, restart: int, mcus: Tuple[int, in
         pred = [0] * len(comps)
         for _ in range(min(per_seg, total - mcu)):
             my, mx = divmod(mcu, mcu_cols)
-            for ci, (dc, ac, offsets, keep) in enumerate(comps):
+            for ci, (dc, ac, offsets, keep, out) in enumerate(comps):
                 for dy, dx in offsets:
                     if p > limit:
-                        raise ValueError("decode_jpeg_gray: entropy-coded data ends early")
+                        raise ValueError("decode_jpeg: entropy-coded data ends early")
                     look = ((w24[p >> 3] << (p & 7)) >> 8) & 0xFFFF
                     n = dc.len[look]
                     if n == 0:
-                        raise ValueError("decode_jpeg_gray: bad Huffman code")
+                        raise ValueError("decode_jpeg: bad Huffman code")
                     s = dc.sym[look]
                     p += n
                     if s:
@@ -434,7 +442,7 @@ def _decode_scan(segments: List[bytes], comps, restart: int, mcus: Tuple[int, in
                         look = ((w24[p >> 3] << (p & 7)) >> 8) & 0xFFFF
                         n = ac.len[look]
                         if n == 0:
-                            raise ValueError("decode_jpeg_gray: bad Huffman code")
+                            raise ValueError("decode_jpeg: bad Huffman code")
                         rs = ac.sym[look]
                         p += n
                         r, s = rs >> 4, rs & 15
@@ -455,13 +463,11 @@ def _decode_scan(segments: List[bytes], comps, restart: int, mcus: Tuple[int, in
             mcu += 1
 
 
-def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
-    """JPEG bytes -> uint8 [H, W], as ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``
-    gives on a sequential Huffman 8-bit file (the first component: YCbCr's
-    Y, or the one component of a grayscale file).  None for bytes that do
-    not start as a JPEG file; a JPEG of a kind this decoder does not read
-    (progressive, arithmetic, 12-bit, RGB, CMYK, a subsampled first
-    component) or a corrupt one raises ValueError."""
+def _read_jpeg(data: bytes, keep_all: bool):
+    """Parse a sequential Huffman 8-bit JPEG file -> (height, width, [(h, v,
+    dequantised blocks [by, bx, 8, 8] or None)] per frame component, hmax,
+    vmax), or None for bytes that do not start as a JPEG file.  The blocks
+    of every component are kept with ``keep_all``, else the first one's."""
     data = bytes(data)
     if len(data) < 4 or data[:2] != b"\xff\xd8":
         return None
@@ -469,11 +475,11 @@ def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
     huff: Dict[Tuple[int, int], _Huff] = {}
     frame = None
     restart = 0
-    blocks = None
+    blocks = {}
     i, n = 2, len(data)
     while i + 2 <= n:
         if data[i] != 0xFF:
-            raise ValueError(f"decode_jpeg_gray: marker expected at byte {i}")
+            raise ValueError(f"decode_jpeg: marker expected at byte {i}")
         m = data[i + 1]
         if m == 0xFF:  # fill byte
             i += 1
@@ -484,7 +490,7 @@ def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
             i += 2
             continue
         if i + 4 > n:
-            raise ValueError("decode_jpeg_gray: truncated segment")
+            raise ValueError("decode_jpeg: truncated segment")
         (length,) = struct.unpack(">H", data[i + 2: i + 4])
         payload = data[i + 4: i + 2 + length]
         i += 2 + length
@@ -509,24 +515,27 @@ def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
             comps = [(payload[6 + 3 * k], payload[7 + 3 * k] >> 4, payload[7 + 3 * k] & 15, payload[8 + 3 * k])
                      for k in range(nc)]
             if prec != 8 or nc not in (1, 3) or fh == 0 or fw == 0:
-                raise ValueError(f"decode_jpeg_gray: unsupported frame: {prec}-bit, {nc} components")
+                raise ValueError(f"decode_jpeg: unsupported frame: {prec}-bit, {nc} components")
             if nc == 3 and [c[0] for c in comps] == [82, 71, 66]:
-                raise ValueError("decode_jpeg_gray: RGB JPEG not supported")
+                raise ValueError("decode_jpeg: RGB JPEG not supported")
             hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
             if comps[0][1:3] != (hmax, vmax):
-                raise ValueError("decode_jpeg_gray: subsampled first component not supported")
+                raise ValueError("decode_jpeg: subsampled first component not supported")
             frame = (fh, fw, comps, hmax, vmax)
-            blocks = np.zeros((-(-fh // 8), -(-fw // 8), 64), np.int64)
+            for k, (cid, h, v, _) in enumerate(comps):
+                if keep_all or k == 0:
+                    blocks[cid] = np.zeros((-(-(-(-fh * v // vmax)) // 8), -(-(-(-fw * h // hmax)) // 8), 64),
+                                           np.int64)
         elif 0xC2 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            raise ValueError(f"decode_jpeg_gray: unsupported frame type 0x{m:02x}")
+            raise ValueError(f"decode_jpeg: unsupported frame type 0x{m:02x}")
         elif m == 0xDD:
             (restart,) = struct.unpack(">H", payload[:2])
         elif m == 0xEE and payload[:5] == b"Adobe" and len(payload) >= 12 and payload[11] == 0 \
                 and frame is not None and len(frame[2]) == 3:
-            raise ValueError("decode_jpeg_gray: Adobe RGB JPEG not supported")
+            raise ValueError("decode_jpeg: Adobe RGB JPEG not supported")
         elif m == 0xDA:
             if frame is None:
-                raise ValueError("decode_jpeg_gray: scan before frame header")
+                raise ValueError("decode_jpeg: scan before frame header")
             fh, fw, fcomps, hmax, vmax = frame
             by_id = {c[0]: c for c in fcomps}
             ns = payload[0]
@@ -534,22 +543,105 @@ def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
             for k in range(ns):
                 cid, sel = payload[1 + 2 * k], payload[2 + 2 * k]
                 _, h, v, _ = by_id[cid]
-                first = cid == fcomps[0][0]
+                out = blocks.get(cid)
                 if ns == 1:  # non-interleaved: one block per MCU
-                    offsets, keep = [(0, 0)], (lambda my, mx, dy, dx: (my, mx)) if first else None
+                    offsets, keep = [(0, 0)], (lambda my, mx, dy, dx: (my, mx)) if out is not None else None
                     mcus = (-(-(-(-fh * v // vmax)) // 8), -(-(-(-fw * h // hmax)) // 8))
                 else:
                     offsets = [(dy, dx) for dy in range(v) for dx in range(h)]
-                    keep = (lambda my, mx, dy, dx, h=h, v=v: (my * v + dy, mx * h + dx)) if first else None
+                    keep = (lambda my, mx, dy, dx, h=h, v=v: (my * v + dy, mx * h + dx)) if out is not None else None
                     mcus = (-(-fh // (8 * vmax)), -(-fw // (8 * hmax)))
-                scan.append((huff[(0, sel >> 4)], huff[(1, sel & 15)], offsets, keep))
+                scan.append((huff[(0, sel >> 4)], huff[(1, sel & 15)], offsets, keep, out))
             segments, i = _scan_segments(data, i)
-            _decode_scan(segments, scan, restart, mcus, blocks)
+            _decode_scan(segments, scan, restart, mcus)
     if frame is None:
         return None
-    fh, fw, fcomps = frame[:3]
-    coef = np.zeros(blocks.shape, np.int64)
-    coef[..., ZIGZAG] = blocks
-    pix = _idct_islow((coef * qt[fcomps[0][3]]).reshape(*coef.shape[:2], 8, 8))
+    fh, fw, fcomps, hmax, vmax = frame
+    planes = []
+    for cid, h, v, tq in fcomps:
+        b = blocks.get(cid)
+        if b is not None:
+            coef = np.zeros(b.shape, np.int64)
+            coef[..., ZIGZAG] = b
+            b = (coef * qt[tq]).reshape(*coef.shape[:2], 8, 8)
+        planes.append((h, v, b))
+    return fh, fw, planes, hmax, vmax
+
+
+def _samples(blocks: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """The islow IDCT of dequantised blocks [by, bx, 8, 8] -> uint8 samples
+    [rows, cols] (the component's own size)."""
+    pix = _idct_islow(blocks)
     by, bx = pix.shape[:2]
-    return np.ascontiguousarray(pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:fh, :fw])
+    return np.ascontiguousarray(pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:rows, :cols])
+
+
+def decode_jpeg_gray(data: bytes) -> Optional[np.ndarray]:
+    """JPEG bytes -> uint8 [H, W], as ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``
+    gives on a sequential Huffman 8-bit file (the first component: YCbCr's
+    Y, or the one component of a grayscale file).  None for bytes that do
+    not start as a JPEG file; a JPEG of a kind this decoder does not read
+    (progressive, arithmetic, 12-bit, RGB, CMYK, a subsampled first
+    component) or a corrupt one raises ValueError."""
+    parsed = _read_jpeg(data, keep_all=False)
+    if parsed is None:
+        return None
+    fh, fw, planes = parsed[:3]
+    return _samples(planes[0][2], fh, fw)
+
+
+def _fancy_h2v2(plane: np.ndarray, out_rows: int, out_cols: int) -> np.ndarray:
+    """jdsample.c ``h2v2_fancy_upsample`` of a chroma plane [r, c]: each
+    output sample 9/16, 3/16, 3/16 and 1/16 of its four nearest input
+    samples (the edge rows and columns replicated), rounded with the biases
+    8 and 7 of even and odd output columns -> [out_rows, out_cols]."""
+    x = plane.astype(np.int64)
+    up = np.concatenate([x[:1], x[:-1]])
+    down = np.concatenate([x[1:], x[-1:]])
+    out = np.empty((2 * x.shape[0], 2 * x.shape[1]), np.int64)
+    for parity, near in ((0, up), (1, down)):
+        colsum = 3 * x + near
+        left = np.concatenate([colsum[:, :1], colsum[:, :-1]], axis=1)
+        right = np.concatenate([colsum[:, 1:], colsum[:, -1:]], axis=1)
+        out[parity::2, 0::2] = (3 * colsum + left + 8) >> 4
+        out[parity::2, 1::2] = (3 * colsum + right + 7) >> 4
+    return out[:out_rows, :out_cols]
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c ``ycc_rgb_convert``: the fixed-point tables at SCALEBITS 16,
+    clamped to 0..255 -> uint8 [H, W, 3] RGB."""
+    cb, cr = cb.astype(np.int64) - 128, cr.astype(np.int64) - 128
+    half = 1 << 15
+    r = y + ((_fix(1.40200) * cr + half) >> 16)
+    g = y + ((-_fix(0.34414) * cb + half - _fix(0.71414) * cr) >> 16)
+    b = y + ((_fix(1.77200) * cb + half) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg_color(data: bytes) -> Optional[np.ndarray]:
+    """JPEG bytes -> uint8 RGB [H, W, 3]: ``cv2.imdecode(buf,
+    cv2.IMREAD_COLOR)`` (which gives BGR) with its channels reversed, on a
+    YCbCr file at 4:4:4 or 4:2:0, or a grayscale one (its samples in all
+    three channels).  libjpeg's islow IDCT on every component, ``jdsample.c``'s
+    h2v2 fancy (triangle) upsampling of the chroma and ``jdcolor.c``'s
+    fixed-point YCbCr -> RGB.  None for bytes that do not start as a JPEG
+    file; a JPEG of another kind raises ValueError."""
+    parsed = _read_jpeg(data, keep_all=True)
+    if parsed is None:
+        return None
+    fh, fw, planes, hmax, vmax = parsed
+    if len(planes) == 1:
+        y = _samples(planes[0][2], fh, fw)
+        return np.repeat(y[..., None], 3, axis=-1)
+    y = _samples(planes[0][2], fh, fw).astype(np.int64)
+    chroma = []
+    for h, v, b in planes[1:]:
+        rows, cols = -(-fh * v // vmax), -(-fw * h // hmax)
+        c = _samples(b, rows, cols)
+        if (hmax // h, vmax // v) == (2, 2):
+            c = _fancy_h2v2(c, fh, fw)
+        elif (h, v) != (hmax, vmax):
+            raise ValueError(f"decode_jpeg_color: chroma sampling {h}x{v} of {hmax}x{vmax} not supported")
+        chroma.append(c)
+    return _ycc_to_rgb(y, *chroma)

@@ -864,3 +864,30 @@ def test_eval_ocr_det_on_card_matches_cpu(cuda):
     card, cpu = eval_ocr_det(4, device="cuda"), eval_ocr_det(4, device="cpu")
     for k in ("in_domain", "held_out"):
         assert np.isfinite(card[k]) and abs(card[k] - cpu[k]) <= cs.TEXT_EVAL_IOU_TOL, (k, card[k], cpu[k])
+
+
+# -------------------------------------------- the FAN trainer, PoseResNet50
+def test_fan_train_step_on_card_matches_cpu(cuda):
+    """Three steps of ``pretrain_fan``'s loss and clipped AdamW at width 32
+    and 2 stacks on ``chip_smoke.py``'s batches of the tool's 256-px crops,
+    card against CPU in float64: the losses, the first step's clipped
+    gradients and the last parameters within 1e-8 relative L2 per tensor
+    (the tensors whose gradient is zero in exact arithmetic held at zero)."""
+    cs = _chip_smoke()
+    out = cs._train_parity(cs._fan_batches(), run=cs._fan_train_run, tags=("f64",), zero_grad=cs._tiny_grads)
+    assert max(out["fan"]["f64"]["loss_rel"]) <= cs.TRAIN_F64_TOL
+
+
+def test_pose50_on_card_matches_cpu(cuda):
+    """``PoseResNet50`` from seeded weights on two 224-px crops, card f32
+    (TF32 off) against CPU f32 within ``chip_smoke.POSE50_TOL``."""
+    cs = _chip_smoke()
+    crops = np.random.RandomState(1).rand(2, 224, 224, 3).astype(np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, card = cs._pose50_outputs(cuda, None, crops)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    _, cpu = cs._pose50_outputs("cpu", None, crops)
+    assert np.abs(card - cpu).max() <= cs.POSE50_TOL

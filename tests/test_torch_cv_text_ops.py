@@ -47,7 +47,7 @@ def test_blur_u8_is_cv2s(k, shape):
 
 def test_gaussian_kernel_is_cv2s():
     for sigma in np.random.RandomState(1).uniform(0.3, 1.0, 2000):
-        np.testing.assert_array_equal(cv.gaussian_kernel3_f32(sigma),
+        np.testing.assert_array_equal(cv.gaussian_kernel_f32(3, sigma),
                                       cv2.getGaussianKernel(3, sigma, cv2.CV_32F).ravel())
 
 
@@ -56,7 +56,7 @@ def test_gaussian_blur3_f32_is_cv2s(seed):
     rng = np.random.RandomState(seed)
     for _ in range(10):
         img, sigma = _line(rng), rng.uniform(0.3, 1.0)
-        assert ulps(cv.gaussian_blur3_f32(img, sigma), cv2.GaussianBlur(img, (3, 3), sigma)) <= F32_ULPS
+        assert ulps(cv.gaussian_blur_f32(img, 3, sigma), cv2.GaussianBlur(img, (3, 3), sigma)) <= F32_ULPS
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -62,7 +62,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.tools.accuracy_trajectory", "fvd_tpu_torch.tools.calibrate_lr",
             "fvd_tpu_torch.utils.text", "fvd_tpu_torch.models.synthetic_text", "fvd_tpu_torch.tools.pretrain_ocr",
             "fvd_tpu_torch.tools.pretrain_clip", "fvd_tpu_torch.tools.eval_heldout",
-            "fvd_tpu_torch.tools.make_text_atlas"} <= set(mods)
+            "fvd_tpu_torch.tools.make_text_atlas", "fvd_tpu_torch.models.optim",
+            "fvd_tpu_torch.tools.pretrain_fan"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"

@@ -3,7 +3,9 @@
 and augmented), ``pose_batch`` (clean and augmented) and
 ``pose_batch_paired`` give bit-equal labels (boxes, landmark targets, anchor
 labels, loc targets, rotations, Euler angles) and leave the generator in the
-same state, and the pixels are bit-equal.  The JAX package draws with
+same state, and the pixels are bit-equal; so do the calls with a realism
+lever (``tests/test_torch_realism_levers.py`` holds the levers in full).
+The JAX package draws with
 OpenCV, the port with numpy (``fvd_tpu_torch/utils/draw.py``, OpenCV's
 rasterisation); the port's warps and resize (``fvd_tpu_torch/utils/cv.py``)
 and its drawing are held to OpenCV here too (a 300-wide affine warp may
@@ -56,16 +58,27 @@ def test_generator_matches_jax(name, seed):
         np.testing.assert_array_equal(got[i], ref[i])
 
 
-@pytest.mark.parametrize("call", [
-    lambda: psf.detector_batch(np.random.RandomState(0), 1, photometric=True),
-    lambda: psf.detector_batch(np.random.RandomState(0), 1, dense=True),
-    lambda: psf.landmark_batch(np.random.RandomState(0), 1, shaded=True),
-    lambda: psp.pose_batch(np.random.RandomState(0), 1, portrait=True),
-    lambda: psp.pose_batch_paired(np.random.RandomState(0), 1, shaded=True),
-])
-def test_levers_not_ported_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+#: the calls that raised while the realism levers were not ported, each
+#: held against the JAX package's as ``test_generator_matches_jax`` holds them
+LEVER_CALLS = {
+    "detector_photometric": (jsf.detector_batch, psf.detector_batch, {"augment": True, "photometric": True}),
+    "detector_dense": (jsf.detector_batch, psf.detector_batch, {"augment": True, "dense": True}),
+    "landmark_shaded": (jsf.landmark_batch, psf.landmark_batch, {"shaded": True}),
+    "pose_portrait": (jsp.pose_batch, psp.pose_batch, {"augment": True, "portrait": True}),
+    "pose_paired_shaded": (jsp.pose_batch_paired, psp.pose_batch_paired, {"shaded": True}),
+}
+
+
+@pytest.mark.parametrize("name", LEVER_CALLS)
+def test_lever_calls_match_jax(name):
+    jax_fn, port_fn, kw = LEVER_CALLS[name]
+    rj, rp = np.random.RandomState(0), np.random.RandomState(0)
+    ref, got = jax_fn(rj, 2, **kw), port_fn(rp, 2, **kw)
+    for a, b in zip(rj.get_state(), rp.get_state()):
+        np.testing.assert_array_equal(a, b)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
 
 
 def test_match_anchors_force_match():

@@ -1,8 +1,8 @@
 """``python -m fvd_tpu_torch.tools.pretrain_synthetic`` end to end on the CPU:
 the npz files it writes have the shipped checkpoints' layout, load in the
 JAX package's ``load_params`` and detect what the port detects; ``--resume``
-continues the detector from its train state; the levers not ported yet are
-refused.  Also the tool's pose steps (``pose_loss``, and
+continues the detector from its train state; the realism levers reach the
+three trainers.  Also the tool's pose steps (``pose_loss``, and
 ``pose_consistency_loss`` on the paired batches) against the JAX package's,
 held as ``tests/test_torch_train_losses.py`` holds the other two trainers,
 and the port's ``checkpointing`` module as ``tests/test_checkpointing.py``
@@ -109,10 +109,29 @@ def test_landmark_and_pose_npz_load_in_jax_and_the_port(trained):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-3 if name == "pose.npz" else 1e-5)
 
 
-def test_levers_not_ported_are_refused():
-    for flag in pretrain_synthetic.LEVER_FLAGS:
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            pretrain_synthetic.main([f"--{flag}", "--cpu", "--steps", "1"])
+def test_levers_train_and_write_their_checkpoints(tmp_path, monkeypatch):
+    """``--dense --photometric --shading --portrait`` reach the three
+    trainers' generators (each draws its batches with them) and the tool
+    writes its checkpoints."""
+    seen = []
+    for name in ("detector_batch", "landmark_batch", "pose_batch"):
+        monkeypatch.setattr(pretrain_synthetic, name,
+                            functools.partial(_recording, getattr(pretrain_synthetic, name), name, seen))
+    out = pretrain_synthetic.main(["--dense", "--photometric", "--shading", "--portrait", "--augment", "--cpu",
+                                   "--steps", "1", "--batch", "2", "--out-dir", str(tmp_path)])
+    assert set(out) == {"det", "lmk", "pose"} and all(r["steps"] == 1 for r in out.values())
+    for name in NPZ:
+        assert os.path.exists(tmp_path / name)
+    levers = {"photometric": True, "shaded": True, "portrait": True}
+    assert ("detector_batch", {"augment": True, "dense": True, **levers}) in seen
+    assert ("landmark_batch", {"augment": True, "hard_half": False, **levers}) in seen
+    assert ("pose_batch", {"augment": True, "hard_half": False, **levers}) in seen
+
+
+def _recording(real, name, seen, rng, batch, **kw):
+    if kw:
+        seen.append((name, kw))
+    return real(rng, batch, **kw)
 
 
 # ------------------------------------------------------------ the pose steps
