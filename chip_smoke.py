@@ -27,15 +27,15 @@ Phases, each printed as one JSON line with its seconds before the next starts:
 5. hf        the HF lineup of ``checkpoints/hf`` (``providers/hf_models.py``),
              card f32 against CPU f32: MiniLM-L6 on its real weights (64
              sentences, the embeddings' largest |d|), Whisper base on its
-             real weights (one 30 s window of each of 2 clips, one with
-             formant speech and one with random audio, a cut of the 4 that
-             keeps the script's time: tokens equal up to the CPU's first
+             real weights (one 30 s window of 1 clip, with formant speech,
+             a cut of the 4 that keeps the script's time; 2 until the
+             hf_train phase, random audio the other: tokens equal up to the CPU's first
              step whose top-2 logit margin is under ``HF_MARGIN``, that
              step reported, the
              teacher-forced logits' largest |d| on the CPU's tokens, encoder
              ms, decode steps, ms and kernels per step), CLIP ViT-B/32 at its
              ``config.json``'s geometry with seeded weights (the copy leaves
-             its msgpack out; 40 keyframe/caption pairs, the calibrated
+             its msgpack out; one clip's 10 keyframe/caption pairs, the calibrated
              similarities' largest |d|); ms and kernels per call of each;
 6. analyzer  the fused per-video analyzer (``fvd_tpu_torch.entry``) at full
              width on the shipped checkpoints, bf16, against the port's own
@@ -71,9 +71,9 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
              ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
              card bf16 and card f32 one video at a time, card bf16 with all 4
-             at once under the program coalescer, and CPU f32 on two of the
-             clips (one in sync, the dubbed one: a cut that keeps the
-             script's time with the batch phase).  Checks all 16
+             at once under the program coalescer, and CPU f32 on one of the
+             clips (the one in sync: a cut that keeps the script's time with
+             the batch phase; the dubbed one too until the hf_train phase).  Checks all 16
              nodes done, card f32 against CPU f32 on the 9 LR features and the
              probability, one C1 launch per video (per C1 group when
              coalesced), one frame upload per video, one shared landmark
@@ -100,7 +100,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``batch.run_pipeline_many`` with
              ``production_providers(recorded_services=True)`` (the bundle
              as the checkout ships it).  (a) card f32 8 at once, (b) card
-             f32 one at a time, (c) CPU f32 on 2 clips, (d) card bf16 8 at
+             f32 one at a time, (c) CPU f32 on 1 clip, (d) card bf16 8 at
              once with and without ``FVD_TPU_NO_COALESCE`` (and a
              ``torch.profiler`` pass of each), (e) ``python -m
              fvd_tpu_torch.batch --concurrency 8`` and then
@@ -115,12 +115,13 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              videos/min, wall ms a video, kernels a video and the
              wrappers' groups and padded sizes;
 12. stream   progressive analysis (``fvd_tpu_torch.streaming``) of two
-             clips of the batch corpus at bench.py's 30 s (seed 0 in sync,
+             clips of the batch corpus at 20 s (bench.py's 30 s until the
+             hf_train phase; seed 0 in sync,
              seed 1 dubbed) with the production bundle's detector and
              hourglass: card bf16 and card f32 at 5 s and 2 s chunks, CPU f32
              at 5 s on the synced clip, and ``python -m fvd_tpu_torch.cli
              <clip> --stream --chunk-seconds 5`` as a subprocess.  Checks the
-             updates (6 and 15, fraction rising to 1, 150 mouth samples at the
+             updates (4 and 10, fraction rising to 1, 100 mouth samples at the
              end), one C1 launch per update and one landmark forward per
              chunk, card f32 against CPU f32 update by update and 2 s against
              5 s chunks at the end (lip_sync, blink_rate, fake_probability
@@ -167,9 +168,9 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              port's batches (seeds 0-2), in float32 (TF32 off; the first
              step's loss) and float64 (every step's loss, the first step's
              gradients and the last parameters per tensor); (b) the tool in a
-             subprocess on the card, ``--steps 30 --consistency``, then in
+             subprocess on the card, ``--steps 15 --consistency``, then in
              this process ``--only det --resume --steps 10``, which must
-             continue from step 30: per trainer the median host data ms and device ms of a
+             continue from step 15: per trainer the median host data ms and device ms of a
              step (CUDA events), images/s, the first and last loss (the last
              must be lower) and the eval metric; (c) the npz files it wrote
              served by ``SSDFaceDetector`` and ``FANLandmarks`` (with the
@@ -199,7 +200,7 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``formant_hard``), the text InfoNCE (192 / 4 / 256, batch 64),
              ``clip_loss`` (``clip.npz``, batch 32) and ``ctc_loss``
              (``ocr_rec.npz``, batch 32), card against CPU in float32 and
-             float64 as in ``train``; (b) each tool for 50 steps in a
+             float64 as in ``train``; (b) each tool for 25 steps in a
              subprocess on the card, then in this process ``pretrain_asr
              --resume --steps
              10``: the summaries' data and device ms a step, items/s, losses
@@ -247,10 +248,27 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``PoseResNet50`` at 224 px: ms a call at batch 16 in bfloat16
              and float32, card f32 against CPU f32 on 4 crops, card bf16
              against card f32.  The FAN trainer launches no kernel of the
-             repo's.
+             repo's;
+22. hf_train the HF trainers: (a) three steps of each tool's loss and
+             clipped AdamW at small geometries (BERT 2 x 64, CLIP
+             ``--tiny``, Whisper d64 2 + 2 with vocab 600), card against
+             CPU in float64, and the decay of BERT's pooler and Whisper's
+             frozen encoder positions against optax's product; (b)
+             ``pretrain_hf_minilm`` (batch 96) and ``pretrain_hf_whisper``
+             (batch 8, ``--pool`` 128) resumed from copies of
+             ``checkpoints/hf``, ``pretrain_hf_clip`` (batch 128, ``--pool``
+             256) from the port's maker at ViT-B/32, each for
+             ``HF_TRAIN_STEPS`` steps in this process with its final
+             evaluation: the summary's data and device ms a step, items/s,
+             losses and evaluation, the written msgpack read back equal to
+             the trained parameters, ``--promote``'s copy, the loss over the
+             run's batches lower after than before, and the provider
+             loading the files; (c) the shipped MiniLM's and Whisper's
+             held-out evaluation before any step, card f32 against CPU f32.
+             The HF trainers launch no kernel of the repo's.
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-21 alone.  Then one JSON line with every kernel's numbers, the card's
+4-22 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -803,9 +821,9 @@ def hf_phase():
 
     # Whisper: one 30 s window of each clip's 16 kHz audio
     asr = {d: HFWhisperASR.from_local(os.path.join(hf, "whisper"), device=d) for d in ("cuda", "cpu")}
-    # two of the four clips (a cut that keeps the script's time with the
-    # batch phase): sync_a's speech and random_audio's near-ties
-    windows = [_whisper_window(asr["cuda"], asr["cpu"], a) for a in audio[::3]]
+    # one of the four clips, sync_a's speech (two until the hf_train phase,
+    # random_audio's near-ties the other: a cut that pays for it)
+    windows = [_whisper_window(asr["cuda"], asr["cpu"], a) for a in audio[:1]]
     out["whisper"] = {"checkpoint": "hf/whisper (base, 6 + 6 x 512, real weights)",
                       "call": "transcribe() of one clip's 10 s of 16 kHz audio (one 30 s window)",
                       **_model_row(lambda: asr["cuda"].transcribe("", audio=audio[0]), calls=3),
@@ -822,7 +840,7 @@ def hf_phase():
     n_text = cfg["text_config"]["max_position_embeddings"]
     clip = {d: HFClip(_seeded_clip(cfg), lambda t: tok(t, n_text), cfg["vision_config"]["image_size"],
                       meta["cal_offset"], meta["cal_scale"], device=d) for d in ("cuda", "cpu")}
-    images = [im for kf in keyframes for im in kf]
+    images = list(keyframes[0])   # one clip's 10 (the four clips' 40 until the hf_train phase)
     captions = _sentences(len(images))
     sims = {d: c.image_text_similarity_batch(images, captions) for d, c in clip.items()}
     gap = float(np.abs(sims["cuda"] - sims["cpu"]).max())
@@ -1640,8 +1658,9 @@ def _zoo_outputs(f):
                                                       for e in f.evidence)]}
 
 
-#: the full_dag phase's CPU runs: every other clip of the four (sync_a, dubbed)
-CPU_CLIPS = slice(None, None, 2)
+#: the full_dag phase's CPU runs: sync_a of the four (sync_a and dubbed until
+#: the hf_train phase: a cut that pays for it)
+CPU_CLIPS = slice(0, 1)
 
 
 def full_dag_phase():
@@ -1653,7 +1672,7 @@ def full_dag_phase():
     standard = [("card_bf16", "cuda", bf16, (False, True)), ("card_f32", "cuda", f32, (False,)),
                 ("cpu_f32", "cpu", f32, (False,))]
     # the hf bundle runs 8 at once in the batch phase, so here it runs one at
-    # a time only; the CPU runs take every other clip (one in sync, one dubbed)
+    # a time only; the CPU runs take the clip in sync (CPU_CLIPS)
     configs = {"hermetic": standard, "zoo": standard,
                "hf": [("card_f32", "cuda", f32, (False,)), ("cpu_f32", "cpu", f32, (False,))]}
     # the hf bundle's clips say the zoo's sentence as one formant utterance (Whisper's domain)
@@ -1987,10 +2006,10 @@ def batch_phase():
         b = _batch_run(f32, paths, os.path.join(tmp, "b"), "cuda", 1)
         del f32
         cpu = production_providers(ckpt, device="cpu", compute_dtype=torch.float32, recorded_services=True)
-        c = _batch_run(cpu, paths[:2], os.path.join(tmp, "c"), "cpu", 1)
+        c = _batch_run(cpu, paths[:1], os.path.join(tmp, "c"), "cpu", 1)   # 2 clips until hf_train
         del cpu
         for r, what in ((a, "(a) card f32, 8 at once"), (b, "(b) card f32, one at a time"),
-                        (c, "(c) CPU f32, 2 clips")):
+                        (c, "(c) CPU f32, 1 clip")):
             check(all(v == len(r["finals"]) for v in r["nodes_done"].values()),
                   f"batch {what}: nodes done {r['nodes_done']}")
             check(all(np.isfinite(f.fake_probability) and 0.0 < f.fake_probability < 1.0
@@ -2008,12 +2027,12 @@ def batch_phase():
         dubbed = [v for v, lab in zip(lips, labels) if lab == 1]
         check(min(sync) > max(dubbed), f"batch (b): synced clips' lip_sync {sync} not above the dubbed {dubbed}")
         result["a_vs_b"] = _batch_compare(a["finals"], b["finals"], "(a) coalesced vs (b) alone, card f32")
-        result["b_vs_c"] = _batch_compare(b["finals"][:2], c["finals"], "(b) card f32 vs (c) CPU f32")
+        result["b_vs_c"] = _batch_compare(b["finals"][:1], c["finals"], "(b) card f32 vs (c) CPU f32")
         result["outputs_b"] = [{k: o[k] for k in ("transcript", "texture", "gestures")}
                                for o in map(_batch_outputs, b["finals"])]
         result["runs"] = {"a_card_f32_concurrency_8": _batch_summary(a, n),
                           "b_card_f32_one_at_a_time": _batch_summary(b, n),
-                          "c_cpu_f32_two_clips": _batch_summary(c, len(c["finals"]))}
+                          "c_cpu_f32_one_clip": _batch_summary(c, len(c["finals"]))}
         launches += a["launches"] + b["launches"]
 
         bf16 = production_providers(ckpt, device="cuda", compute_dtype=torch.bfloat16, recorded_services=True)
@@ -2054,8 +2073,9 @@ def batch_phase():
     return launches
 
 
-#: the stream phase: bench.py's clip length, uncut, and the two chunk sizes
-STREAM_CLIP_SECONDS = BENCH_CLIP_SECONDS
+#: the stream phase: 20 s clips (bench.py's 30 s until the hf_train phase: a
+#: cut that pays for it) and the two chunk sizes
+STREAM_CLIP_SECONDS = 20.0
 STREAM_CHUNKS = (5.0, 2.0)
 #: per progressive update, card f32 against CPU f32 and 2 s chunks against
 #: 5 s: lip_sync, blink_rate and fake_probability (the kernel's bar)
@@ -2141,9 +2161,9 @@ def _stream_gaps(a, b):
 
 
 def stream_phase():
-    """Progressive analysis (``fvd_tpu_torch.streaming``) at bench.py's clip
-    length: the production bundle's detector and hourglass on the card, C1
-    on the card once per update."""
+    """Progressive analysis (``fvd_tpu_torch.streaming``) on 20 s clips of
+    bench.py's corpus: the production bundle's detector and hourglass on the
+    card, C1 on the card once per update."""
     import torch
 
     from fvd_tpu_torch import _kernels
@@ -2413,7 +2433,9 @@ TRAIN_ZERO_GRAD = {"lmk": ("Conv_1.bias",)}
 TRAIN_ZERO_GRAD_TOL = 1e-12
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3
-TRAIN_CLI_STEPS = 30
+#: the tool's steps in its subprocess: 15 since the hf_train phase (30 until
+#: then, 50 before the fan phase); every loss still falls by a third or more
+TRAIN_CLI_STEPS = 15
 TRAIN_RESUME_STEPS = 10
 #: the realism levers' run of the tool (the JAX tool's flags)
 TRAIN_LEVERS = ["--dense", "--photometric", "--shading", "--portrait", "--augment"]
@@ -2765,7 +2787,8 @@ def net_phase():
 #: and the JAX tools' batches and learning rates
 ZOO_TRAIN_BATCH = {"asr": 16, "text": 64, "clip": 32, "ctc": 32}
 ZOO_TRAIN_LR = {"asr": 1e-3, "text": 3e-4, "clip": 3e-4, "ctc": 1e-3}
-ZOO_CLI_STEPS = 50
+#: each tool's steps in its subprocess: 25 since the hf_train phase (50 before)
+ZOO_CLI_STEPS = 25
 ZOO_RESUME_STEPS = 10
 
 
@@ -3449,9 +3472,279 @@ def fan_phase():
     phase("fan", **result)
 
 
+#: the hf_train phase: (a)'s small geometries (BERT 2 x 64, CLIP --tiny,
+#: Whisper d64 2 + 2 with vocab 600), three steps of each tool's loss and
+#: chain at a learning rate that moves the weights after a one-step warmup
+HF_PARITY = {"batch": {"minilm": 8, "clip": 6, "whisper": 2}, "lr": 1e-3, "warmup": 1}
+#: (b): the tools at the full geometry, a handful of steps each, inside
+#: their default warmups (a fresh AdamW at full rate on a trained model
+#: takes ~lr steps on every weight and undoes it); the pools cut from the
+#: tools' 1 600 phrases and 2 304 text scenes
+HF_TRAIN_STEPS = 10
+HF_TRAIN_BATCH = {"minilm": 96, "whisper": 8, "clip": 128}
+HF_TRAIN_POOL = {"whisper": 128, "clip": 256}
+#: (c): the shipped Whisper's held-out phrases decoded on the CPU too (a cut
+#: of the tool's 64: the CPU's float32 encoder takes ~0.4 s a canvas)
+HF_EVAL_CPU_PHRASES = 8
+#: (c): MiniLM's held-out embeddings, card f32 (TF32 off) against CPU f32
+HF_EMBED_TOL = 1e-4
+#: the decay of the parameters no loss reaches (BERT's pooler, Whisper's
+#: frozen encoder positions) against optax's product of (1 - lr * 0.01)
+HF_DECAY_TOL = 1e-12
+_HF_PARITY_CASES = {}
+_HF_DECAY = {}
+
+
+def _hf_parity_cases(root):
+    """(a)'s three models (float32, CPU) and their three batches, built once:
+    -> {name: (model factory, loss, batches, the frozen parameter or None)}."""
+    import torch
+
+    from fvd_tpu_torch.models.hf_bert import BertModel
+    from fvd_tpu_torch.models.hf_clip import CLIPModel
+    from fvd_tpu_torch.models.hf_whisper import WhisperForConditionalGeneration
+    from fvd_tpu_torch.ops.whisper_frontend import mel_filter_bank
+    from fvd_tpu_torch.tools import hf_train, make_hf_geometry_checkpoints as makers
+    from fvd_tpu_torch.tools import pretrain_hf_clip as hc, pretrain_hf_minilm as hm, pretrain_hf_whisper as hw
+    from fvd_tpu_torch.utils.hf_tokenizers import Tokenizer
+
+    if _HF_PARITY_CASES:
+        return _HF_PARITY_CASES
+    hf = os.path.join(REPO, "checkpoints", "hf")
+    b = HF_PARITY["batch"]
+    cfg = hf_train.read_config(os.path.join(hf, "minilm"))
+    cfg.update(hidden_size=64, num_hidden_layers=2, num_attention_heads=2, intermediate_size=128)
+    bert_sd = makers.init_state_dict(BertModel(cfg, unused=True), "bert", cfg, 0)
+    tok = Tokenizer.from_dir(os.path.join(hf, "minilm"))
+    rng = np.random.RandomState(7)
+
+    def bert():
+        m = BertModel(cfg, unused=True)
+        m.load_state_dict(bert_sd)
+        return m
+
+    _HF_PARITY_CASES["minilm"] = (bert, hm.minilm_loss, [hm.make_batch(rng, b["minilm"], tok) for _ in range(3)],
+                                  "pooler.dense.weight")
+
+    makers.make_clip(os.path.join(root, "clip"), tiny=True)
+    ctok = Tokenizer.from_dir(os.path.join(root, "clip"))
+    imgs, caps = hc.build_pool(np.random.RandomState(0), 8, 2, 2)
+    enc = ctok(caps, hc.MAX_LEN)
+    rng = np.random.RandomState(7)
+    bw, bt = 2.0, 0.35
+    _HF_PARITY_CASES["clip"] = (
+        lambda: hf_train.load_for_training(CLIPModel, "clip", os.path.join(root, "clip"), "cpu", None),
+        lambda m, idx, pool, ids, mask: hc.clip_step_loss(m, pool, ids, mask, idx, bw, bt, []),
+        [(hc.sample_batch(rng, b["clip"], 8, 2, 2), imgs, enc["input_ids"], enc["attention_mask"])
+         for _ in range(3)], None)
+
+    makers.make_whisper(os.path.join(root, "whisper"), d_model=64, layers=2, heads=2, ffn=128, vocab_size=600)
+    wtok = Tokenizer.from_dir(os.path.join(root, "whisper"))
+    texts = hw.gen_phrases(np.random.RandomState(0), 8)
+    mel = torch.from_numpy(mel_filter_bank().astype(np.float32))
+    pool = hw.pool_power_mels(hw.render_pool(texts, np.random.RandomState(0)), mel).numpy()
+    rng = np.random.RandomState(7)
+    batches = []
+    for _ in range(3):
+        idx, off, dec_in, labels, mask, _ = hw.sample_batch(
+            rng, b["whisper"], len(texts), texts, lambda t: [i for i in wtok.encode_ids(t) if i > 1])
+        batches.append((pool, idx, off, dec_in, labels, mask))
+    _HF_PARITY_CASES["whisper"] = (
+        lambda: hf_train.load_for_training(WhisperForConditionalGeneration, "whisper", os.path.join(root, "whisper"),
+                                           "cpu", None),
+        hw.whisper_step_loss, batches, "model.encoder.embed_positions.weight")
+    return _HF_PARITY_CASES
+
+
+def _hf_train_run(name, batches, device, dtype):
+    """One of (a)'s models for one step of its tool's loss and the HF
+    tools' clipped AdamW per batch on ``device`` in ``dtype`` -> (losses,
+    step-0 gradients, final parameters); the frozen parameter's decay
+    against optax's goes into ``_HF_DECAY``."""
+    import torch
+
+    from fvd_tpu_torch.models.optim import clipped_adamw_step
+    from fvd_tpu_torch.tools import hf_train
+
+    make, loss_fn, _, frozen = _HF_PARITY_CASES[name]
+    model = make().to(device, dtype)
+    opt, sched = hf_train.hf_optimizer(model, HF_PARITY["lr"], HF_PARITY["warmup"], len(batches))
+    p0 = model.get_parameter(frozen).detach().clone() if frozen else None
+    factor, losses, grads = 1.0, [], None
+    for b in batches:
+        args = [torch.as_tensor(np.asarray(x), device=device,
+                                dtype=dtype if np.asarray(x).dtype.kind == "f" else
+                                torch.uint8 if np.asarray(x).dtype == np.uint8 else torch.long) for x in b]
+        factor *= 1.0 - sched.get_last_lr()[0] * 0.01
+        losses.append(clipped_adamw_step(loss_fn, model, opt, sched, *args))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    if frozen:
+        p = model.get_parameter(frozen).detach()
+        _HF_DECAY[(name, device)] = float(torch.linalg.vector_norm(p - p0 * factor) / torch.linalg.vector_norm(p0))
+    return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _hf_tool(module, argv):
+    """``module.run(argv)`` in this process, its stdout captured ->
+    (seconds, model, summary, replay, lines)."""
+    t0 = time.perf_counter()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        model, summary, replay = module.run(argv)
+    lines = stdout.getvalue().splitlines()
+    check(lines[0].startswith("device: cuda"), f"{module.__name__}: {lines[:2]}")
+    return time.perf_counter() - t0, model, summary, replay, lines
+
+
+def _hf_written(model, family, out, promoted):
+    """The msgpack the tool wrote, read back through the port, against the
+    trained parameters (exactly), and ``--promote``'s copy: float16 for
+    MiniLM and CLIP, the directory as it is for Whisper."""
+    import torch
+
+    from fvd_tpu_torch.utils.msgpack import leaves, read_msgpack
+    from fvd_tpu_torch.weights import hf_state_dict
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    back = hf_state_dict(read_msgpack(os.path.join(out, "flax_model.msgpack")), family, unused=True)
+    check(back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd),
+          f"{family}: the written msgpack differs from the trained parameters")
+    tree = read_msgpack(os.path.join(promoted, "flax_model.msgpack"))
+    if family == "whisper":   # the JAX tool's --promote copies the directory as it is
+        check({str(v.dtype) for _, v in leaves(tree)} == {"float32"}, "whisper: --promote's copy")
+    else:
+        check({str(v.dtype) for _, v in leaves(tree)} == {"float16"}, f"{family}: --promote wrote other than float16")
+        half = hf_state_dict(tree, family, unused=True)
+        check(all(torch.equal(half[k], sd[k].half().float()) for k in sd), f"{family}: --promote's values")
+    return {"leaves": len(sd), "promoted_mib": os.path.getsize(os.path.join(promoted, "flax_model.msgpack")) / 2 ** 20}
+
+
+def _hf_shipped_eval(root):
+    """(c): the shipped MiniLM's and Whisper's held-out evaluation before any
+    step, the models in float32 (TF32 off), card against CPU."""
+    import torch
+
+    from fvd_tpu_torch.models.hf_bert import BertModel
+    from fvd_tpu_torch.models.hf_whisper import WhisperForConditionalGeneration
+    from fvd_tpu_torch.ops.whisper_frontend import mel_filter_bank
+    from fvd_tpu_torch.tools import hf_train, pretrain_hf_minilm as hm, pretrain_hf_whisper as hw
+    from fvd_tpu_torch.utils.hf_tokenizers import Tokenizer
+
+    hf = os.path.join(REPO, "checkpoints", "hf")
+    out = {}
+    tok = Tokenizer.from_dir(os.path.join(hf, "minilm"))
+    q_ids, q_mask, _, _ = hm.make_batch(np.random.RandomState(10_000), 64, tok)
+    emb, acc = {}, {}
+    for d in ("cuda", "cpu"):
+        model = hf_train.load_for_training(BertModel, "bert", os.path.join(hf, "minilm"), d, None)
+        with torch.no_grad():
+            emb[d] = hm.embed(model, torch.from_numpy(q_ids).to(d), torch.from_numpy(q_mask).to(d)).cpu()
+        acc[d] = hm.evaluate(model, tok, 0, d)
+    gap = float((emb["cuda"] - emb["cpu"]).abs().max())
+    check(gap <= HF_EMBED_TOL and acc["cuda"] == acc["cpu"], f"minilm held-out card vs CPU: {gap}, {acc}")
+    out["minilm"] = {"retrieval_at_1": acc, "embedding_max_abs_err": gap, "tolerance": HF_EMBED_TOL}
+
+    wtok = Tokenizer.from_dir(os.path.join(hf, "whisper"))
+    rng = np.random.RandomState(0)
+    eval_texts = hw.gen_phrases(rng, 64, taken=hw.gen_phrases(rng, HF_TRAIN_POOL["whisper"]))
+    audio = hw.render_pool(eval_texts, np.random.RandomState(1), hard_frac=0.0)
+    res = {}
+    for d in ("cuda", "cpu"):
+        model = hf_train.load_for_training(WhisperForConditionalGeneration, "whisper", os.path.join(hf, "whisper"),
+                                           d, None)
+        pool = hw.pool_power_mels(audio, torch.from_numpy(mel_filter_bank().astype(np.float32)).to(d))
+        with contextlib.redirect_stdout(io.StringIO()):
+            res[d] = hw.evaluate(model, wtok, pool, eval_texts, n=HF_EVAL_CPU_PHRASES)
+    n = HF_EVAL_CPU_PHRASES
+    check(abs(res["cuda"][0] - res["cpu"][0]) <= 1.0 / n and abs(res["cuda"][1] - res["cpu"][1]) <= 1.0 / n,
+          f"whisper held-out card vs CPU: {res}")
+    out["whisper"] = {"phrases": n, "exact_char": res}
+    return out
+
+
+def hf_train_phase():
+    """The HF trainers: (a) three steps of each tool's loss and chain, card
+    against CPU in float64 at small geometries, the pooler's and the frozen
+    positions' decay against optax's; (b) each tool at the full geometry in
+    this process (MiniLM and Whisper resumed from copies of the shipped
+    checkpoints, CLIP fabricated by the port's maker), its files read back
+    and promoted; (c) the shipped MiniLM's and Whisper's held-out evaluation
+    before any step, card f32 against CPU f32."""
+    import torch
+
+    from fvd_tpu_torch.models.hf_bert import BertModel
+    from fvd_tpu_torch.models.hf_clip import CLIPModel
+    from fvd_tpu_torch.models.hf_whisper import WhisperForConditionalGeneration
+    from fvd_tpu_torch.providers.hf_models import HFClip, HFTextEncoder, HFWhisperASR
+    from fvd_tpu_torch.tools import hf_train, make_hf_geometry_checkpoints as makers
+    from fvd_tpu_torch.tools import pretrain_hf_clip as hc, pretrain_hf_minilm as hm, pretrain_hf_whisper as hw
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "hf_train: TF32 must stay off for the card-vs-CPU bars")
+    result = {"nvidia_smi": SMI_LINE, "cut": {"steps": HF_TRAIN_STEPS, "batch": HF_TRAIN_BATCH, "pool": HF_TRAIN_POOL,
+                                              "cpu_eval_phrases": HF_EVAL_CPU_PHRASES, "parity": HF_PARITY}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cases = _hf_parity_cases(os.path.join(tmp, "parity"))
+        result["a_setup_s"] = time.perf_counter() - t0
+        result["a_parity"] = _train_parity({k: v[2] for k, v in cases.items()}, run=_hf_train_run, tags=("f64",),
+                                           zero_grad=_tiny_grads)
+        for key, rel in _HF_DECAY.items():
+            check(rel <= HF_DECAY_TOL, f"hf_train {key}: the frozen parameter's decay is {rel} off optax's")
+        result["a_decay_rel"] = {f"{k[0]}_{k[1]}": v for k, v in _HF_DECAY.items()}
+
+        hf = os.path.join(REPO, "checkpoints", "hf")
+        common = ["--steps", str(HF_TRAIN_STEPS), "--eval-every", "0", "--save-every", "0"]
+        runs = {}
+        for name, module, family, cls, extra, provider in (
+                ("minilm", hm, "bert", BertModel, ["--resume"], HFTextEncoder),
+                ("whisper", hw, "whisper", WhisperForConditionalGeneration,
+                 ["--resume", "--pool", str(HF_TRAIN_POOL["whisper"])], HFWhisperASR),
+                ("clip", hc, "clip", CLIPModel, ["--pool", str(HF_TRAIN_POOL["clip"])], HFClip)):
+            out, promoted = os.path.join(tmp, name), os.path.join(tmp, f"{name}_f16")
+            if "--resume" in extra:
+                shutil.copytree(os.path.join(hf, name), out)
+            seconds, model, summary, replay, lines = _hf_tool(
+                module, common + extra + ["--batch", str(HF_TRAIN_BATCH[name]), "--out", out, "--promote", promoted])
+            check(summary["steps"] == HF_TRAIN_STEPS and np.isfinite(summary["loss_curve"]).all(),
+                  f"pretrain_hf_{name}: losses {summary['loss_curve']}")
+            written = _hf_written(model, family, out, promoted)
+            # the losses fall: the mean loss over the run's batches, before
+            # (the shipped weights, or the maker's again) and after training
+            t1 = time.perf_counter()
+            trained = replay(model)
+            del model
+            if "--resume" in extra:
+                start = hf_train.load_for_training(cls, family, os.path.join(hf, name), "cuda")
+            else:   # the maker's weights again, without writing them
+                cfg = makers.clip_config()
+                start = hf_train.training_model(cls, family, cfg, torch.bfloat16)
+                start.load_state_dict(makers.init_state_dict(start, family, cfg, 0))
+                start = start.cuda()
+            before = replay(start)
+            del start
+            check(trained < before, f"pretrain_hf_{name}: the run's batches' loss {before} -> {trained}")
+            written["replayed_loss"] = {"before": before, "after": trained, "s": time.perf_counter() - t1}
+            t1 = time.perf_counter()
+            served = provider.from_local(out, device="cuda")
+            written["provider_load_s"] = time.perf_counter() - t1
+            with open(os.path.join(out, "fvd_train_meta.json")) as f:
+                written["meta_keys"] = sorted(json.load(f))
+            del served
+            torch.cuda.empty_cache()
+            runs[name] = {"s": seconds, "summary": summary, "written": written,
+                          "lines": [ln for ln in lines if ln.startswith(("[", "    ", "pool", "render"))][-8:]}
+        result["b_tools"] = runs
+        t0 = time.perf_counter()
+        result["c_shipped_eval"] = _hf_shipped_eval(tmp)
+        result["c_s"] = time.perf_counter() - t0
+    phase("hf_train", **result)
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan")
+          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train")
 
 
 def main(argv=None) -> int:
@@ -3483,7 +3776,7 @@ def main(argv=None) -> int:
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
-                 "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase}
+                 "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0
     for name in PHASES:
         if name in counted and name in only:

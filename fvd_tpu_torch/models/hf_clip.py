@@ -15,16 +15,27 @@ spells it), so the checkpoint loads through
   where that id is 2 (the rule of checkpoints older than transformers PR
   #24773).  This checkpoint's ``eos_token_id`` is 0;
 * ``quick_gelu``, LayerNorm at the config's eps, projections with no bias,
-  and both embeddings divided by their L2 norm with no epsilon.
+  and both embeddings divided by their L2 norm with no epsilon;
+* with ``unused``, ``logit_scale``, a 0-d parameter
+  (``logit_scale_init_value``, 2.6592 by default), which the forward never
+  reads: ``tools/pretrain_hf_clip.py`` scales its logits by
+  ``exp(clip(logit_scale, 0, log 100))``.  Inference has none.
 
-Float32 throughout.
+Float32 throughout unless ``compute_dtype`` is given: bfloat16 on float32
+parameters is how the trainer runs the model
+(:mod:`fvd_tpu_torch.models.hf_layers`).  The vision tower's class
+embedding is a raw parameter, so the patch row joins it in float32 until
+``pre_layrnorm``, as ``jnp.concatenate`` promotes it.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from fvd_tpu_torch.models.hf_layers import Conv2d, Embedding, LayerNorm, Linear, set_compute_dtype
 from fvd_tpu_torch.models.transformer import HF_ACTIVATIONS, attention_bias, dot_product_attention
 
 
@@ -33,20 +44,21 @@ class CLIPAttention(nn.Module):
         super().__init__()
         d = cfg["hidden_size"]
         self.heads = cfg["num_attention_heads"]
-        self.k_proj, self.v_proj, self.q_proj, self.out_proj = (nn.Linear(d, d) for _ in range(4))
+        self.k_proj, self.v_proj, self.q_proj, self.out_proj = (Linear(d, d) for _ in range(4))
 
     def forward(self, x: torch.Tensor, bias=None) -> torch.Tensor:
         b, t, d = x.shape
         split = lambda y: y.view(b, t, self.heads, d // self.heads)  # noqa: E731
-        o = dot_product_attention(split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x)), bias)
+        o = dot_product_attention(split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x)), bias,
+                                  follow_dtype=True)
         return self.out_proj(o.reshape(b, t, d))
 
 
 class CLIPMLP(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
-        self.fc1 = nn.Linear(cfg["hidden_size"], cfg["intermediate_size"])
-        self.fc2 = nn.Linear(cfg["intermediate_size"], cfg["hidden_size"])
+        self.fc1 = Linear(cfg["hidden_size"], cfg["intermediate_size"])
+        self.fc2 = Linear(cfg["intermediate_size"], cfg["hidden_size"])
         self.act = HF_ACTIVATIONS[cfg["hidden_act"]]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,9 +70,9 @@ class CLIPEncoderLayer(nn.Module):
         super().__init__()
         d, eps = cfg["hidden_size"], cfg["layer_norm_eps"]
         self.self_attn = CLIPAttention(cfg)
-        self.layer_norm1 = nn.LayerNorm(d, eps=eps)
+        self.layer_norm1 = LayerNorm(d, eps=eps)
         self.mlp = CLIPMLP(cfg)
-        self.layer_norm2 = nn.LayerNorm(d, eps=eps)
+        self.layer_norm2 = LayerNorm(d, eps=eps)
 
     def forward(self, x: torch.Tensor, bias=None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), bias)
@@ -81,8 +93,8 @@ class CLIPEncoder(nn.Module):
 class CLIPTextEmbeddings(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
-        self.token_embedding = nn.Embedding(cfg["vocab_size"], cfg["hidden_size"])
-        self.position_embedding = nn.Embedding(cfg["max_position_embeddings"], cfg["hidden_size"])
+        self.token_embedding = Embedding(cfg["vocab_size"], cfg["hidden_size"])
+        self.position_embedding = Embedding(cfg["max_position_embeddings"], cfg["hidden_size"])
 
 
 class CLIPTextTransformer(nn.Module):
@@ -91,7 +103,7 @@ class CLIPTextTransformer(nn.Module):
         self.eos_token_id = cfg.get("eos_token_id", 49407)
         self.embeddings = CLIPTextEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg["hidden_size"], eps=cfg["layer_norm_eps"])
+        self.final_layer_norm = LayerNorm(cfg["hidden_size"], eps=cfg["layer_norm_eps"])
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """[B, T] ids and mask -> the pooled output [B, D]."""
@@ -99,7 +111,7 @@ class CLIPTextTransformer(nn.Module):
         pos = torch.arange(t, device=input_ids.device)
         x = self.embeddings.token_embedding(input_ids) + self.embeddings.position_embedding(pos)[None]
         causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-        bias = attention_bias((attention_mask[:, None, None, :] > 0) & causal)
+        bias = attention_bias((attention_mask[:, None, None, :] > 0) & causal, x.dtype)
         x = self.final_layer_norm(self.encoder(x, bias))
         at = input_ids.argmax(dim=-1) if self.eos_token_id == 2 else \
             (input_ids == self.eos_token_id).int().argmax(dim=-1)
@@ -111,13 +123,15 @@ class CLIPVisionEmbeddings(nn.Module):
         super().__init__()
         d, p = cfg["hidden_size"], cfg["patch_size"]
         self.class_embedding = nn.Parameter(torch.zeros(d))
-        self.patch_embedding = nn.Conv2d(cfg.get("num_channels", 3), d, p, stride=p, bias=False)
-        self.position_embedding = nn.Embedding((cfg["image_size"] // p) ** 2 + 1, d)
+        self.patch_embedding = Conv2d(cfg.get("num_channels", 3), d, p, stride=p, bias=False)
+        self.position_embedding = Embedding((cfg["image_size"] // p) ** 2 + 1, d)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:   # [B, H, W, C]
         x = self.patch_embedding(pixels.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
-        x = torch.cat([self.class_embedding.expand(x.shape[0], 1, -1), x], dim=1)
-        return x + self.position_embedding.weight[None]
+        cls = self.class_embedding.expand(x.shape[0], 1, -1)
+        dt = torch.promote_types(cls.dtype, x.dtype)
+        x = torch.cat([cls.to(dt), x.to(dt)], dim=1)
+        return x + self.position_embedding.table()[None]
 
 
 class CLIPVisionTransformer(nn.Module):
@@ -125,9 +139,9 @@ class CLIPVisionTransformer(nn.Module):
         super().__init__()
         d, eps = cfg["hidden_size"], cfg["layer_norm_eps"]
         self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layrnorm = nn.LayerNorm(d, eps=eps)
+        self.pre_layrnorm = LayerNorm(d, eps=eps)
         self.encoder = CLIPEncoder(cfg)
-        self.post_layernorm = nn.LayerNorm(d, eps=eps)
+        self.post_layernorm = LayerNorm(d, eps=eps)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] normalised pixels -> the pooled output [B, D]."""
@@ -136,15 +150,20 @@ class CLIPVisionTransformer(nn.Module):
 
 
 class CLIPModel(nn.Module):
-    """``cfg`` is the checkpoint's ``config.json``."""
+    """``cfg`` is the checkpoint's ``config.json``; ``compute_dtype`` (None:
+    the parameters') is Flax's ``dtype=``; ``unused`` adds ``logit_scale``,
+    which only training reads."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, compute_dtype: Optional[torch.dtype] = None, unused: bool = False):
         super().__init__()
         text, vision = cfg["text_config"], cfg["vision_config"]
         self.text_model = CLIPTextTransformer(text)
         self.vision_model = CLIPVisionTransformer(vision)
-        self.visual_projection = nn.Linear(vision["hidden_size"], cfg["projection_dim"], bias=False)
-        self.text_projection = nn.Linear(text["hidden_size"], cfg["projection_dim"], bias=False)
+        self.visual_projection = Linear(vision["hidden_size"], cfg["projection_dim"], bias=False)
+        self.text_projection = Linear(text["hidden_size"], cfg["projection_dim"], bias=False)
+        if unused:
+            self.logit_scale = nn.Parameter(torch.tensor(float(cfg.get("logit_scale_init_value", 2.6592))))
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor):
         """``(image_embeds, text_embeds)``, each divided by its L2 norm."""

@@ -18,7 +18,13 @@ Modules are named as the Flax ones are, so the checkpoint loads through
 :func:`greedy_generate` is Flax's ``_greedy_search`` as a host loop with a
 key/value cache: the cross-attention keys and values are computed once per
 window, each step appends one position to the self-attention cache and
-fetches whether every row has ended (one fetch per step).  Float32 throughout.
+fetches whether every row has ended (one fetch per step).  Float32
+throughout unless ``compute_dtype`` is given: bfloat16 on float32
+parameters is how ``tools/pretrain_hf_whisper.py`` trains the model
+(:mod:`fvd_tpu_torch.models.hf_layers`).  The encoder's ``embed_positions``
+is frozen, as the Flax encoder's ``stop_gradient`` freezes it: it gets no
+gradient from the loss, but AdamW's weight decay still shrinks it, as optax
+shrinks every leaf.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 
+from fvd_tpu_torch.models.hf_layers import Conv1d, Embedding, LayerNorm, Linear, set_compute_dtype
 from fvd_tpu_torch.models.transformer import HF_ACTIVATIONS, attention_bias, dot_product_attention
 
 
@@ -35,10 +42,10 @@ class WhisperAttention(nn.Module):
     def __init__(self, d: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d, bias=False)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Linear(d, d)
+        self.k_proj = Linear(d, d, bias=False)
+        self.v_proj = Linear(d, d)
+        self.out_proj = Linear(d, d)
 
     def split(self, y: torch.Tensor) -> torch.Tensor:
         return y.view(y.shape[0], y.shape[1], self.heads, -1)
@@ -47,7 +54,7 @@ class WhisperAttention(nn.Module):
         return self.split(self.k_proj(x)), self.split(self.v_proj(x))
 
     def forward(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None) -> torch.Tensor:
-        o = dot_product_attention(self.split(self.q_proj(x)), k, v, bias)
+        o = dot_product_attention(self.split(self.q_proj(x)), k, v, bias, follow_dtype=True)
         return self.out_proj(o.reshape(x.shape[0], x.shape[1], -1))
 
 
@@ -56,10 +63,10 @@ class WhisperEncoderLayer(nn.Module):
         super().__init__()
         d = cfg["d_model"]
         self.self_attn = WhisperAttention(d, cfg["encoder_attention_heads"])
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.fc1 = nn.Linear(d, cfg["encoder_ffn_dim"])
-        self.fc2 = nn.Linear(cfg["encoder_ffn_dim"], d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.self_attn_layer_norm = LayerNorm(d, eps=1e-5)
+        self.fc1 = Linear(d, cfg["encoder_ffn_dim"])
+        self.fc2 = Linear(cfg["encoder_ffn_dim"], d)
+        self.final_layer_norm = LayerNorm(d, eps=1e-5)
         self.act = HF_ACTIVATIONS[cfg["activation_function"]]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -73,12 +80,12 @@ class WhisperDecoderLayer(nn.Module):
         super().__init__()
         d = cfg["d_model"]
         self.self_attn = WhisperAttention(d, cfg["decoder_attention_heads"])
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.self_attn_layer_norm = LayerNorm(d, eps=1e-5)
         self.encoder_attn = WhisperAttention(d, cfg["decoder_attention_heads"])
-        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=1e-5)
-        self.fc1 = nn.Linear(d, cfg["decoder_ffn_dim"])
-        self.fc2 = nn.Linear(cfg["decoder_ffn_dim"], d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.encoder_attn_layer_norm = LayerNorm(d, eps=1e-5)
+        self.fc1 = Linear(d, cfg["decoder_ffn_dim"])
+        self.fc2 = Linear(cfg["decoder_ffn_dim"], d)
+        self.final_layer_norm = LayerNorm(d, eps=1e-5)
         self.act = HF_ACTIVATIONS[cfg["activation_function"]]
 
     def forward(self, x: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor, bias=None,
@@ -102,11 +109,11 @@ class WhisperEncoder(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
         d = cfg["d_model"]
-        self.conv1 = nn.Conv1d(cfg["num_mel_bins"], d, 3, padding=1)
-        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
-        self.embed_positions = nn.Embedding(cfg["max_source_positions"], d)
+        self.conv1 = Conv1d(cfg["num_mel_bins"], d, 3, padding=1)
+        self.conv2 = Conv1d(d, d, 3, stride=2, padding=1)
+        self.embed_positions = Embedding(cfg["max_source_positions"], d)
         self.layers = nn.ModuleList(WhisperEncoderLayer(cfg) for _ in range(cfg["encoder_layers"]))
-        self.layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.layer_norm = LayerNorm(d, eps=1e-5)
         self.act = HF_ACTIVATIONS[cfg["activation_function"]]
         self.frames = 2 * cfg["max_source_positions"]
 
@@ -115,7 +122,7 @@ class WhisperEncoder(nn.Module):
         if features.shape[-1] != self.frames:
             raise ValueError(f"input_features must have {self.frames} frames, not {features.shape[-1]}")
         x = self.act(self.conv2(self.act(self.conv1(features)))).transpose(1, 2)
-        x = x + self.embed_positions.weight[None]
+        x = x + self.embed_positions.table().detach()[None]
         for layer in self.layers:
             x = layer(x)
         return self.layer_norm(x)
@@ -125,10 +132,10 @@ class WhisperDecoder(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
         d = cfg["d_model"]
-        self.embed_tokens = nn.Embedding(cfg["vocab_size"], d)
-        self.embed_positions = nn.Embedding(cfg["max_target_positions"], d)
+        self.embed_tokens = Embedding(cfg["vocab_size"], d)
+        self.embed_positions = Embedding(cfg["max_target_positions"], d)
         self.layers = nn.ModuleList(WhisperDecoderLayer(cfg) for _ in range(cfg["decoder_layers"]))
-        self.layer_norm = nn.LayerNorm(d, eps=1e-5)
+        self.layer_norm = LayerNorm(d, eps=1e-5)
 
 
 class WhisperModel(nn.Module):
@@ -139,12 +146,14 @@ class WhisperModel(nn.Module):
 
 
 class WhisperForConditionalGeneration(nn.Module):
-    """``cfg`` is the checkpoint's ``config.json``."""
+    """``cfg`` is the checkpoint's ``config.json``; ``compute_dtype`` (None:
+    the parameters') is Flax's ``dtype=``."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = cfg
         self.model = WhisperModel(cfg)
+        set_compute_dtype(self, compute_dtype)
 
     def encode(self, features: torch.Tensor) -> torch.Tensor:
         return self.model.encoder(features)
@@ -155,15 +164,16 @@ class WhisperForConditionalGeneration(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         dec = self.model.decoder
-        return dec.layer_norm(x) @ dec.embed_tokens.weight.T
+        return dec.layer_norm(x) @ dec.embed_tokens.table().T
 
     def forward(self, features: torch.Tensor, decoder_input_ids: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits [B, S, vocab] of ``decoder_input_ids`` [B, S]."""
+        """Teacher-forced logits [B, S, vocab] of ``decoder_input_ids`` [B, S]
+        at positions ``0..S``, in the compute dtype."""
         dec = self.model.decoder
         cross = self.cross_key_values(self.encode(features))
         s = decoder_input_ids.shape[-1]
-        x = dec.embed_tokens(decoder_input_ids) + dec.embed_positions.weight[:s][None]
-        bias = attention_bias(torch.ones((s, s), dtype=torch.bool, device=x.device).tril())
+        x = dec.embed_tokens(decoder_input_ids) + dec.embed_positions.table()[:s][None]
+        bias = attention_bias(torch.ones((s, s), dtype=torch.bool, device=x.device).tril(), x.dtype)
         for layer, (ck, cv) in zip(dec.layers, cross):
             x = layer(x, ck, cv, bias)
         return self._logits(x)
@@ -186,11 +196,12 @@ def greedy_generate(model: WhisperForConditionalGeneration, features: torch.Tens
     seq[:, 0] = start_id
     heads = dec.layers[0].self_attn.heads
     d = dec.embed_tokens.weight.shape[1]
-    cache = [(torch.zeros(b, max_length, heads, d // heads, device=dev),
-              torch.zeros(b, max_length, heads, d // heads, device=dev)) for _ in dec.layers]
+    dt = cross[0][0].dtype
+    cache = [(torch.zeros(b, max_length, heads, d // heads, device=dev, dtype=dt),
+              torch.zeros(b, max_length, heads, d // heads, device=dev, dtype=dt)) for _ in dec.layers]
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for t in range(max_length - 1):
-        x = dec.embed_tokens(seq[:, t:t + 1]) + dec.embed_positions.weight[t][None, None]
+        x = dec.embed_tokens(seq[:, t:t + 1]) + dec.embed_positions.table()[t][None, None]
         for layer, (ck, cv), kv in zip(dec.layers, cross, cache):
             x = layer(x, ck, cv, cache=kv, t=t)
         logits = model._logits(x)[:, 0]

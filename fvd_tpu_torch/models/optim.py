@@ -1,7 +1,10 @@
-"""The FAN trainer's optimiser: ``optax.chain(clip_by_global_norm(1.0),
+"""The trainers' optimiser: ``optax.chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule(0, lr, warmup, max(steps, warmup + 1),
-end_value=lr * 0.05), weight_decay=1e-4))`` of ``tools/pretrain_fan.py``,
-on ``torch.optim.AdamW``.
+end_value=end_value), b2=b2, weight_decay=weight_decay))`` on
+``torch.optim.AdamW``.  ``tools/pretrain_fan.py`` runs it at end_value
+``lr * 0.05``, b2 0.999 and weight decay 1e-4, the HF trainers
+(``tools/pretrain_hf_{minilm,whisper,clip}.py``) at ``lr * 0.03``, 0.98 and
+0.01.
 
 * :func:`warmup_cosine_decay` is optax's schedule: a linear warmup from
   ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine decay
@@ -14,13 +17,18 @@ on ``torch.optim.AdamW``.
   (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
   1e-6)`` whatever the norm is below).
 * ``torch.optim.AdamW`` decays every parameter by ``lr * weight_decay``
-  outside the Adam step, which is ``optax.adamw`` with no mask.
+  outside the Adam step, which is ``optax.adamw`` with no mask, but it skips
+  a parameter whose ``.grad`` is None.  optax differentiates every leaf: one
+  the loss never reads (BERT's pooler) or reads behind ``stop_gradient``
+  (Whisper's encoder positions) gets a zero gradient, so a zero Adam step
+  and the decay.  :func:`clipped_adamw_step` gives such parameters zero
+  gradients for the same result.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,16 +60,18 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def adamw_warmup_cosine(model: nn.Module, lr: float, warmup: int, steps: int,
-                        weight_decay: float = 1e-4) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+def adamw_warmup_cosine(model: nn.Module, lr: float, warmup: int, steps: int, weight_decay: float = 1e-4,
+                        end_value: Optional[float] = None, b2: float = 0.999
+                        ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
     """``optax.adamw(warmup_cosine_decay_schedule(0, lr, warmup, max(steps,
-    warmup + 1), end_value=lr * 0.05), weight_decay=weight_decay)`` over
-    ``model``'s parameters -> (optimiser, schedule); step the schedule after
-    every optimiser step."""
-    opt = torch.optim.AdamW(model.parameters(), lr=1.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    warmup + 1), end_value=end_value), b2=b2, weight_decay=weight_decay)``
+    over ``model``'s parameters (``end_value`` None: ``lr * 0.05``) ->
+    (optimiser, schedule); step the schedule after every optimiser step."""
+    end_value = lr * 0.05 if end_value is None else end_value
+    opt = torch.optim.AdamW(model.parameters(), lr=1.0, betas=(0.9, b2), eps=1e-8, weight_decay=weight_decay)
     decay = max(steps, warmup + 1)
     sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda count: warmup_cosine_decay(count, 0.0, lr, warmup, decay, end_value=lr * 0.05))
+        opt, lambda count: warmup_cosine_decay(count, 0.0, lr, warmup, decay, end_value=end_value))
     return opt, sched
 
 
@@ -69,10 +79,14 @@ def clipped_adamw_step(loss_fn: Callable, model: nn.Module, opt: torch.optim.Opt
                        sched: torch.optim.lr_scheduler.LRScheduler, *args, max_norm: float = 1.0) -> torch.Tensor:
     """One step of ``clip_by_global_norm(max_norm)`` + ``opt`` on
     ``loss_fn(model, *args)``, then the schedule's count; -> the loss before
-    the update, detached (no host sync)."""
+    the update, detached (no host sync).  A parameter the loss does not
+    reach gets a zero gradient, as optax gives it."""
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(model, *args)
     loss.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     clip_by_global_norm_(model.parameters(), max_norm)
     opt.step()
     sched.step()

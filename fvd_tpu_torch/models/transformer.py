@@ -44,16 +44,18 @@ HF_ACTIVATIONS = {"gelu": F.gelu, "quick_gelu": quick_gelu}
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None, follow_dtype: bool = False) -> torch.Tensor:
     """flax's ``dot_product_attention`` as the Hugging Face Flax models call
     it: ``q`` [B, Tq, H, Dh] divided by ``sqrt(Dh)``, scores plus the additive
     ``bias`` (broadcastable to [B, H, Tq, Tk]), a softmax in float32 (float64
-    for float64 scores, as flax computes it in the inputs' dtype), the
+    for float64 scores, as flax computes it in the inputs' dtype; in the
+    scores' own dtype with ``follow_dtype``, as ``dtype=bfloat16`` does), the
     weighted sum of ``v`` [B, Tk, H, Dh] -> [B, Tq, H, Dh]."""
     s = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(q.shape[-1]), k)
     if bias is not None:
         s = s + bias
-    w = torch.softmax(s, dim=-1, dtype=torch.promote_types(s.dtype, torch.float32)).to(v.dtype)
+    sdt = s.dtype if follow_dtype else torch.promote_types(s.dtype, torch.float32)
+    w = torch.softmax(s, dim=-1, dtype=sdt).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 

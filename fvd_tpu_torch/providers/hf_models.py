@@ -41,6 +41,9 @@ def _json(path: str, name: str) -> dict:
 
 
 def _load(model: torch.nn.Module, path: str, family: str, device) -> torch.nn.Module:
+    """``model`` (built without the ``unused`` leaves) with the checkpoint's
+    weights: every leaf but BERT's pooler and CLIP's ``logit_scale``, which
+    inference never reads (``weights.HF_UNUSED``)."""
     from fvd_tpu_torch.utils.msgpack import read_msgpack
 
     model.load_state_dict(hf_state_dict(read_msgpack(os.path.join(path, "flax_model.msgpack")), family),

@@ -1,6 +1,6 @@
-"""A reader of the msgpack files flax writes: the counterpart of
-``flax.serialization.msgpack_restore`` for a machine without the ``msgpack``
-package.
+"""A reader and a writer of the msgpack files flax writes: the counterparts
+of ``flax.serialization.msgpack_restore`` and ``flax.serialization.to_bytes``
+for a machine without the ``msgpack`` package.
 
 ``flax_model.msgpack`` of a Hugging Face Flax checkpoint is
 ``msgpack.packb(params)`` of a nested dict whose leaves are numpy arrays
@@ -14,6 +14,15 @@ Arrays are read-only views of the file, which :func:`read_msgpack` maps
 with ``mmap`` and keeps mapped while any view lives.  A ``bfloat16`` leaf
 (numpy has no such dtype) comes back as float32, which holds every bfloat16
 value exactly.
+
+:func:`to_bytes` packs a tree as ``msgpack.packb(tree, default=...,
+strict_types=True)`` does after flax's conversions: maps keep their keys'
+order, an ndarray is ext 1 of ``packb((shape, dtype name, C-order bytes))``
+(a 0-d array included), a numpy scalar ext 3, a complex ext 2, and an array
+of more than ``MAX_CHUNK_SIZE`` bytes the ``__msgpack_chunked_array__`` map
+flax splits it into.  Every object takes the smallest encoding msgpack-python
+gives it, so the bytes equal flax's: a file read and written again is the
+same file.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from typing import Any, Tuple
 import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+#: flax's ``MAX_CHUNK_SIZE``: an array of more bytes is split into chunks
+MAX_CHUNK_SIZE = 2 ** 30
 
 
 class _Reader:
@@ -158,3 +169,138 @@ def leaves(tree: Any, prefix: Tuple[str, ...] = ()):
             yield from leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+# -- writing ----------------------------------------------------------------
+def _sized(out: bytearray, n: int, small: int, fixed_base: int, codes) -> None:
+    """The header of a str, bin, array or map of ``n`` entries: the fixed
+    form below ``small`` (where the kind has one), else the 8-, 16- or
+    32-bit length form."""
+    if fixed_base is not None and n < small:
+        out.append(fixed_base | n)
+    elif codes[0] is not None and n <= 0xFF:
+        out += bytes((codes[0], n))
+    elif n <= 0xFFFF:
+        out.append(codes[1])
+        out += struct.pack(">H", n)
+    elif n <= 0xFFFFFFFF:
+        out.append(codes[2])
+        out += struct.pack(">I", n)
+    else:
+        raise ValueError(f"msgpack: an object of {n} entries or bytes is too large")
+
+
+def _int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF), (0xCE, ">I", 0xFFFFFFFF),
+                               (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
+            if v <= top:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"msgpack: {v} does not fit 64 bits")
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000), (0xD2, ">i", -0x80000000),
+                               (0xD3, ">q", -0x8000000000000000)):
+            if v >= low:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"msgpack: {v} does not fit 64 bits")
+
+
+def _ext(out: bytearray, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _sized(out, len(data), 0, None, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes``: ``packb((shape, dtype name, bytes))``."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("Object and structured dtypes not supported for serialization of ndarrays.")
+    out = bytearray()
+    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(out)
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif type(obj) is int:
+        _int(out, obj)
+    elif type(obj) is float:
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif type(obj) is str:
+        data = obj.encode("utf-8")
+        _sized(out, len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif type(obj) in (bytes, bytearray, memoryview):
+        data = bytes(obj)
+        _sized(out, len(data), 0, None, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif type(obj) is list:
+        _sized(out, len(obj), 16, 0x90, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif type(obj) is dict:
+        _sized(out, len(obj), 16, 0x80, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        _ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    elif type(obj) is complex:
+        data = bytearray()
+        _pack(data, [obj.real, obj.imag])
+        _ext(out, _EXT_COMPLEX, bytes(data))
+    else:
+        raise TypeError(f"msgpack: can not serialize {type(obj).__name__!r} object")
+
+
+def _state_dict(tree: Any) -> Any:
+    """flax's ``to_state_dict`` then its chunking, on a copy: dict keys as
+    strings, a list or tuple as the map of its indices, an array of more
+    than :data:`MAX_CHUNK_SIZE` bytes split into chunks."""
+    if isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        step = max(1, int(MAX_CHUNK_SIZE / tree.dtype.itemsize))
+        flat = tree.reshape(-1)
+        return {"__msgpack_chunked_array__": True, "shape": {str(i): n for i, n in enumerate(tree.shape)},
+                "chunks": {str(i): flat[j:j + step] for i, j in enumerate(range(0, flat.size, step))}}
+    return tree
+
+
+def to_bytes(tree: Any) -> bytes:
+    """The bytes ``flax.serialization.to_bytes(tree)`` gives for a nested
+    dict of numpy arrays (and numpy scalars, Python numbers, strings, bytes;
+    a list is written as the map of its indices, as flax writes it): the
+    inverse of :func:`restore`."""
+    out = bytearray()
+    _pack(out, _state_dict(tree))
+    return bytes(out)
+
+
+def write_msgpack(path: str, tree: Any) -> None:
+    """Write :func:`to_bytes` of ``tree`` to ``path`` (through a temporary
+    file beside it, so a reader never sees half a file)."""
+    import os
+
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(to_bytes(tree))
+    os.replace(tmp, path)

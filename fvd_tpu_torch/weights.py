@@ -23,7 +23,8 @@ dots and renaming the leaf:
 :func:`hf_state_dict` does the same for the Hugging Face Flax trees of
 ``checkpoints/hf/*/flax_model.msgpack`` (read by
 :mod:`fvd_tpu_torch.utils.msgpack`), whose modules the port names as the
-Flax classes do.
+Flax classes do, and :func:`hf_tree` turns a state dict back into such a
+tree, which :func:`fvd_tpu_torch.utils.msgpack.write_msgpack` writes.
 
 :func:`seeded_state_dict` gives a module weights drawn from a numpy seed,
 for runs at a model's geometry without a checkpoint, and
@@ -181,22 +182,31 @@ def kernel_width(tree: Mapping, module: str) -> int:
 
 #: leaves of the HF Flax trees that no provider reads, skipped by
 #: :func:`hf_state_dict`: BERT's pooler (the text encoder mean-pools the last
-#: hidden state) and CLIP's ``logit_scale`` (the provider takes the cosines)
+#: hidden state) and CLIP's ``logit_scale`` (the provider takes the
+#: cosines).  The models built for inference have no place for them; built
+#: with ``unused=True`` they hold them as parameters, because the HF
+#: trainers train them and write them back (``hf_state_dict(...,
+#: unused=True)``, :func:`hf_tree`).
 HF_UNUSED = {"bert": ("pooler",), "clip": ("logit_scale",), "whisper": ()}
 
+#: the ``Embed`` modules of the HF Flax trees: an ``embedding`` table, not a
+#: ``Dense`` kernel, though both are 2-D
+HF_EMBEDDINGS = ("word_embeddings", "position_embeddings", "token_type_embeddings", "token_embedding",
+                 "position_embedding", "embed_tokens", "embed_positions")
 
-def hf_state_dict(tree: Mapping, family: str) -> Dict[str, torch.Tensor]:
+
+def hf_state_dict(tree: Mapping, family: str, unused: bool = False) -> Dict[str, torch.Tensor]:
     """Torch state dict (float32, CPU) of a Hugging Face Flax params tree of
     ``family`` ("bert", "clip" or "whisper"): ``Dense`` kernels [I, O] ->
     [O, I]; CLIP's patch conv [H, W, I, O] -> [O, I, H, W] and Whisper's
     ``conv1``/``conv2`` [K, I, O] -> [O, I, K]; ``Embed`` ``embedding`` and
     LayerNorm ``scale`` -> ``weight``; ``bias`` and CLIP's raw
-    ``class_embedding`` keep their names; float16 widens to float32 exactly.
-    The leaves of :data:`HF_UNUSED` are skipped; any other leaf name
-    raises."""
+    ``class_embedding`` and ``logit_scale`` keep their names; float16
+    widens to float32 exactly, and a float64 tree stays float64.  The leaves of :data:`HF_UNUSED` are skipped
+    unless ``unused``; any other leaf name raises."""
     from fvd_tpu_torch.utils.msgpack import leaves
 
-    skip = HF_UNUSED[family]
+    skip = () if unused else HF_UNUSED[family]
     sd: Dict[str, torch.Tensor] = {}
     for path, value in leaves(tree):
         if path[0] in skip:
@@ -215,10 +225,61 @@ def hf_state_dict(tree: Mapping, family: str) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        elif leaf not in ("bias", "class_embedding"):
+        elif leaf not in ("bias", "class_embedding", "logit_scale"):
             raise ValueError(f"unexpected parameter leaf {'.'.join(path)}")
-        sd[".".join(mods + [leaf])] = torch.tensor(value.astype(np.float32))
+        sd[".".join(mods + [leaf])] = torch.tensor(value, dtype=torch.float64 if value.dtype == np.float64
+                                                   else torch.float32)
     return sd
+
+
+def hf_tree(sd: Mapping[str, torch.Tensor], family: str, extra: Optional[Mapping] = None,
+            dtype=np.float32) -> dict:
+    """The Hugging Face Flax params tree of a state dict of ``family``'s
+    model (or of its gradients): the inverse of :func:`hf_state_dict`.
+    ``weight`` -> ``kernel`` (a ``Linear``'s [O, I] -> [I, O], a conv's
+    [O, I, H, W] -> [H, W, I, O] and [O, I, K] -> [K, I, O]), ``scale`` (a
+    LayerNorm's 1-D weight) or ``embedding`` (the modules of
+    :data:`HF_EMBEDDINGS`); ``bias``, ``class_embedding`` and ``logit_scale``
+    as they are; every leaf a C-order numpy array of ``dtype``.  ``extra``,
+    a nested tree, adds leaves the state dict lacks (the :data:`HF_UNUSED`
+    ones of a model loaded for inference); the tree must end up holding
+    those.  Every level's keys are sorted, the order of the trees the JAX
+    package's trainers write (``jax.tree.map`` sorts a dict's keys)."""
+    tree: dict = {}
+    for name, value in sd.items():
+        *mods, leaf = name.split(".")
+        arr = value.detach().to("cpu", torch.float64 if value.dtype == torch.float64 else torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim == 1:
+                leaf = "scale"
+            elif mods[-1] in HF_EMBEDDINGS:
+                leaf = "embedding"
+            else:
+                leaf = "kernel"
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.transpose(2, 1, 0)
+        elif leaf not in ("bias", "class_embedding", "logit_scale"):
+            raise ValueError(f"unexpected state dict entry {name}")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.array(arr, dtype=dtype, order="C")
+
+    def merge(dst: dict, src: Mapping) -> None:
+        for k, v in src.items():
+            if isinstance(v, Mapping):
+                merge(dst.setdefault(k, {}), v)
+            else:
+                dst.setdefault(k, np.array(v, dtype=dtype, order="C"))
+
+    merge(tree, extra or {})
+    missing = [k for k in HF_UNUSED[family] if k not in tree]
+    if missing:
+        raise ValueError(f"hf_tree: the {family} tree lacks {missing}; pass them in extra")
+
+    def ordered(node):
+        return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return ordered(tree)
 
 
 def seeded_state_dict(module: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:

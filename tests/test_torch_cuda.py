@@ -891,3 +891,37 @@ def test_pose50_on_card_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     _, cpu = cs._pose50_outputs("cpu", None, crops)
     assert np.abs(card - cpu).max() <= cs.POSE50_TOL
+
+
+# ------------------------------------------------------------ the HF trainers
+@pytest.mark.parametrize("name", ["minilm", "clip", "whisper"])
+def test_hf_train_step_on_card_matches_cpu(cuda, tmp_path, name):
+    """One step of each HF tool's loss and clipped AdamW at ``chip_smoke.py``'s
+    small geometries (BERT 2 x 64, CLIP ``--tiny``, Whisper d64 2 + 2) on
+    its batches, card against CPU in float64: the loss, every gradient and
+    every updated parameter within 1e-8 relative L2 (the tensors whose
+    gradient is zero in exact arithmetic held at zero)."""
+    cs = _chip_smoke()
+    cases = cs._hf_parity_cases(str(tmp_path))
+    out = cs._train_parity({name: cases[name][2][:1]}, run=cs._hf_train_run, tags=("f64",),
+                           zero_grad=cs._tiny_grads)
+    assert max(out[name]["f64"]["loss_rel"]) <= cs.TRAIN_F64_TOL
+
+
+def test_whisper_canvas_batch_on_card_matches_cpu(cuda):
+    """``compose_canvas_batch`` of a pool of phrase tiles on the card (the
+    scatter-add into ``[B, 1 + 3000 + F, 80]``, atomics included) against
+    the CPU: unused slots, clipped offsets and overlapping tiles."""
+    from fvd_tpu_torch.ops.whisper_frontend import compose_canvas_batch, mel_filter_bank, phrase_power_mel
+
+    rng = np.random.RandomState(0)
+    audio = torch.from_numpy((rng.randn(6, 104 * 160) * 0.1).astype(np.float32))
+    mel = torch.from_numpy(mel_filter_bank().astype(np.float32))
+    idx = torch.tensor([[0, 1, 2, -1, 5], [3, 4, -1, -1, -1], [5, 5, 0, 1, 2]])
+    off = torch.tensor([[0, 100, 3100, 5, 2999], [-5, 2990, 0, 0, 0], [7, 87, 180, 260, 3000]])
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        pool = phrase_power_mel(audio.to(d), mel.to(d))
+        out[d.type] = (pool.cpu(), compose_canvas_batch(pool, idx.to(d), off.to(d)).cpu())
+    assert torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-6 * float(out["cpu"][0].abs().max()))
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1e-4

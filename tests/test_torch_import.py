@@ -63,7 +63,9 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.utils.text", "fvd_tpu_torch.models.synthetic_text", "fvd_tpu_torch.tools.pretrain_ocr",
             "fvd_tpu_torch.tools.pretrain_clip", "fvd_tpu_torch.tools.eval_heldout",
             "fvd_tpu_torch.tools.make_text_atlas", "fvd_tpu_torch.models.optim",
-            "fvd_tpu_torch.tools.pretrain_fan"} <= set(mods)
+            "fvd_tpu_torch.tools.pretrain_fan", "fvd_tpu_torch.models.hf_layers", "fvd_tpu_torch.tools.hf_train",
+            "fvd_tpu_torch.tools.make_hf_geometry_checkpoints", "fvd_tpu_torch.tools.pretrain_hf_minilm",
+            "fvd_tpu_torch.tools.pretrain_hf_whisper", "fvd_tpu_torch.tools.pretrain_hf_clip"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
