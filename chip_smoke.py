@@ -167,9 +167,11 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              the card and on the CPU from the same seeded weights and the
              port's batches (seeds 0-2), in float32 (TF32 off; the first
              step's loss) and float64 (every step's loss, the first step's
-             gradients and the last parameters per tensor); (b) the tool in a
-             subprocess on the card, ``--steps 15 --consistency``, then in
-             this process ``--only det --resume --steps 10``, which must
+             gradients and the last parameters per tensor); (b) the tool in
+             a subprocess on the card (the one trainer still run so, its
+             ``python -m`` entry as a user runs it), ``--steps 15
+             --consistency``, then in this process ``--only det --resume
+             --steps 10``, which must
              continue from step 15: per trainer the median host data ms and device ms of a
              step (CUDA events), images/s, the first and last loss (the last
              must be lower) and the eval metric; (c) the npz files it wrote
@@ -200,10 +202,10 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``formant_hard``), the text InfoNCE (192 / 4 / 256, batch 64),
              ``clip_loss`` (``clip.npz``, batch 32) and ``ctc_loss``
              (``ocr_rec.npz``, batch 32), card against CPU in float32 and
-             float64 as in ``train``; (b) each tool for 25 steps in a
-             subprocess on the card, then in this process ``pretrain_asr
-             --resume --steps
-             10``: the summaries' data and device ms a step, items/s, losses
+             float64 as in ``train``; (b) each tool's ``main`` for 25 steps
+             on the card in this process under torch's TF32 defaults (in
+             subprocesses until the eval phase), then ``pretrain_asr
+             --resume --steps 10``: the summaries' data and device ms a step, items/s, losses
              and evals; (c) the npz files served by ``JaxASR`` and
              ``JaxTextEncoder`` on the card;
 19. corpus   the labeled-corpus experiment (``python -m
@@ -230,9 +232,11 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              batch of 32 recognizer lines and detector scenes drawn on the
              host; (b) three Adam steps of the recognizer, the v2 detector
              and CLIP, card against CPU in float64; (c) ``pretrain_ocr`` and
-             ``pretrain_clip`` in subprocesses, then ``pretrain_ocr --only
-             rec --resume``; (d) ``eval_heldout`` over the five shipped
-             models, its OCR columns against the CPU;
+             ``pretrain_clip``, then ``pretrain_ocr --only rec --resume``;
+             (d) ``eval_heldout`` over the five shipped models, its OCR
+             columns against the CPU; (c) and (d) through the tools'
+             ``main`` in this process under torch's TF32 defaults
+             (subprocesses until the eval phase);
 21. fan      the reference-scale FAN trainer and ``PoseResNet50``: (a) the
              host ms to draw one batch of 16 of ``detector_batch`` with
              ``dense`` and every realism lever at 300 px and of
@@ -265,10 +269,33 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              run's batches lower after than before, and the provider
              loading the files; (c) the shipped MiniLM's and Whisper's
              held-out evaluation before any step, card f32 against CPU f32.
-             The HF trainers launch no kernel of the repo's.
+             The HF trainers launch no kernel of the repo's;
+23. eval     the paired adoption gates and the diagnostic tools of
+             ``fvd_tpu_torch.tools``, each through its ``main`` in this
+             process on the card: (a) ``eval_asr_paired --n 16`` on
+             ``asr_formant.npz`` against a copy of itself (both sides decode
+             alike, REJECT); (b) ``eval_text_paired`` on the shipped MiniLM
+             against ``text_encoder.npz`` (32 tasks, 1 round), card against
+             CPU; (c) ``eval_clip_paired --n 8`` against a ViT-B/32 from
+             ``make_hf_geometry_checkpoints`` (random weights, written to a
+             temporary directory; the trained ``clip.npz`` must keep the
+             gate); (d) ``eval_asr_whisper_paired`` on the shipped Whisper
+             (16 utterances, 2 sentences); (e) ``eval_pipeline_paired
+             --override face_ssd.npz=<copy> --duration 4``: the contract
+             holds, one C1 launch per DAG run (4), the same lip separation on
+             both sides; (f)-(g) ``diagnose_det_heldout`` and
+             ``diagnose_lmkpose_heldout`` at ``--n 16``, then every row card
+             f32 (TF32 off) against CPU f32 within ``DIAGNOSE_TOL``; (h)
+             ``profile_pipeline`` hermetic on a 10 s clip at 30 fps with
+             ``--trace``: a row per node (16), a Chrome trace with the 16
+             node spans and the card's kernels, 2 C1 launches; (i) a debug
+             run of the 16 nodes, then ``repro_node C1`` and ``LR`` on its
+             directory, equal to its values (2 C1 launches); (j)
+             ``render_dag_svg`` equal to ``docs/dag.svg``.  Paid for by cuts
+             in ``zoo_train``, ``text`` and ``hf`` (PERF.md §4).
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-22 alone.  Then one JSON line with every kernel's numbers, the card's
+4-23 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -360,6 +387,11 @@ def _subprocess_env():
     return env
 
 
+#: cuDNN's and cuBLAS's TF32 flags as torch started, before ``env_phase``
+#: turned both off; the tools run in this process get them back
+TF32_DEFAULTS = {}
+
+
 # -------------------------------------------------------------------- phases
 def env_phase():
     import torch
@@ -369,6 +401,7 @@ def env_phase():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     smi_line = smi.stdout.strip().splitlines()[0]
     # the f32 references compare f32 with f32: keep cuDNN and cuBLAS out of TF32
+    TF32_DEFAULTS.update(cudnn=torch.backends.cudnn.allow_tf32, matmul=torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     import ctypes.util
@@ -802,7 +835,8 @@ def hf_phase():
     hf = os.path.join(REPO, "checkpoints", "hf")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        clips, _ = _video_clips(os.path.join(tmp, "clips"), ZOO_SPEECH, speech="formant")
+        # the one clip the phase reads (all 4 were drawn until the eval phase)
+        clips, _ = _video_clips(os.path.join(tmp, "clips"), ZOO_SPEECH, speech="formant", n=1)
         keyframes = [VideoReader(use_cache=False).sample(c, range(0, 300, 30))[0] for c in clips]
         audio = [_clip_audio_16k(c) for c in clips]
 
@@ -1210,25 +1244,25 @@ VIDEO_SPANS = ("node/IN", "node/A1", "node/A3", "node/V1", "node/V3", "node/C1",
                "v3/decode", "v3/landmark_fwd", "v3/track", "v3/smooth", "v3/emit")
 
 
-def _video_clips(root, speech_text=None, speech="tone"):
-    """4 clips of 10 s at 30 fps and 240x320 with 44.1 kHz audio: two in sync
-    (gates of 1.0 and 1.3 Hz), one whose mouth moves at 0.37 Hz against a
-    1 Hz audio gate (a dubbed mouth), one with random audio.  The gated audio
-    is a tone, or ``speech_text`` as tone-coded speech in the gate's
-    on-windows; with ``speech="formant"``, ``speech_text`` as one formant
-    utterance at 16 kHz (Whisper's domain)."""
+def _video_clips(root, speech_text=None, speech="tone", n=4):
+    """The first ``n`` of 4 clips of 10 s at 30 fps and 240x320 with 44.1 kHz
+    audio: two in sync (gates of 1.0 and 1.3 Hz), one whose mouth moves at
+    0.37 Hz against a 1 Hz audio gate (a dubbed mouth), one with random
+    audio.  The gated audio is a tone, or ``speech_text`` as tone-coded
+    speech in the gate's on-windows; with ``speech="formant"``,
+    ``speech_text`` as one formant utterance at 16 kHz (Whisper's domain)."""
     from fvd_tpu_torch.synthetic import make_face_video
     from fvd_tpu_torch.utils.wav import write_wav
 
     sr = 16000 if speech == "formant" else 44100
     common = dict(duration=10.0, fps=30.0, width=320, height=240, sr=sr, speech_text=speech_text, speech=speech)
-    clips = [make_face_video(root, "sync_a", gate_hz=1.0, seed=0, **common),
-             make_face_video(root, "sync_b", gate_hz=1.3, seed=1, **common),
-             make_face_video(root, "dubbed", gate_hz=1.0, mouth_gate_hz=0.37, seed=2, **common),
-             make_face_video(root, "random_audio", gate_hz=1.0, seed=3, **common)]
-    noise = np.random.RandomState(3).uniform(-0.5, 0.5, int(10.0 * sr))
-    write_wav(os.path.join(root, "random_audio.wav"), noise, sr)
-    return clips, ["sync", "sync", "broken", "broken"]
+    recipes = [("sync_a", dict(gate_hz=1.0, seed=0)), ("sync_b", dict(gate_hz=1.3, seed=1)),
+               ("dubbed", dict(gate_hz=1.0, mouth_gate_hz=0.37, seed=2)), ("random_audio", dict(gate_hz=1.0, seed=3))]
+    clips = [make_face_video(root, name, **kw, **common) for name, kw in recipes[:n]]
+    if n == 4:
+        noise = np.random.RandomState(3).uniform(-0.5, 0.5, int(10.0 * sr))
+        write_wav(os.path.join(root, "random_audio.wav"), noise, sr)
+    return clips, ["sync", "sync", "broken", "broken"][:n]
 
 
 def _video_scheduler(root, device, dtype):
@@ -2433,7 +2467,7 @@ TRAIN_ZERO_GRAD = {"lmk": ("Conv_1.bias",)}
 TRAIN_ZERO_GRAD_TOL = 1e-12
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3
-#: the tool's steps in its subprocess: 15 since the hf_train phase (30 until
+#: the tool's steps: 15 since the hf_train phase (30 until
 #: then, 50 before the fan phase); every loss still falls by a third or more
 TRAIN_CLI_STEPS = 15
 TRAIN_RESUME_STEPS = 10
@@ -2535,21 +2569,43 @@ def _train_parity(batches, run=_train_run, zero_grad=lambda name, grads: TRAIN_Z
     return out
 
 
-def _train_cli(out_dir, extra):
-    """``python -m fvd_tpu_torch.tools.pretrain_synthetic`` on the card in a
-    fresh interpreter -> (seconds, {trainer: summary})."""
-    env = _subprocess_env()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.pretrain_synthetic", "--batch",
-                           str(TRAIN_BATCH), "--out-dir", out_dir] + extra, cwd=out_dir, env=env,
-                          capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"pretrain_synthetic {extra}: rc {proc.returncode}: {proc.stderr[-3000:]}")
-    check(proc.stdout.startswith("device: cuda"), f"pretrain_synthetic {extra} did not run on the card: "
-                                                  f"{proc.stdout[:300]}")
+@contextlib.contextmanager
+def _torch_defaults():
+    """cuDNN's and cuBLAS's TF32 flags as torch starts (the port sets
+    neither, so a user's ``python -m`` run of a tool has these) for the
+    block, and off again after it, as ``env_phase`` set them."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = TF32_DEFAULTS["cudnn"]
+    torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS["matmul"]
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tool_run(tool, args, fresh=False):
+    """``python -m fvd_tpu_torch.tools.<tool> args`` on the card, its stdout
+    captured: in a fresh interpreter with ``fresh`` (10-20 s more), else its
+    ``main(args)`` in this process under torch's TF32 defaults -> (seconds,
+    {part: its summary line's JSON}, stdout)."""
+    import importlib
+
+    if fresh:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"fvd_tpu_torch.tools.{tool}"] + args, cwd=REPO,
+                              env=_subprocess_env(), capture_output=True, text=True, timeout=600)
+        seconds, stdout = time.perf_counter() - t0, proc.stdout
+        check(proc.returncode == 0, f"{tool} {args}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    else:
+        with _torch_defaults():
+            _, stdout, seconds = _quiet(importlib.import_module(f"fvd_tpu_torch.tools.{tool}").main, args)
+    check(stdout.startswith("device: cuda"), f"{tool} did not run on the card: {stdout[:300]}")
     summaries = {ln.split(" ", 1)[0].strip("[]"): json.loads(ln.split(" summary ", 1)[1])
-                 for ln in proc.stdout.splitlines() if " summary {" in ln}
-    return seconds, summaries, proc.stdout
+                 for ln in stdout.splitlines() if " summary {" in ln}
+    check(bool(summaries), f"{tool}: no summary line: {stdout[-2000:]}")
+    return seconds, summaries, stdout
 
 
 def train_phase():
@@ -2572,7 +2628,9 @@ def train_phase():
     parity = _train_parity(batches)
 
     with tempfile.TemporaryDirectory() as tmp:
-        cli_s, runs, stdout = _train_cli(tmp, ["--steps", str(TRAIN_CLI_STEPS), "--consistency"])
+        # the one trainer still in a fresh interpreter: the ``python -m`` entry as a user runs it
+        cli_s, runs, stdout = _tool_run("pretrain_synthetic", ["--batch", str(TRAIN_BATCH), "--out-dir", tmp, "--steps",
+                                                              str(TRAIN_CLI_STEPS), "--consistency"], fresh=True)
         check(set(runs) == {"det", "lmk", "pose"}, f"train: summaries {sorted(runs)}: {stdout[-2000:]}")
         for name, r in runs.items():
             check(r["steps"] == TRAIN_CLI_STEPS and r["loss_last"] < r["loss_first"],
@@ -2787,7 +2845,7 @@ def net_phase():
 #: and the JAX tools' batches and learning rates
 ZOO_TRAIN_BATCH = {"asr": 16, "text": 64, "clip": 32, "ctc": 32}
 ZOO_TRAIN_LR = {"asr": 1e-3, "text": 3e-4, "clip": 3e-4, "ctc": 1e-3}
-#: each tool's steps in its subprocess: 25 since the hf_train phase (50 before)
+#: each tool's steps: 25 since the hf_train phase (50 before)
 ZOO_CLI_STEPS = 25
 ZOO_RESUME_STEPS = 10
 
@@ -2855,21 +2913,6 @@ def _zoo_train_run(name, batches, device, dtype):
     return [float(x) for x in losses], grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
-def _tool_cli(tool, args):
-    """``python -m fvd_tpu_torch.tools.<tool>`` on the card in a fresh
-    interpreter -> (seconds, {part: its summary line's JSON}, stdout)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"fvd_tpu_torch.tools.{tool}"] + args, cwd=REPO,
-                          env=_subprocess_env(), capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"{tool} {args}: rc {proc.returncode}: {proc.stderr[-3000:]}")
-    check(proc.stdout.startswith("device: cuda"), f"{tool} did not run on the card: {proc.stdout[:300]}")
-    summaries = {ln.split(" ", 1)[0].strip("[]"): json.loads(ln.split(" summary ", 1)[1])
-                 for ln in proc.stdout.splitlines() if " summary {" in ln}
-    check(bool(summaries), f"{tool}: no summary line: {proc.stdout[-2000:]}")
-    return seconds, summaries, proc.stdout
-
-
 def _summary_timing(r):
     """A tool summary's steps, times, rates, losses and eval."""
     return {k: r[k] for k in r if k.endswith(("_ms", "_per_s", "_s")) or k.startswith(("loss", "eval", "steps"))}
@@ -2877,10 +2920,11 @@ def _summary_timing(r):
 
 def zoo_train_phase():
     """The ASR and text-encoder trainers and the zoo's losses: (a) card
-    against CPU from the same weights and batches, (b) the two tools on the
-    card in subprocesses, then ``pretrain_asr --resume`` in this process,
-    (c) the npz files they wrote served by ``JaxASR`` and ``JaxTextEncoder``
-    on the card."""
+    against CPU from the same weights and batches, (b) the two tools'
+    ``main`` on the card under torch's TF32 defaults, then ``pretrain_asr
+    --resume``, (c) the npz
+    files they wrote served by ``JaxASR`` and ``JaxTextEncoder`` on the
+    card."""
     import torch
 
     from fvd_tpu_torch.models.asr import JaxASR
@@ -2901,13 +2945,12 @@ def zoo_train_phase():
         asr_npz, text_npz = os.path.join(tmp, "asr_formant.npz"), os.path.join(tmp, "text_encoder.npz")
         asr_args = ["--batch", str(ZOO_TRAIN_BATCH["asr"]), "--dim", "192", "--depth", "4", "--domain",
                     "formant_hard", "--out", asr_npz]
-        runs = {"asr": _tool_cli("pretrain_asr", ["--steps", str(ZOO_CLI_STEPS)] + asr_args),
-                "text": _tool_cli("pretrain_text_encoder", ["--steps", str(ZOO_CLI_STEPS), "--out", text_npz])}
+        runs = {"asr": _tool_run("pretrain_asr", ["--steps", str(ZOO_CLI_STEPS)] + asr_args),
+                "text": _tool_run("pretrain_text_encoder", ["--steps", str(ZOO_CLI_STEPS), "--out", text_npz])}
         runs = {name: (r[0], r[1][name], r[2]) for name, r in runs.items()}
         for name, (_, r, _) in runs.items():
             check(r["steps"] == ZOO_CLI_STEPS and r["loss_last"] < r["loss_first"],
                   f"zoo_train {name}: loss {r['loss_first']} -> {r['loss_last']} over {r['steps']} steps")
-        # the resume in this process: a fresh interpreter costs ~20 s here
         t0 = time.perf_counter()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -3236,10 +3279,10 @@ def text_phase():
     (a) the host data draws timed at the tools' batch, (b) card against CPU
     over three Adam steps in float64 for the recognizer, the v2 detector and
     CLIP, (c) ``pretrain_ocr`` (both parts, v2 at the shipped width 128) and
-    ``pretrain_clip`` at the shipped geometries in subprocesses, then
-    ``pretrain_ocr --only rec --resume`` in this process, (d) ``eval_heldout``
-    over all five models on the shipped checkpoints in a subprocess, the OCR
-    columns against the CPU."""
+    ``pretrain_clip`` at the shipped geometries, then ``pretrain_ocr --only
+    rec --resume``, (d) ``eval_heldout`` over all five models on the shipped
+    checkpoints, the OCR columns against the CPU; each tool through its
+    ``main`` in this process under torch's TF32 defaults."""
     import torch
 
     from fvd_tpu_torch.models.synthetic_text import detector_batch, recognizer_batch
@@ -3267,9 +3310,9 @@ def text_phase():
     with tempfile.TemporaryDirectory() as tmp:
         ocr_dir, clip_npz = os.path.join(tmp, "ocr"), os.path.join(tmp, "clip", "clip.npz")
         common = ["--batch", str(TEXT_BATCH), "--out-dir", ocr_dir]
-        runs = {"ocr": _tool_cli("pretrain_ocr", ["--steps", str(TEXT_CLI_STEPS), "--det-steps", str(TEXT_CLI_STEPS),
+        runs = {"ocr": _tool_run("pretrain_ocr", ["--steps", str(TEXT_CLI_STEPS), "--det-steps", str(TEXT_CLI_STEPS),
                                                   "--det-arch", "v2"] + common),
-                "clip": _tool_cli("pretrain_clip", ["--steps", str(TEXT_CLI_STEPS), "--batch", str(TEXT_BATCH),
+                "clip": _tool_run("pretrain_clip", ["--steps", str(TEXT_CLI_STEPS), "--batch", str(TEXT_BATCH),
                                                     "--dim", "128", "--depth", "4", "--out", clip_npz])}
         parts = {**runs["ocr"][1], **runs["clip"][1]}
         check(set(parts) == {"rec", "det", "clip"}, f"text: summaries {sorted(parts)}")
@@ -3281,7 +3324,6 @@ def text_phase():
         with open(clip_npz.replace(".npz", ".json")) as f:
             clip_meta = json.load(f)
         check(np.isfinite([clip_meta["cal_offset"], clip_meta["cal_scale"]]).all(), f"text: clip.json {clip_meta}")
-        # the resume in this process: a fresh interpreter costs ~20 s here
         t0 = time.perf_counter()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -3297,13 +3339,9 @@ def text_phase():
                                   if " eval" in ln]
         result["c_resume"] = {"s": resume_s, "loss": [resumed["rec"]["loss_first"], resumed["rec"]["loss_last"]]}
 
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.eval_heldout", "--n", str(TEXT_EVAL_N)],
-                          cwd=REPO, env=_subprocess_env(), capture_output=True, text=True, timeout=600)
-    result["d_eval_s"] = time.perf_counter() - t0
-    check(proc.returncode == 0 and proc.stdout.startswith("device: cuda"),
-          f"eval_heldout: rc {proc.returncode}: {proc.stdout[:300]} {proc.stderr[-3000:]}")
-    card = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()[1:]}
+    with _torch_defaults():
+        card, stdout, result["d_eval_s"] = _quiet(eval_heldout.main, ["--n", str(TEXT_EVAL_N)])
+    check(stdout.startswith("device: cuda"), f"eval_heldout did not run on the card: {stdout[:300]}")
     check(set(card) == set(eval_heldout.EVALS), f"eval_heldout printed {sorted(card)}")
     check(all(np.isfinite([r["in_domain"], r["held_out"]]).all() for r in card.values()), f"eval_heldout: {card}")
     t0 = time.perf_counter()
@@ -3742,9 +3780,251 @@ def hf_train_phase():
     phase("hf_train", **result)
 
 
+#: the eval phase: the paired gates and the diagnostic tools at reduced
+#: counts (the JAX tools' defaults: 64 utterances, 64 x 4 ranking tasks, 24
+#: scenes, 64 + 12 utterances and sentences, 8 s clips, 64 faces, 30 s)
+EVAL_ASR_N = 16
+EVAL_TEXT = ["--n", "32", "--rounds", "1"]
+EVAL_CLIP_N = 8
+EVAL_WHISPER = ["--n", "16", "--n-sentences", "2"]
+EVAL_PIPELINE_SECONDS = 4.0
+EVAL_DIAGNOSE_N = 16
+EVAL_PROFILE = ["--duration", "10", "--fps", "30"]
+#: the debug run repro_node reads: a synthetic clip of this many seconds at 30 fps
+EVAL_REPRO_SECONDS = 10.0
+#: ``eval_heldout``'s face bars (``tests/test_torch_eval_heldout.py`` FACE_TOL),
+#: held here by the diagnose tools' rows card f32 against CPU f32: IoU, % of
+#: the crop, degrees
+DIAGNOSE_TOL = {"det": 0.005, "lmk": 0.03, "pose": 0.01}
+#: the shipped checkpoints on their own domains at these counts (CPU runs of
+#: the tools: formant ASR base exact 0.8125, Whisper base char 0.96, clip.npz
+#: retrieval@1 0.857 at n 4): floors well under them, so a checkpoint or
+#: a decode that broke shows
+EVAL_ASR_EXACT_FLOOR = 0.5
+EVAL_CHAR_FLOOR = 0.5
+EVAL_CLIP_R1_FLOOR = 0.5
+#: eval_pipeline_paired rounds each lip score to 4 decimals: the two sides'
+#: separations on the same detector and hourglass agree to within two such
+#: roundings
+EVAL_SEPARATION_TOL = 2e-4
+#: the fields C1 reads, and those LR reads less C2's and V5's outputs (LR
+#: recovers those from the run's debug files)
+REPRO_C1_KEYS = ("face_detections", "mouth_landmarks", "metadata", "audio_envelope")
+REPRO_LR_KEYS = ("input_path", "metadata", "segments", "word_count", "lip_sync_score", "blink_data",
+                 "head_pose_data", "claims", "evidence")
+
+
+def _eval_tool(main, argv, json_path):
+    """A paired tool's ``main(argv + --json)`` in this process -> (rc, its
+    JSON, stdout, seconds)."""
+    rc, out, seconds = _quiet(main, argv + ["--json", json_path])
+    with open(json_path) as f:
+        return rc, json.load(f), out, seconds
+
+
+def _eval_gates(tmp, ckpt):
+    """(a)-(e): the paired gates on the card -> {tool: result}, the C1
+    launches of eval_pipeline_paired."""
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.tools import eval_asr_paired, eval_asr_whisper_paired, eval_clip_paired
+    from fvd_tpu_torch.tools import eval_pipeline_paired, eval_text_paired
+    from fvd_tpu_torch.tools import make_hf_geometry_checkpoints as makers
+
+    out = {}
+    asr = os.path.join(ckpt, "asr_formant.npz")
+    copy = os.path.join(tmp, "asr_copy.npz")
+    shutil.copy(asr, copy)
+    shutil.copy(asr.replace(".npz", ".json"), copy.replace(".npz", ".json"))
+    rc, res, log, s = _eval_tool(eval_asr_paired.main, ["--old", asr, "--new", copy, "--n", str(EVAL_ASR_N)],
+                                 os.path.join(tmp, "asr.json"))
+    check(rc == 0 and res["adopt"] is False and "paired verdict: REJECT" in log, f"eval_asr_paired: {res}")
+    for fam in ("base", "hard"):
+        check(res[f"{fam}_old"] == res[f"{fam}_new"], f"eval_asr_paired: one checkpoint decoded apart: {res}")
+    check(res["base_old"]["exact"] >= EVAL_ASR_EXACT_FLOOR, f"eval_asr_paired: base family {res['base_old']}")
+    out["asr"] = {"s": s, "result": res}
+
+    argv = ["--new", os.path.join(ckpt, "hf", "minilm"), "--old", os.path.join(ckpt, "text_encoder.npz")] + EVAL_TEXT
+    rc, card, _, s = _eval_tool(eval_text_paired.main, argv, os.path.join(tmp, "text.json"))
+    rc_cpu, cpu, _, s_cpu = _eval_tool(eval_text_paired.main, argv + ["--cpu"], os.path.join(tmp, "text_cpu.json"))
+    check(rc == rc_cpu == 0 and card == cpu and isinstance(card["meets_verdict_gate"], bool),
+          f"eval_text_paired: card {card}, CPU {cpu}")
+    out["text"] = {"s": s, "cpu_s": s_cpu, "result": card}
+
+    t0 = time.perf_counter()
+    clip_dir = os.path.join(tmp, "hf_clip")
+    makers.make_clip(clip_dir)   # ViT-B/32, random weights: the copy leaves the shipped msgpack out
+    make_s = time.perf_counter() - t0
+    rc, res, log, s = _eval_tool(eval_clip_paired.main, ["--new", clip_dir, "--old", os.path.join(ckpt, "clip.npz"),
+                                                         "--n", str(EVAL_CLIP_N)], os.path.join(tmp, "clip.json"))
+    shutil.rmtree(clip_dir)
+    check(rc == 0 and set(res) == {"new", "old", "meets_verdict_gate"}
+          and all(np.isfinite(list(m.values())).all() for m in (res["new"], res["old"])), f"eval_clip_paired: {res}")
+    check(res["old"]["retrieval_at_1"] >= EVAL_CLIP_R1_FLOOR and res["meets_verdict_gate"] is False,
+          f"eval_clip_paired: the trained CLIP against random ViT-B/32 weights: {res}")
+    out["clip"] = {"make_s": make_s, "s": s, "result": res}
+
+    argv = ["--whisper", os.path.join(ckpt, "hf", "whisper"), "--old", asr] + EVAL_WHISPER
+    rc, res, log, s = _eval_tool(eval_asr_whisper_paired.main, argv, os.path.join(tmp, "whisper.json"))
+    utt = res["utterance"]
+    check(rc == 0 and min(utt["old"]["char"], utt["new"]["char"]) >= EVAL_CHAR_FLOOR
+          and 0.0 <= min(res["transcript"]["old_word_acc"], res["transcript"]["new_word_acc"])
+          and isinstance(res["meets_verdict_gate"], bool), f"eval_asr_whisper_paired: {res}")
+    out["whisper"] = {"s": s, "result": res, "lines": [ln for ln in log.splitlines() if ln.startswith(("[", "    "))]}
+
+    ssd = os.path.join(tmp, "face_ssd_copy.npz")
+    shutil.copy(os.path.join(ckpt, "face_ssd.npz"), ssd)
+    _kernels.reset_launches()
+    argv = ["--override", f"face_ssd.npz={ssd}", "--duration", str(EVAL_PIPELINE_SECONDS)]
+    rc, res, log, s = _eval_tool(eval_pipeline_paired.main, argv, os.path.join(tmp, "pipe.json"))
+    launches = _kernels.LAUNCHES["lipsync_score"]
+    sep = res["lip_separation"]
+    check(rc == 0 and res["contract_ok"] and launches == 4, f"eval_pipeline_paired: rc {rc}, {launches} C1 launches "
+                                                           f"for 4 DAG runs: {res}")
+    check(abs(sep["old"] - sep["new"]) <= EVAL_SEPARATION_TOL,
+          f"eval_pipeline_paired: one detector and hourglass, separations {sep}")
+    out["pipeline"] = {"s": s, "result": res, "lipsync_score_launches": launches,
+                       "providers": sorted({ln for ln in log.splitlines() if ln.startswith("providers: text")})}
+    return out, launches
+
+
+def _eval_diagnose():
+    """(f)-(g): the diagnose tools' tables on the card, and each row card
+    f32 against CPU f32 -> their results."""
+    import torch
+
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import face_ssd
+    from fvd_tpu_torch.tools import diagnose_det_heldout as dd, diagnose_lmkpose_heldout as dl
+    from fvd_tpu_torch.tools.eval_heldout import CKPT
+
+    n = ["--n", str(EVAL_DIAGNOSE_N)]
+    det, det_log, det_s = _quiet(dd.main, n)
+    lmkpose, lmk_log, lmk_s = _quiet(dl.main, n)
+    check(list(det) == list(lmkpose) == [name for name, _ in dd.CASES] and len(det_log.splitlines()) == 6
+          and len(lmk_log.splitlines()) == 7, f"diagnose: tables\n{det_log}\n{lmk_log}")
+    t0 = time.perf_counter()
+    params = weights.read_npz(os.path.join(CKPT, "face_ssd.npz"))
+    ssd = {d: face_ssd.from_params(params, d) for d in ("cuda", "cpu")}
+    models = {d: dl.load_models(None, None, d) for d in ("cuda", "cpu")}
+    gaps = {}
+    for name, factors in dd.CASES:
+        frames, gts = dd.case_frames(EVAL_DIAGNOSE_N, factors)
+        crops, targets = dl.lmk_crops(EVAL_DIAGNOSE_N, factors)
+        pcrops, eulers = dl.pose_crops(EVAL_DIAGNOSE_N, factors)
+        row = {d: (dd.mean_iou(ssd[d], frames, gts, torch.float32),
+                   dl.lmk_error(models[d][0], crops, targets, torch.float32),
+                   dl.pose_error(models[d][1], pcrops, eulers)) for d in ("cuda", "cpu")}
+        gaps[name] = [abs(a - b) for a, b in zip(row["cuda"], row["cpu"])]
+        for (key, tol), gap in zip(DIAGNOSE_TOL.items(), gaps[name]):
+            check(gap <= tol, f"diagnose {name} {key}: card f32 {row['cuda']} against CPU f32 {row['cpu']}")
+    return {"det_s": det_s, "lmkpose_s": lmk_s, "det": det, "lmkpose": lmkpose,
+            "card_f32_vs_cpu_f32": gaps, "compare_s": time.perf_counter() - t0}
+
+
+def _eval_dev_tools(tmp):
+    """(h)-(j): profile_pipeline, repro_node and render_dag_svg on the card
+    -> (their results, C1 launches)."""
+    import dataclasses
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.config import default_config
+    from fvd_tpu_torch.graph import NODE_ORDER, build_graph
+    from fvd_tpu_torch.providers.recorded import RecordedLLM, RecordedSearch
+    from fvd_tpu_torch.runtime.debug import _jsonable
+    from fvd_tpu_torch.runtime.scheduler import Scheduler
+    from fvd_tpu_torch.state import State
+    from fvd_tpu_torch.synthetic import hermetic_providers, make_synthetic_video
+    from fvd_tpu_torch.tools import profile_pipeline, render_dag_svg, repro_node
+
+    out, cwd = {}, os.getcwd()
+    _kernels.reset_launches()
+    prof, log, s = _quiet(profile_pipeline.main, EVAL_PROFILE + ["--trace", os.path.join(tmp, "trace")])
+    launches = {"profile": _kernels.LAUNCHES["lipsync_score"]}
+    rows = [ln.split()[0] for ln in log.splitlines() if ln.startswith("node/")]
+    with open(prof["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"] for e in events if str(e.get("name", "")).startswith("node/")}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(sorted(rows) == sorted(spans) == sorted(f"node/{n}" for n in NODE_ORDER) and kernels > 0
+          and launches["profile"] == 2, f"profile_pipeline: rows {rows}, spans {sorted(spans)}, {kernels} kernels in "
+                                        f"the trace, {launches['profile']} C1 launches for 2 runs")
+    out["profile"] = {"s": s, "total_s": prof["total_s"], "trace_mib": os.path.getsize(prof["trace"]) / 2 ** 20,
+                      "trace_kernels": kernels, "node_s": {k: v for k, v in prof["summary"].items()
+                                                           if k.startswith("node/")}}
+
+    run_dir = os.path.join(tmp, "run")
+    os.makedirs(run_dir)
+    os.chdir(run_dir)
+    try:
+        _kernels.reset_launches()
+        clip = make_synthetic_video("media", duration=EVAL_REPRO_SECONDS, fps=30.0)
+        providers = dataclasses.replace(hermetic_providers(fps=30.0, device="cuda"), llm=RecordedLLM(),
+                                        search=RecordedSearch())
+        dag = build_graph(default_config().replace(debug=True), providers, device="cuda")
+        final = Scheduler(dag).invoke(State(input_path=clip, debug=True))
+        deltas, t0 = {}, time.perf_counter()
+        for node, keys, extra in (("C1", REPRO_C1_KEYS, []), ("LR", REPRO_LR_KEYS, ["--debug"])):
+            path = os.path.join(tmp, f"{node}.json")
+            with open(path, "w") as f:
+                json.dump({k: _jsonable(getattr(final, k)) for k in keys}, f)
+            deltas[node], _, _ = _quiet(repro_node.main, [node, "--data-dir", final.data_dir, "--state-json", path]
+                                        + extra)
+        launches["repro"] = _kernels.LAUNCHES["lipsync_score"]
+    finally:
+        os.chdir(cwd)
+    check(deltas["C1"]["lip_sync_score"] == final.lip_sync_score != 0.0
+          and deltas["LR"]["features"] == final.features and deltas["LR"]["fake_probability"] ==
+          final.fake_probability and final.texture_ela_score > 0.0 and launches["repro"] == 2,
+          f"repro_node: C1 {deltas['C1']}, LR {deltas['LR']} against the run's {final.lip_sync_score}, "
+          f"{final.features}, {final.fake_probability}; {launches['repro']} C1 launches")
+    out["repro"] = {"s": time.perf_counter() - t0, "lip_sync_score": final.lip_sync_score,
+                    "fake_probability": final.fake_probability}
+
+    svg = os.path.join(tmp, "dag.svg")
+    rc, _, _ = _quiet(render_dag_svg.main, ["--out", svg])
+    with open(svg) as f, open(os.path.join(REPO, "docs", "dag.svg")) as g:
+        check(rc == 0 and f.read() == g.read(), "render_dag_svg: the SVG differs from docs/dag.svg")
+    out["render_dag_svg"] = "equal to docs/dag.svg"
+    return out, launches
+
+
+def eval_phase():
+    """The paired adoption gates and the diagnostic tools on the card, each
+    through its ``main`` in this process: (a) ``eval_asr_paired`` on the
+    shipped formant ASR against a copy of itself, (b) ``eval_text_paired`` on
+    the shipped MiniLM, card against CPU, (c) ``eval_clip_paired`` against a
+    ViT-B/32 from the port's maker, (d) ``eval_asr_whisper_paired`` on the
+    shipped Whisper, (e) ``eval_pipeline_paired`` with a copy of the shipped
+    detector, (f)-(g) both ``diagnose_*`` tools, their rows card f32 against
+    CPU f32, (h) ``profile_pipeline`` hermetic with a trace, (i)
+    ``repro_node C1`` and ``LR`` against a debug run, (j)
+    ``render_dag_svg`` against ``docs/dag.svg`` -> the C1 launches."""
+    import torch
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "eval: TF32 must stay off for the card-vs-CPU bars")
+    result = {"nvidia_smi": SMI_LINE, "cut": {"asr_n": EVAL_ASR_N, "text": EVAL_TEXT, "clip_n": EVAL_CLIP_N,
+                                              "whisper": EVAL_WHISPER, "pipeline_s": EVAL_PIPELINE_SECONDS,
+                                              "diagnose_n": EVAL_DIAGNOSE_N, "profile": EVAL_PROFILE}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        result["gates"], pipeline = _eval_gates(tmp, os.path.join(REPO, "checkpoints"))
+        result["gates_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["diagnose"] = _eval_diagnose()
+        result["diagnose_total_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["dev_tools"], launches = _eval_dev_tools(tmp)
+        result["dev_tools_s"] = time.perf_counter() - t0
+    launches["pipeline"] = pipeline
+    result["lipsync_score_launches"] = launches
+    phase("eval", **result)
+    return sum(launches.values())
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train")
+          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval")
 
 
 def main(argv=None) -> int:
@@ -3774,7 +4054,7 @@ def main(argv=None) -> int:
     # launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
-               "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase}
+               "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0

@@ -866,6 +866,28 @@ def test_eval_ocr_det_on_card_matches_cpu(cuda):
         assert np.isfinite(card[k]) and abs(card[k] - cpu[k]) <= cs.TEXT_EVAL_IOU_TOL, (k, card[k], cpu[k])
 
 
+def test_diagnose_det_row_on_card_matches_cpu(cuda):
+    """``diagnose_det_heldout``'s all-factors row (``render_factored``'s
+    frames, n 8) on the shipped detector in float32, card (TF32 off)
+    against CPU within ``chip_smoke.DIAGNOSE_TOL``."""
+    from fvd_tpu_torch import weights
+    from fvd_tpu_torch.models import face_ssd
+    from fvd_tpu_torch.tools import diagnose_det_heldout as dd
+    from fvd_tpu_torch.tools.eval_heldout import CKPT
+
+    cs = _chip_smoke()
+    frames, gts = dd.case_frames(8, dict(dd.CASES)["ALL (held-out-like)"])
+    params = weights.read_npz(f"{CKPT}/face_ssd.npz")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = dd.mean_iou(face_ssd.from_params(params, cuda), frames, gts, torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = dd.mean_iou(face_ssd.from_params(params, "cpu"), frames, gts, torch.float32)
+    assert np.isfinite(card) and abs(card - cpu) <= cs.DIAGNOSE_TOL["det"], (card, cpu)
+
+
 # -------------------------------------------- the FAN trainer, PoseResNet50
 def test_fan_train_step_on_card_matches_cpu(cuda):
     """Three steps of ``pretrain_fan``'s loss and clipped AdamW at width 32

@@ -65,7 +65,12 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.tools.make_text_atlas", "fvd_tpu_torch.models.optim",
             "fvd_tpu_torch.tools.pretrain_fan", "fvd_tpu_torch.models.hf_layers", "fvd_tpu_torch.tools.hf_train",
             "fvd_tpu_torch.tools.make_hf_geometry_checkpoints", "fvd_tpu_torch.tools.pretrain_hf_minilm",
-            "fvd_tpu_torch.tools.pretrain_hf_whisper", "fvd_tpu_torch.tools.pretrain_hf_clip"} <= set(mods)
+            "fvd_tpu_torch.tools.pretrain_hf_whisper", "fvd_tpu_torch.tools.pretrain_hf_clip",
+            "fvd_tpu_torch.tools.eval_asr_paired", "fvd_tpu_torch.tools.eval_text_paired",
+            "fvd_tpu_torch.tools.eval_clip_paired", "fvd_tpu_torch.tools.eval_asr_whisper_paired",
+            "fvd_tpu_torch.tools.eval_pipeline_paired", "fvd_tpu_torch.tools.diagnose_det_heldout",
+            "fvd_tpu_torch.tools.diagnose_lmkpose_heldout", "fvd_tpu_torch.tools.profile_pipeline",
+            "fvd_tpu_torch.tools.repro_node", "fvd_tpu_torch.tools.render_dag_svg"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
