@@ -59,9 +59,10 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              240x320 made by ``fvd_tpu_torch.synthetic.make_face_video`` with
              44.1 kHz audio (two in sync, one with a dubbed mouth, one with
              random audio), written as raw-RGBA AVI: on the card in bf16 and in
-             f32 and on the CPU in f32, each clip alone and then all 4 at once
-             under the program coalescer.  Checks the card's f32 against the
-             CPU's, the faces and mouth landmarks found, the in-sync clips
+             f32, each clip alone and then all 4 at once under the program
+             coalescer, and on the CPU in f32 each clip alone (its coalesced
+             run went in the levers phase's cut).  Checks the card's f32 runs
+             against the CPU's, the faces and mouth landmarks found, the in-sync clips
              scoring above the broken ones, one C1 launch per video alone and
              one per coalesced C1 group, one frame upload per video, and the
              AVI round trip; prints wall times, node and ``v3/*`` span
@@ -100,11 +101,12 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              ``batch.run_pipeline_many`` with
              ``production_providers(recorded_services=True)`` (the bundle
              as the checkout ships it).  (a) card f32 8 at once, (b) card
-             f32 one at a time, (c) CPU f32 on 1 clip, (d) card bf16 8 at
-             once with and without ``FVD_TPU_NO_COALESCE`` (and a
-             ``torch.profiler`` pass of each), (e) ``python -m
+             f32 one at a time, (c) CPU f32 on 1 clip, (d) card bf16 on 2
+             clips 8 at a time with and without ``FVD_TPU_NO_COALESCE``,
+             each under ``torch.profiler`` (the timed 8-clip passes of both
+             went in the levers phase's cut), (e) ``python -m
              fvd_tpu_torch.batch --concurrency 8`` and then
-             ``--train-device`` as subprocesses.  Checks all 16 nodes on
+             ``--train-device`` as subprocesses on 2 of the clips.  Checks all 16 nodes on
              every video, (a) against (b) and (b) against (c) (features
              1e-4, probability 1e-5, the same transcripts, OCR texts,
              gesture statuses, V5 recorded scores and evidence rankings),
@@ -292,10 +294,33 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              run of the 16 nodes, then ``repro_node C1`` and ``LR`` on its
              directory, equal to its values (2 C1 launches); (j)
              ``render_dag_svg`` equal to ``docs/dag.svg``.  Paid for by cuts
-             in ``zoo_train``, ``text`` and ``hf`` (PERF.md §4).
+             in ``zoo_train``, ``text`` and ``hf`` (PERF.md §4);
+24. levers   the chained detector -> landmarks -> pose program, the A/B
+             switches and ``tools/ab_bench``: (a) on clip 0 of the batch
+             corpus at 10 s, its 50 frames at 5 fps, the shipped detector,
+             hourglass and pose head in f32 and bf16: the unchained and the
+             chained (``FVD_TPU_FUSED_DETLM``) ``landmarks_pose_batch`` find
+             the same faces, f32 landmarks within ``LEVERS_LM_TOL`` (crop
+             units) and poses within ``LEVERS_POSE_TOL``, the chained
+             program card f32 against CPU f32 on the first frames, ms a call
+             of each path (CUDA events, interleaved) and its device-to-host
+             copies a call (one ``torch.profiler`` pass; the chained path
+             must make one); (b) clips 0 and 1 through the 16 nodes 2 at
+             once on ``production_providers(recorded_services=True)`` in
+             f32, each switch off and then on alone:
+             ``fake_probability`` equal under ``FVD_TPU_NO_ARTIFACT_CACHE``
+             and ``FVD_TPU_NO_STACK_MEMO``, within ``LEVERS_PROB_TOL`` under
+             ``FVD_TPU_NO_FUSED_POSE``, ``FVD_TPU_NO_DEVICE_OCR`` and
+             ``FVD_TPU_FUSED_DETLM``, one C1 launch per C1 group, and every
+             coalesced smoothing group's videos bit-equal to their plain
+             scans (group sizes printed); (c) ``python -m
+             fvd_tpu_torch.tools.ab_bench FVD_TPU_FUSED_DETLM=1 --passes 4
+             --n-videos 2 --duration 10 --concurrency 2`` in a fresh
+             interpreter, its JSON line.  Paid for by cuts in ``batch``
+             (PERF.md §4).
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-23 alone.  Then one JSON line with every kernel's numbers, the card's
+4-24 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -315,6 +340,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -385,6 +411,23 @@ def _subprocess_env():
     env = {k: v for k, v in os.environ.items() if k not in SERVICE_KEYS}
     env["PYTHONPATH"] = REPO + os.pathsep + os.environ.get("PYTHONPATH", "")
     return env
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    """``name`` set to ``value`` (removed where None) for the block."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
 
 
 #: cuDNN's and cuBLAS's TF32 flags as torch started, before ``env_phase``
@@ -1429,7 +1472,12 @@ def video_phase():
             root = os.path.join(tmp, name)
             sched = _video_scheduler(root, device, dtype)
             _video_run(sched, root, clips[:1], coalesced=False)  # warm-up: cuDNN picks its algorithms
-            modes = [("one_at_a_time", False, None), ("coalesced", True, 30.0)]
+            modes = [("one_at_a_time", False, None)]
+            if device == "cuda":
+                # the CPU runs its clips one at a time only (its coalesced
+                # run went in the levers phase's cut): the card's coalesced
+                # runs are held against that
+                modes.append(("coalesced", True, 30.0))
             if name == "card_f32":
                 # the 30 ms window rarely lets the clips' C1 calls meet (groups
                 # of one on the card); a fixed 500 ms window makes C1 groups
@@ -1452,7 +1500,7 @@ def video_phase():
             if name == "card_bf16":
                 summary[name]["profile_one_video"] = _profile_video(sched, clips[0])
         errs = {}
-        for mode, cpu_mode in (("one_at_a_time", "one_at_a_time"), ("coalesced", "coalesced"),
+        for mode, cpu_mode in (("one_at_a_time", "one_at_a_time"), ("coalesced", "one_at_a_time"),
                                ("grouped_500ms", "one_at_a_time")):
             card, cpu = runs[("card_f32", mode)]["finals"], runs[("cpu_f32", cpu_mode)]["finals"]
             errs[mode] = {"lip_sync_score": max(abs(a.lip_sync_score - b.lip_sync_score) for a, b in zip(card, cpu)),
@@ -1783,10 +1831,12 @@ BATCH_SENTENCES = (
     "the museum opened a wing for modern art",
 )
 #: the batch phase's cuts: bench.py's clips are 30 s; (e)'s CLI takes 4 of
-#: the 8 clips (it paid for the text phase), (d)'s profiled passes 2 (they
-#: pay for the fan phase)
+#: the 8 clips (it paid for the text phase), then 2 (it pays for the levers
+#: phase); (d)'s profiled passes 2 (they paid for the fan phase), and (d)
+#: runs only them (its timed 8-clip passes paid for the levers phase, whose
+#: ab_bench is the per-pass A/B instrument)
 BATCH_CLIP_SECONDS, BENCH_CLIP_SECONDS = 10.0, 30.0
-BATCH_PROFILE_CLIPS, BATCH_CLI_CLIPS = 2, 4
+BATCH_PROFILE_CLIPS, BATCH_CLI_CLIPS = 2, 2
 #: every LR feature and the probability, coalesced against alone and card
 #: against CPU, all f32: the bars of tests/test_torch_full_dag.py
 BATCH_FEATURE_TOL, BATCH_PROB_TOL = 1e-4, 1e-5
@@ -1886,7 +1936,8 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
           f"batch: a pipeline failed ({probs}, {len(finals)} final states)")
     counts = tracer.counts()
     groups = {}
-    for kind, bucket in list(BATCH_BUCKETS.items()) + [("c1_lipsync", None), ("v5_ela", None)]:
+    for kind, bucket in list(BATCH_BUCKETS.items()) + [(k, None) for k in ("c1_lipsync", "v5_ela", "oe_smooth",
+                                                                           "v4_smooth")]:
         spans = [sp for sp in tracer.spans if sp.name == f"coalesce/{kind}"]
         if spans:
             groups[kind] = {"groups": len(spans), "videos_per_group": sorted((sp.meta["n"] for sp in spans),
@@ -2071,32 +2122,28 @@ def batch_phase():
 
         bf16 = production_providers(ckpt, device="cuda", compute_dtype=torch.bfloat16, recorded_services=True)
         _batch_run(bf16, paths[:1], os.path.join(tmp, "warm16"), "cuda", 1)
+        k = BATCH_PROFILE_CLIPS
         for half, env in (("coalesced", None), ("no_coalesce", "1")):
-            if env:
-                os.environ["FVD_TPU_NO_COALESCE"] = env
-            try:
-                d = _batch_run(bf16, paths, os.path.join(tmp, f"d_{half}"), "cuda", 8)
-                prof = _batch_run(bf16, paths[:BATCH_PROFILE_CLIPS], os.path.join(tmp, f"p_{half}"), "cuda", 8,
-                                  profile=True)
-            finally:
-                os.environ.pop("FVD_TPU_NO_COALESCE", None)
-            check(all(v == n for v in d["nodes_done"].values()), f"batch (d) {half}: nodes done {d['nodes_done']}")
-            c1 = d["groups"].get("c1_lipsync", {"groups": n})
-            check(d["launches"] == (c1["groups"] if half == "coalesced" else n),
+            with _env("FVD_TPU_NO_COALESCE", env):
+                d = _batch_run(bf16, paths[:k], os.path.join(tmp, f"d_{half}"), "cuda", 8, profile=True)
+            check(all(v == k for v in d["nodes_done"].values()), f"batch (d) {half}: nodes done {d['nodes_done']}")
+            c1 = d["groups"].get("c1_lipsync", {"groups": k})
+            check(d["launches"] == (c1["groups"] if half == "coalesced" else k),
                   f"batch (d) {half}: {d['launches']} C1 launches, C1 groups {c1}")
-            summary = _batch_summary(d, n)
-            p = prof["profile"]
-            summary["profile"] = {k: v for k, v in p.items() if k != "top10"}
+            summary = {"clips": k, "seconds_under_profiler": d["seconds"], "lipsync_score_launches": d["launches"],
+                       "groups": d["groups"], "fake_probabilities": d["probs"]}
+            p = d["profile"]
+            summary["profile"] = {key: v for key, v in p.items() if key != "top10"}
             summary["profile"]["top10"] = p.get("top10", [])[:5]
             if "kernels_per_call" in p:
-                summary["kernels_per_video"] = p["kernels_per_call"] / BATCH_PROFILE_CLIPS
+                summary["kernels_per_video"] = p["kernels_per_call"] / k
             result.setdefault("runs", {})[f"d_card_bf16_concurrency_8_{half}"] = summary
-            launches += d["launches"] + prof["launches"]
+            launches += d["launches"]
         del bf16
         result["d_coalesced_vs_no_coalesce_max_prob"] = max(
             abs(x - y) for x, y in zip(result["runs"]["d_card_bf16_concurrency_8_coalesced"]["fake_probabilities"],
                                        result["runs"]["d_card_bf16_concurrency_8_no_coalesce"]["fake_probabilities"]))
-        # the CLI on 4 of the clips (a cut that pays for the text phase)
+        # the CLI on 2 of the clips (4 paid for the text phase, 2 for levers)
         cli_root = os.path.join(tmp, "cli")
         os.makedirs(os.path.join(cli_root, "videos"))
         for p in paths[:BATCH_CLI_CLIPS]:
@@ -4022,9 +4069,266 @@ def eval_phase():
     return sum(launches.values())
 
 
+#: the levers phase: the 16 nodes on 2 clips of the batch corpus at 10 s
+#: (bench.py's 8 at 30 s) 2 at once, and ``ab_bench`` for 4 passes (its 8)
+LEVERS_CLIP_SECONDS, LEVERS_CLIPS = 10.0, 2
+#: chained against unchained landmarks, f32 on the card: the f32 landmark bar
+#: of tests/test_torch_pose.py in crop [0, 1] units; poses in degrees (the
+#: JAX test's bar)
+LEVERS_LM_TOL, LEVERS_POSE_TOL = 1e-5, 1e-3
+#: the chained program card f32 against CPU f32 on the first frames: crop
+#: units and degrees (card and CPU convolutions sum in other orders)
+LEVERS_CPU_FRAMES, LEVERS_CPU_LM_TOL, LEVERS_CPU_POSE_TOL = 10, 1e-4, 5e-3
+LEVERS_ROUNDS = 10
+#: the switches of (b): fake_probability equal to the baseline's under the
+#: first two (they change no arithmetic), within LEVERS_PROB_TOL (f32) under
+#: the others
+LEVERS_EXACT = ("FVD_TPU_NO_ARTIFACT_CACHE", "FVD_TPU_NO_STACK_MEMO")
+LEVERS_CLOSE = ("FVD_TPU_NO_FUSED_POSE", "FVD_TPU_NO_DEVICE_OCR", "FVD_TPU_FUSED_DETLM")
+LEVERS_PROB_TOL = 1e-5
+AB_BENCH_ARGV = ["FVD_TPU_FUSED_DETLM=1", "--passes", "4", "--n-videos", "2", "--duration", "10",
+                 "--concurrency", "2"]
+AB_BENCH_KEYS = ["lever", "a_best", "b_best", "a_med", "b_med", "speedup_best", "speedup_med", "passes"]
+
+
+def _lmpose_call(prov, frames, dev, chained):
+    with _env("FVD_TPU_FUSED_DETLM", "1" if chained else None):
+        return prov.landmarks_pose_batch(frames, device_frames=dev, pose_pad=0.1)
+
+
+def _lmpose_gaps(a, b, boxes=None):
+    """Largest landmark gap (pixels; crop units where ``boxes`` gives each
+    detection's box) and pose gap (degrees) of two ``landmarks_pose_batch``
+    results with the same detections."""
+    (lm_a, pose_a), (lm_b, pose_b) = a, b
+    check([len(x) for x in lm_a] == [len(x) for x in lm_b],
+          f"levers: detections differ: {[len(x) for x in lm_a]} vs {[len(x) for x in lm_b]}")
+    px = crop = pose = 0.0
+    for i, (xs, ys, ps, qs) in enumerate(zip(lm_a, lm_b, pose_a, pose_b)):
+        for j, (x, y, p, q) in enumerate(zip(xs, ys, ps, qs)):
+            d = np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))
+            px = max(px, float(d.max()))
+            if boxes is not None:
+                x1, y1, x2, y2 = boxes[i][j]
+                crop = max(crop, float((d / [x2 - x1, y2 - y1]).max()))
+            pose = max(pose, float(np.abs(np.asarray(p, np.float64) - np.asarray(q, np.float64)).max()))
+    return {"landmarks_px": px, "landmarks_crop": crop if boxes is not None else None, "pose_deg": pose,
+            "detections": sum(len(x) for x in lm_a)}
+
+
+def _host_boxes(prov, dev, w, h):
+    """Each frame's gated detector boxes, in the order the providers list
+    their detections."""
+    owners, boxes = prov._collect_detections(prov.face_detector.detect_batch(dev), w, h)
+    out = [[] for _ in range(int(dev.shape[0]))]
+    for o, b in zip(owners, boxes):
+        out[o].append(b)
+    return out
+
+
+def _d2h_copies(fn, calls=2):
+    """Device-to-host and host-to-device copies per call of ``fn`` from one
+    ``torch.profiler`` pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {kind: sum(e.count for e in events if f"Memcpy {kind}" in e.key) / calls for kind in ("DtoH", "HtoD")}
+    check(events, "levers: the profiler showed no device event")
+    return {"d2h_per_call": count["DtoH"], "h2d_per_call": count["HtoD"], "calls": calls}
+
+
+def _levers_chained(clip):
+    """(a) The chained program against the unchained path on the card, at
+    the shipped geometry, on the clip's 5 fps frames."""
+    import torch
+
+    from fvd_tpu_torch.c1_timing import interleaved_ms
+    from fvd_tpu_torch.providers.media import VideoReader
+
+    frames, _, meta = VideoReader(use_cache=False).sample_at_fps(clip, 5.0)
+    h, w = frames.shape[1:3]
+    out = {"frames": int(len(frames)), "frame_hw": [int(h), int(w)]}
+    dev = torch.from_numpy(frames).cuda()
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prov = _vision_providers("cuda", dtype).landmarks
+        unchained, chained = _lmpose_call(prov, frames, dev, False), _lmpose_call(prov, frames, dev, True)
+        row = _lmpose_gaps(unchained, chained, _host_boxes(prov, dev, w, h))
+        check(row["detections"] >= VIDEO_FOUND_MIN * len(frames),
+              f"levers (a) {name}: {row['detections']} faces in {len(frames)} frames")
+        if name == "f32":
+            check(row["landmarks_crop"] <= LEVERS_LM_TOL and row["pose_deg"] <= LEVERS_POSE_TOL,
+                  f"levers (a) f32 chained vs unchained: {row}")
+            n = LEVERS_CPU_FRAMES
+            cpu = _vision_providers("cpu", dtype).landmarks
+            on_cpu = _lmpose_call(cpu, frames[:n], torch.from_numpy(frames[:n]), True)
+            row["card_vs_cpu_chained"] = _lmpose_gaps(_lmpose_call(prov, frames[:n], dev[:n], True), on_cpu,
+                                                      _host_boxes(cpu, torch.from_numpy(frames[:n]), w, h))
+            gaps = row["card_vs_cpu_chained"]
+            check(gaps["landmarks_crop"] <= LEVERS_CPU_LM_TOL and gaps["pose_deg"] <= LEVERS_CPU_POSE_TOL,
+                  f"levers (a) chained card f32 vs CPU f32 on {n} frames: {gaps}")
+        row["ms_per_call"] = interleaved_ms({"unchained": lambda: _lmpose_call(prov, frames, dev, False),
+                                             "chained": lambda: _lmpose_call(prov, frames, dev, True)},
+                                            warmup=3, rounds=LEVERS_ROUNDS)
+        row["copies"] = {k: _d2h_copies(lambda: _lmpose_call(prov, frames, dev, k == "chained"))
+                         for k in ("unchained", "chained")}
+        check(row["copies"]["chained"]["d2h_per_call"] == 1,
+              f"levers (a) {name}: the chained path made {row['copies']['chained']} copies a call")
+        out[name] = row
+    return out
+
+
+class _SmoothBitCheck:
+    """Wraps ``providers.coalesce.run_program`` so that every coalesced
+    smoothing group also runs each of its videos through the plain scan of
+    ``ops/filters.py`` on the same (padded) inputs, which must give the same
+    bits: the outputs, NaN rows included, and every carry field."""
+
+    def __init__(self):
+        from fvd_tpu_torch.providers import coalesce
+
+        self.coalesce, self.real = coalesce, coalesce.run_program
+        self.groups = {"oe_smooth": [], "v4_smooth": []}
+        self.checked = 0
+        self.mismatches = []
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _plain(kind, key, p):
+        from fvd_tpu_torch.ops.filters import one_euro_scan_chunk
+
+        if kind == "oe_smooth":
+            mc, beta, dc = key[2:]
+            sm, c = one_euro_scan_chunk(*p, min_cutoff=mc, beta=beta, d_cutoff=dc)
+            return [sm, *c]
+        lm_mc, lm_b, p_mc, p_b = key[2:]
+        lm_c, pose_c, t, lm, lv, pose, pv = p
+        sm_lm, lc = one_euro_scan_chunk(lm_c, t, lm, lv, min_cutoff=lm_mc, beta=lm_b)
+        sm_pose, pc = one_euro_scan_chunk(pose_c, t, pose, pv, min_cutoff=p_mc, beta=p_b)
+        return [sm_lm, sm_pose, *lc, *pc]
+
+    def run_program(self, kind, key, payload, run_batch):
+        if kind not in self.groups:
+            return self.real(kind, key, payload, run_batch)
+
+        def checked(payloads):
+            out = run_batch(payloads)
+            for p, o in zip(payloads, out):
+                got = [o[0], *o[1]] if kind == "oe_smooth" else [o[0], o[1], *o[2], *o[3]]
+                want = self._plain(kind, key, p)
+                same = len(got) == len(want) and all(
+                    np.asarray(a).dtype == np.asarray(b).dtype and np.asarray(a).tobytes() == np.asarray(b).tobytes()
+                    for a, b in zip(got, want))
+                with self._lock:
+                    self.checked += 1
+                    if not same:
+                        self.mismatches.append((kind, key))
+            with self._lock:
+                self.groups[kind].append(len(payloads))
+            return out
+
+        return self.real(kind, key, payload, checked)
+
+    def __enter__(self):
+        self.coalesce.run_program = self.run_program
+        return self
+
+    def __exit__(self, *exc):
+        self.coalesce.run_program = self.real
+
+
+def _levers_switches(tmp, paths):
+    """(b) The clips through the 16 nodes 2 at once on the card in f32,
+    each switch off (the baseline) and on alone."""
+    import torch
+
+    from fvd_tpu_torch.providers.factory import production_providers
+
+    prov = production_providers(os.path.join(REPO, "checkpoints"), device="cuda", compute_dtype=torch.float32,
+                                recorded_services=True)
+    runs, launches = {}, 0
+    with _SmoothBitCheck() as bits:
+        for name in (None,) + LEVERS_EXACT + LEVERS_CLOSE:
+            with _env(name, "1") if name else contextlib.nullcontext():
+                r = _batch_run(prov, paths, os.path.join(tmp, name or "baseline"), "cuda", 2)
+            check(all(v == len(paths) for v in r["nodes_done"].values()), f"levers (b) {name}: {r['nodes_done']}")
+            c1 = r["groups"].get("c1_lipsync", {"groups": 0})
+            check(r["launches"] == c1["groups"] and r["launches"] >= 1,
+                  f"levers (b) {name}: {r['launches']} C1 launches for C1 groups {c1}")
+            launches += r["launches"]
+            runs[name or "baseline"] = {
+                "seconds": r["seconds"], "fake_probabilities": r["probs"], "lipsync_score_launches": r["launches"],
+                "smooth_groups": {k: r["groups"].get(k, {}).get("videos_per_group", [])
+                                  for k in ("oe_smooth", "v4_smooth")},
+                "lmpose_groups": r["groups"].get("lmpose", {}).get("videos_per_group", [])}
+    base = runs["baseline"]["fake_probabilities"]
+    for name in LEVERS_EXACT + LEVERS_CLOSE:
+        gap = max(abs(a - b) for a, b in zip(runs[name]["fake_probabilities"], base))
+        runs[name]["max_abs_dp"] = gap
+        check(gap == 0.0 if name in LEVERS_EXACT else gap <= LEVERS_PROB_TOL,
+              f"levers (b) {name}: fake_probability {runs[name]['fake_probabilities']} vs {base}")
+    check(bits.checked > 0 and not bits.mismatches,
+          f"levers (b): coalesced smoothing not bit-equal to the plain scans: {bits.mismatches[:4]}")
+    return {"runs": runs, "smooth_bit_equal": {"videos_checked": bits.checked, "group_sizes": bits.groups}}, launches
+
+
+def _levers_ab_bench(tmp):
+    """(c) ``python -m fvd_tpu_torch.tools.ab_bench`` in a fresh interpreter."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.tools.ab_bench"] + AB_BENCH_ARGV, cwd=tmp,
+                          env=_subprocess_env(), capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"levers (c) ab_bench: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"levers (c) ab_bench: stdout {proc.stdout[-2000:]!r}")
+    out = json.loads(lines[0])
+    check(list(out) == AB_BENCH_KEYS and [a for a, _ in out["passes"]] == ["A", "B", "A", "B"]
+          and out["lever"] == AB_BENCH_ARGV[0], f"levers (c) ab_bench: {out}")
+    log = proc.stderr.strip().splitlines()
+    check(any(ln.startswith("card: NVIDIA") for ln in log), f"levers (c) ab_bench: no card line in {log[:5]}")
+    return {"argv": AB_BENCH_ARGV, "seconds": seconds, "json": out, "stderr": log}
+
+
+def levers_phase():
+    """The chained detector -> landmarks -> pose program, the A/B switches
+    and ``tools/ab_bench`` on the card: (a) chained against unchained in f32
+    and bf16 on one clip's 5 fps frames (the same detections, f32 landmarks
+    within ``LEVERS_LM_TOL``, the chained program card f32 against CPU f32,
+    ms a call, device-to-host copies a call); (b) the 16 nodes on 2 clips 2
+    at once, each switch off and on, the coalesced smoothing checked bit for
+    bit against the plain scans; (c) ``ab_bench`` in a fresh interpreter ->
+    the C1 launches of (b)."""
+    import torch
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "levers: TF32 must stay off for the card-vs-CPU bars")
+    result = {"nvidia_smi": SMI_LINE, "cut": {"clip_seconds": LEVERS_CLIP_SECONDS, "clips": LEVERS_CLIPS,
+                                              "bench_clips": 8, "bench_clip_seconds": BENCH_CLIP_SECONDS,
+                                              "ab_bench_passes": 4, "ab_bench_default_passes": 8},
+              "tolerance": {"lm_crop": LEVERS_LM_TOL, "pose_deg": LEVERS_POSE_TOL, "cpu_lm_crop": LEVERS_CPU_LM_TOL,
+                            "cpu_pose_deg": LEVERS_CPU_POSE_TOL, "prob": LEVERS_PROB_TOL}}
+    with tempfile.TemporaryDirectory() as tmp:
+        videos = os.path.join(tmp, "videos")
+        paths = [_corpus_clip(videos, i, LEVERS_CLIP_SECONDS)[0] for i in range(LEVERS_CLIPS)]
+        t0 = time.perf_counter()
+        result["chained"] = _levers_chained(paths[0])
+        result["chained_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["switches"], launches = _levers_switches(tmp, paths)
+        result["switches_s"] = time.perf_counter() - t0
+        result["ab_bench"] = _levers_ab_bench(tmp)
+    result["lipsync_score_launches"] = launches
+    phase("levers", **result)
+    return launches
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
 PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
-          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval")
+          "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval", "levers")
 
 
 def main(argv=None) -> int:
@@ -4054,7 +4358,8 @@ def main(argv=None) -> int:
     # launches happen in its own processes and are not counted here
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
-               "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase}
+               "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase,
+               "levers": levers_phase}
     uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0

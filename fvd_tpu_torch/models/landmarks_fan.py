@@ -2,7 +2,8 @@
 counterpart of ``ResBlock``, ``Hourglass``, ``LandmarkHourglass``,
 ``decode_heatmaps``, ``PoseHead``, ``rotation_6d_to_matrix``,
 ``euler_from_matrix_deg``, ``_device_crops``, ``landmarks_from_frames``,
-``pose_from_frames``, ``landmarks_pose_from_frames``, ``_pad_bucket``,
+``pose_from_frames``, ``landmarks_pose_from_frames``,
+``detlm_pose_from_frames``, ``_pad_bucket``,
 ``_marshal_boxes``, the ``FANLandmarks`` provider and the reference-scale
 ``Bottleneck``, ``HourglassB``, ``FANLandmarkNet`` and ``PoseResNet50`` in
 ``fvd_tpu/models/landmarks_fan.py``.  The hourglass and the pose head run
@@ -23,6 +24,7 @@ layout; the convolutions run NCHW inside.
 from __future__ import annotations
 
 import functools
+import os
 from typing import List, Mapping, Optional
 
 import numpy as np
@@ -285,6 +287,61 @@ def landmarks_pose_from_frames(
     return coords, pose_from_frames(pose_model, frames, pose_boxes, owners)
 
 
+@torch.no_grad()
+def detlm_pose_from_frames(
+    det_model,
+    model: LandmarkHourglass,
+    pose_model: PoseHead,
+    frames: torch.Tensor,
+    frame_w: float,
+    frame_h: float,
+    det_threshold: float,
+    pad_frac: float,
+    det_max_out: int = 32,
+    k_slots: int = 2,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    det_compute_dtype: Optional[torch.dtype] = None,
+):
+    """The chained detector -> crop -> landmarks -> pose program: every step
+    on the device, nothing fetched to the host (opt-in,
+    ``FVD_TPU_FUSED_DETLM=1``).
+
+    The unchained path fetches the detector's output to the host to build the
+    crop boxes before it launches the landmark program.  Here the host gate
+    of ``FANLandmarks._collect_detections`` (score > 0 and >= threshold,
+    truncation to pixels, clipping to the frame, at least 4 px each way)
+    runs on the device over the top ``k_slots`` NMS slots of each frame (NMS
+    sorts by score), in the JAX program's float32 arithmetic, and the
+    landmark and pose forwards take the resulting boxes directly.  Valid
+    detections past ``k_slots`` in a frame are dropped: the one difference
+    from the unchained path, the price of static shapes.  The detector runs
+    in ``det_compute_dtype`` (``compute_dtype`` where None).
+
+    Returns ``(det_boxes [T, K, 4] float32 integer-valued, scores [T, K],
+    valid [T, K] bool, coords [T*K, 68, 2], poses [T*K, 3])``; row
+    ``i * K + k`` of coords and poses belongs to slot ``k`` of frame ``i``.
+    """
+    from fvd_tpu_torch.models import face_ssd
+
+    boxes_n, scores = shard_for_inference(
+        functools.partial(face_ssd.detect_batch, compute_dtype=det_compute_dtype or compute_dtype,
+                          max_out=det_max_out), det_model, frames)
+    T = frames.shape[0]
+    kb = boxes_n[:, :k_slots, :]                       # [T, K, 4] normalised
+    ks = scores[:, :k_slots]                           # [T, K]
+    # the host gate's arithmetic: float32 pixels, truncated, then clipped
+    x1 = torch.clamp(torch.trunc(kb[..., 0] * float(frame_w)), min=0.0)
+    y1 = torch.clamp(torch.trunc(kb[..., 1] * float(frame_h)), min=0.0)
+    x2 = torch.clamp(torch.trunc(kb[..., 2] * float(frame_w)), max=float(frame_w))
+    y2 = torch.clamp(torch.trunc(kb[..., 3] * float(frame_h)), max=float(frame_h))
+    valid = (ks > 0.0) & (ks >= det_threshold) & (x2 - x1 >= 4) & (y2 - y1 >= 4)
+    det_boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+    owners = torch.arange(T, device=frames.device).repeat_interleave(k_slots)
+    coords, poses = landmarks_pose_from_frames(model, pose_model, frames, det_boxes.reshape(T * k_slots, 4),
+                                               owners, frame_w, frame_h, pad_frac, compute_dtype)
+    return det_boxes, ks, valid, coords, poses
+
+
 def _pad_bucket(n: int) -> int:
     """Static shape bucket (next power of two, >= 8) so varying face counts
     reuse the same shapes."""
@@ -318,14 +375,19 @@ class FANLandmarks:
     first where none are given.  ``pose_checkpoint`` (``pose.npz``) holds the
     pose head; without one the head is randomly initialised from a fixed seed,
     as the JAX package initialises it from ``PRNGKey(2)``.  The pose head
-    runs in float32 under any ``compute_dtype``.  The JAX package's chained
-    detector+landmarks program (``FVD_TPU_FUSED_DETLM``, opt-in) is not
-    ported.
+    runs in float32 under any ``compute_dtype``.  With
+    ``FVD_TPU_FUSED_DETLM`` set (read at call time) and a detector that holds
+    its model, ``landmarks_pose_batch`` runs the chained program
+    :func:`detlm_pose_from_frames` with one host fetch, keeping at most
+    :attr:`chained_k_slots` detections per frame.
     """
 
     model_name = "fvd_tpu_hourglass"
     #: the inner detector forward can consume a device-resident frame tensor
     accepts_device_frames = True
+    #: detections per frame the chained program carries (its static slot
+    #: count; see :func:`detlm_pose_from_frames`)
+    chained_k_slots = 2
 
     def __init__(self, face_detector, checkpoint: str, pose_checkpoint: Optional[str] = None,
                  detector_threshold: float = 0.5, compute_dtype: torch.dtype = torch.bfloat16,
@@ -386,8 +448,10 @@ class FANLandmarks:
         ``pose_pad``)."""
         if device_frames is None:
             device_frames = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        detections = self.face_detector.detect_batch(device_frames)
         h, w = frames.shape[1:3]
+        if os.environ.get("FVD_TPU_FUSED_DETLM") and hasattr(self.face_detector, "model"):
+            return self._landmarks_pose_chained(frames, device_frames, pose_pad, w, h)
+        detections = self.face_detector.detect_batch(device_frames)
         owners, boxes = self._collect_detections(detections, w, h)
         out_lm: List[List[np.ndarray]] = [[] for _ in range(len(frames))]
         out_pose: List[List[np.ndarray]] = [[] for _ in range(len(frames))]
@@ -401,6 +465,33 @@ class FANLandmarks:
         for (x1, y1, x2, y2), owner, c, p in zip(boxes, owners, coords, poses):
             out_lm[owner].append(np.stack([x1 + c[:, 0] * (x2 - x1), y1 + c[:, 1] * (y2 - y1)], axis=1))
             out_pose[owner].append(p)
+        return out_lm, out_pose
+
+    def _landmarks_pose_chained(self, frames, device_frames, pose_pad, w, h):
+        """``landmarks_pose_batch`` through :func:`detlm_pose_from_frames`:
+        the detector, the slot gate, the crops, the landmarks and the pose in
+        one chain on the device, then ONE device-to-host copy of all five
+        outputs packed into one float32 tensor.  At most
+        :attr:`chained_k_slots` detections per frame."""
+        det = self.face_detector
+        K = self.chained_k_slots
+        T = len(frames)
+        outs = detlm_pose_from_frames(
+            det.model, self.landmark_model, self.pose_model, device_frames, float(w), float(h),
+            float(self.detector_threshold), float(pose_pad), det_max_out=det.max_out, k_slots=K,
+            compute_dtype=self.compute_dtype, det_compute_dtype=det.compute_dtype)
+        packed = torch.cat([o.reshape(T, -1).to(torch.float32) for o in outs], dim=1).cpu().numpy()
+        det_boxes, _, valid, coords, poses = np.split(
+            packed, np.cumsum([4 * K, K, K, 68 * 2 * K])[:4], axis=1)
+        det_boxes, valid = det_boxes.reshape(T, K, 4), valid > 0.5
+        coords, poses = coords.reshape(T, K, 68, 2), poses.reshape(T, K, 3)
+        out_lm: List[List[np.ndarray]] = [[] for _ in range(T)]
+        out_pose: List[List[np.ndarray]] = [[] for _ in range(T)]
+        for i, k in zip(*np.nonzero(valid)):
+            x1, y1, x2, y2 = det_boxes[i, k]
+            c = coords[i, k]
+            out_lm[i].append(np.stack([x1 + c[:, 0] * (x2 - x1), y1 + c[:, 1] * (y2 - y1)], axis=1))
+            out_pose[i].append(poses[i, k])
         return out_lm, out_pose
 
     @torch.no_grad()

@@ -12,6 +12,7 @@ the reference's tests run, ``tests/test_v2_ocr_overlays.py``).
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 from fvd_tpu_torch.config import Config, default_config
@@ -40,6 +41,8 @@ def run(
     # to one batched host forward, then to per-frame reads.
     batch_fn = getattr(providers.ocr, "read_text_batch", None)
     dev_fn = getattr(providers.ocr, "read_text_batch_device", None)
+    if os.environ.get("FVD_TPU_NO_DEVICE_OCR"):  # A/B switch, read at call time
+        dev_fn = None
     dev = keyframe_device_frames([kf for kf, _ in loaded], device=providers.ocr.device) \
         if (dev_fn is not None and loaded) else None
     if dev is not None:

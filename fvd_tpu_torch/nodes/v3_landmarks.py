@@ -11,9 +11,8 @@ Frames stream in bounded chunks, gathered on the device from the tensor V1
 uploaded; the landmark model runs one batched forward per chunk, and
 smoothing is the chunk-resumable OneEuro loop of ``ops/filters.py`` with its
 carried filter state, equal to one whole-track scan with memory bounded by
-the chunk size.  The JAX package batches that scan across videos through the
-program coalescer to save device launches; the port's scan is a host loop
-with no launch to save, so each video runs its own.  The viz
+the chunk size; under the program coalescer concurrent videos' chunks run as
+one loop (``nodes/_smooth.py``), bit-equal to each video's own.  The viz
 (``landmarks_viz.avi``, PNG-in-AVI, where the JAX package writes an mp4) is
 drawn with numpy masks and encoded on the artifact pool.
 """
@@ -32,7 +31,8 @@ from fvd_tpu_torch.nodes._tracking import (
     landmark_box,
     track_chunk,
 )
-from fvd_tpu_torch.ops.filters import one_euro_init_carry, one_euro_scan_chunk
+from fvd_tpu_torch.nodes._smooth import one_euro_scan_chunk_co
+from fvd_tpu_torch.ops.filters import one_euro_init_carry
 from fvd_tpu_torch.providers import Providers, get_providers
 from fvd_tpu_torch.providers.media import (
     IncrementalVideoWriter,
@@ -134,7 +134,7 @@ def run(
 
             # Chunk-resumable OneEuro smoothing (v3:204-209 semantics).
             with tracer.span("v3/smooth"):
-                smoothed, carry = one_euro_scan_chunk(
+                smoothed, carry = one_euro_scan_chunk_co(
                     carry, times, raw_track, valid,
                     min_cutoff=cfg.landmark_min_cutoff, beta=cfg.landmark_beta,
                 )

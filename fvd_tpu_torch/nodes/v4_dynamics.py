@@ -12,7 +12,9 @@ Frames stream in bounded chunks gathered on the device from the tensor V1
 uploaded.  The landmark forward is V3's: one shared program per chunk that
 also gives every detection's pose on its padded crop box, so V4 runs no
 forward of its own.  The smoothing stage (two OneEuro scans + EAR) is the
-chunk-resumable host float32 loop of ``ops/filters.py``, per video.  The viz
+chunk-resumable host float32 loop of ``ops/filters.py``; under the program
+coalescer concurrent videos' chunks share one loop (``nodes/_smooth.py``).
+The viz
 (``headpose_viz.avi``, PNG-in-AVI, where the JAX package writes an mp4) is
 drawn with numpy and encoded on the artifact pool.
 """
@@ -27,7 +29,8 @@ import torch
 
 from fvd_tpu_torch.config import Config, default_config
 from fvd_tpu_torch.nodes._tracking import FaceTracker, TrackerConfig, track_chunk
-from fvd_tpu_torch.ops.filters import one_euro_init_carry, v4_smooth_chunk
+from fvd_tpu_torch.nodes._smooth import v4_smooth_chunk_co
+from fvd_tpu_torch.ops.filters import one_euro_init_carry
 from fvd_tpu_torch.ops.image import resize
 from fvd_tpu_torch.providers import Providers, get_providers
 from fvd_tpu_torch.providers.media import (
@@ -175,7 +178,7 @@ def run(
 
             # Both smoothing scans + EAR, chunk-resumable.
             with tracer.span("v4/smooth"):
-                _, smoothed_ears, smoothed_pose, lm_carry, pose_carry = v4_smooth_chunk(
+                _, smoothed_ears, smoothed_pose, lm_carry, pose_carry = v4_smooth_chunk_co(
                     lm_carry, pose_carry, times, raw_track, valid, raw_pose, pose_valid,
                     lm_min_cutoff=cfg.landmark_min_cutoff, lm_beta=cfg.landmark_beta,
                     pose_min_cutoff=cfg.pose_min_cutoff, pose_beta=cfg.pose_beta,

@@ -214,6 +214,8 @@ class _LandmarkShare:
         per-detection poses in one program (V3 drops the poses, V4 uses them).
         ``entry_pad`` is the pad the cached poses were computed with: a pose
         consumer asking for another pad runs its own pose forward.
+        ``FVD_TPU_NO_FUSED_POSE`` (read at call time) turns the fused program
+        off.
         """
         # full ids in the key; the entry keeps a strong ref to the provider so
         # a recycled id() can never alias a dead provider's results
@@ -225,7 +227,8 @@ class _LandmarkShare:
                 if key in self._results:
                     return self._results[key][1]
             if (pose_pad is not None and device_frames is not None
-                    and hasattr(provider, "landmarks_pose_batch")):
+                    and hasattr(provider, "landmarks_pose_batch")
+                    and not os.environ.get("FVD_TPU_NO_FUSED_POSE")):
                 lm, poses = provider.landmarks_pose_batch(frames, device_frames=device_frames,
                                                           pose_pad=float(pose_pad))
                 result = (lm, poses, float(pose_pad))
@@ -340,8 +343,9 @@ def shared_landmarks_pose(path: str, ids: Sequence[int], provider, frames: np.nd
                           device_frames=None, pose_pad: float = 0.0):
     """Like :func:`shared_landmarks` but returns ``(lm_lists, pose_lists)``;
     ``pose_lists`` is None where the shared entry has no poses (a provider
-    without the fused program, no device frames) or was computed with another
-    pad: the caller then runs its own pose forward."""
+    without the fused program, ``FVD_TPU_NO_FUSED_POSE``, no device frames)
+    or was computed with another pad: the caller then runs its own pose
+    forward."""
     if len(ids) == 0:
         return [], None
     lm, poses, entry_pad = _landmark_share.get(path, ids, provider, frames, device_frames, pose_pad)
@@ -449,7 +453,7 @@ class VideoReader:
             kept = [i for i in wanted if i in found]
             if not kept:
                 return _EMPTY, []
-            if not missing:
+            if not missing and not os.environ.get("FVD_TPU_NO_STACK_MEMO"):
                 memo = self._cache.get_stack(path, kept)
                 if memo is not None:
                     return memo, kept
@@ -508,18 +512,27 @@ class StreamingSampler:
 
 class IncrementalVideoWriter:
     """Append-as-you-go PNG-in-AVI writer (viz artifacts for chunked
-    processing), keyed in the artifact encode cache (runtime.io_pool).
+    processing), in one of two modes.
 
-    Appends queue their batches with a fingerprint of the drawn content;
-    ``close()`` (or ``close_async()`` on the artifact pool) either writes the
-    cached bytes of an identical earlier encode or draws and encodes once and
-    stores them.
+    * Cached (a ``cache_scope`` and the artifact cache on): appends queue
+      their batches with a fingerprint of the drawn content; ``close()`` (or
+      ``close_async()`` on the artifact pool) either writes the cached bytes
+      of an identical earlier encode or draws and encodes once and stores
+      them.
+    * Streaming (no ``cache_scope``, or ``FVD_TPU_NO_ARTIFACT_CACHE`` set):
+      batches go to an :class:`~fvd_tpu_torch.runtime.io_pool.AsyncFrameSink`,
+      which draws and encodes them in order on its own thread; ``close()``
+      flushes and raises any encode failure.
+
+    A callable appended without a fingerprint cannot be identified, so it
+    turns a cached writer into a streaming one; both modes write the same
+    bytes.
     """
 
-    def __init__(self, path: str, fps: float, cache_scope):
+    def __init__(self, path: str, fps: float, cache_scope=None):
         """``cache_scope``: stable content identity (e.g. ``(content_key,
-        node)``)."""
-        import hashlib
+        node)``) for the cached mode."""
+        from fvd_tpu_torch.runtime import io_pool
 
         self.path = path
         self.fps = fps
@@ -528,8 +541,16 @@ class IncrementalVideoWriter:
         #: encode failure) even if close is deferred
         self.appended = False
         self._pending: list = []
-        self._cache_scope = cache_scope
-        self._fp = hashlib.blake2b(digest_size=16)
+        self._sink = None
+        self._fp = None
+        self._cache_scope = None
+        if cache_scope is not None and io_pool.artifact_cache_enabled():
+            import hashlib
+
+            self._cache_scope = cache_scope
+            self._fp = hashlib.blake2b(digest_size=16)
+        else:
+            self._sink = io_pool.AsyncFrameSink(self._write_batch, self._release)
 
     def _write_batch(self, frames_rgb: np.ndarray) -> None:
         from fvd_tpu_torch.runtime.tracer import get_tracer
@@ -539,26 +560,45 @@ class IncrementalVideoWriter:
                 self._writer = avi.AviWriter(self.path, self.fps, avi.FOURCC_PNG)
             self._writer.write_all(frames_rgb)
 
+    def _release(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
     def append(self, frames_rgb, fingerprint: bytes | None = None) -> None:
         """RGB uint8 [T,H,W,3] batch, or a zero-arg callable returning one
-        (drawing then happens when the writer closes).
+        (drawing then happens when the writer closes, or on the sink's
+        thread).
 
         ``fingerprint``: bytes pinning the drawn content of this batch, which
         identifies a repeated-content encode without running the draw; an
-        array's own bytes where omitted, and required with a callable.
+        array's own bytes where omitted.  A callable without one turns the
+        writer to streaming.
         """
-        if callable(frames_rgb):
-            if fingerprint is None:
-                raise ValueError("a callable batch needs a fingerprint of what it draws")
-        elif len(frames_rgb) == 0:
+        if not callable(frames_rgb) and len(frames_rgb) == 0:
             return
-        elif fingerprint is None:
-            fingerprint = np.ascontiguousarray(frames_rgb).tobytes()
         self.appended = True
-        self._fp.update(fingerprint)
-        self._pending.append(frames_rgb)
+        if self._cache_scope is not None:
+            if fingerprint is None and callable(frames_rgb):
+                self._degrade_to_streaming()
+            else:
+                if fingerprint is None:
+                    fingerprint = np.ascontiguousarray(frames_rgb).tobytes()
+                self._fp.update(fingerprint)
+                self._pending.append(frames_rgb)
+                return
+        self._sink.append(frames_rgb)
 
-    def close(self) -> None:
+    def _degrade_to_streaming(self) -> None:
+        from fvd_tpu_torch.runtime.io_pool import AsyncFrameSink
+
+        self._cache_scope = None
+        self._sink = AsyncFrameSink(self._write_batch, self._release)
+        for b in self._pending:
+            self._sink.append(b)
+        self._pending.clear()
+
+    def _finish_cached(self) -> None:
         from fvd_tpu_torch.runtime import io_pool
 
         key = (self._cache_scope, round(self.fps, 3), self._fp.hexdigest())
@@ -576,19 +616,26 @@ class IncrementalVideoWriter:
                     self._write_batch(np.asarray(b))
         finally:
             self._pending.clear()
-            if self._writer is not None:
-                self._writer.close()
-                self._writer = None
+            self._release()
         if os.path.exists(self.path):
             with open(self.path, "rb") as f:
                 io_pool.viz_cache_put(key, f.read())
 
-    def close_async(self):
-        """Deferred close on the artifact pool; returns a Future for
-        ``runtime.io_pool.defer_artifact``."""
-        from fvd_tpu_torch.runtime.io_pool import _get_pool
+    def close(self) -> None:
+        if self._cache_scope is not None:
+            self._finish_cached()
+            return
+        self._sink.close()
 
-        return _get_pool().submit(self.close)
+    def close_async(self):
+        """Deferred close: on the artifact pool in the cached mode, on the
+        sink's thread in the streaming mode; a Future for
+        ``runtime.io_pool.defer_artifact``."""
+        if self._cache_scope is not None:
+            from fvd_tpu_torch.runtime.io_pool import _get_pool
+
+            return _get_pool().submit(self._finish_cached)
+        return self._sink.close_async()
 
 
 def write_video(path: str, frames: np.ndarray, fps: float) -> None:

@@ -13,16 +13,20 @@ write against the run's artifact dir and the node returns immediately; the
 scheduler calls ``flush_artifacts(run_dir)`` once the whole DAG finished, so
 the encode overlaps downstream nodes (and, under multi-video overlap, other
 videos' device work) instead of gating the node's children.  ``_get_pool``
-is the shared pool such writes run on.  The JAX package's ``AsyncFrameSink``
-(a viz stream for runs with the encode cache turned off) has no port: the
-port's viz writer always goes through the cache and encodes on this pool.
+is the shared pool such writes run on.  :class:`AsyncFrameSink` streams a viz
+video through one thread of its own: the writer takes it when it has no cache
+scope, when a callable batch comes without a fingerprint, or when
+``FVD_TPU_NO_ARTIFACT_CACHE`` is set (read at call time, as every A/B switch
+of the package is: :func:`artifact_cache_enabled`).
 """
 
 from __future__ import annotations
 
+import os
+import queue
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -48,7 +52,7 @@ class _EncodeCache:
     per-run sharing rule) but need not re-run identical ENCODES: the cache
     key pins the exact encode inputs (video content key + frame id + crop
     box / data fingerprint), so a later run just writes the stored bytes
-    into its own artifact dir.
+    into its own artifact dir.  Disable with ``FVD_TPU_NO_ARTIFACT_CACHE=1``.
     """
 
     def __init__(self, max_bytes: int) -> None:
@@ -84,6 +88,10 @@ _png_cache = _EncodeCache(64 << 20)
 _viz_cache = _EncodeCache(128 << 20)
 
 
+def artifact_cache_enabled() -> bool:
+    return not os.environ.get("FVD_TPU_NO_ARTIFACT_CACHE")
+
+
 def clear_artifact_caches() -> None:
     _png_cache.clear()
     _viz_cache.clear()
@@ -92,6 +100,8 @@ def clear_artifact_caches() -> None:
 def _encode_png(path: str, rgb: np.ndarray, key=None) -> None:
     from fvd_tpu_torch.utils.png import encode_png
 
+    if not artifact_cache_enabled():
+        key = None
     with get_tracer().span("artifact/png"):
         data = None if key is None else _png_cache.get(key)
         if data is None:
@@ -103,11 +113,12 @@ def _encode_png(path: str, rgb: np.ndarray, key=None) -> None:
 
 
 def viz_cache_get(key) -> Optional[bytes]:
-    return _viz_cache.get(key)
+    return _viz_cache.get(key) if artifact_cache_enabled() else None
 
 
 def viz_cache_put(key, data: bytes) -> None:
-    _viz_cache.put(key, data)
+    if artifact_cache_enabled():
+        _viz_cache.put(key, data)
 
 
 class ArtifactWriter:
@@ -172,3 +183,77 @@ def flush_artifacts(run_dir: Optional[str] = None) -> List[str]:
         except BaseException as e:
             errors.append(repr(e))
     return errors
+
+
+class AsyncFrameSink:
+    """A frame sink on a thread of its own, around a blocking batch writer.
+
+    ``append(batch)`` queues (bounded, so memory stays capped at ``maxsize``
+    batches) and one worker thread feeds ``write_batch`` in order.  A batch
+    may be a zero-argument callable returning the frame array: the drawing
+    then runs on the sink's thread too, off the node's critical path.
+    ``close()`` flushes, calls ``close_fn`` and re-raises the first failure
+    of the worker; ``close_async()`` does the same on the worker and returns
+    a Future.
+    """
+
+    def __init__(self, write_batch: Callable[[np.ndarray], None], close_fn: Callable[[], None],
+                 maxsize: int = 4):
+        self._q: "queue.Queue[object]" = queue.Queue(maxsize=maxsize)
+        self._write_batch = write_batch
+        self._close_fn = close_fn
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _release(self) -> None:
+        try:
+            self._close_fn()
+        except BaseException as e:
+            if self._error is None:
+                self._error = e
+
+    def _worker(self) -> None:
+        while True:
+            batch = self._q.get()
+            try:
+                if batch is None:
+                    return
+                if isinstance(batch, Future):
+                    # close_async's sentinel: release the writer and resolve
+                    # the future with the first failure, if any
+                    self._release()
+                    if self._error is not None:
+                        batch.set_exception(self._error)
+                    else:
+                        batch.set_result(None)
+                    return
+                if self._error is None:
+                    if callable(batch):
+                        batch = batch()
+                    if len(batch):
+                        self._write_batch(batch)
+            except BaseException as e:
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def append(self, batch) -> None:
+        """``batch``: uint8 [T, H, W, 3], or a zero-argument callable giving one."""
+        if callable(batch) or len(batch):
+            self._q.put(batch)
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join()
+        self._release()
+        if self._error is not None:
+            raise self._error
+
+    def close_async(self) -> Future:
+        """Flush and release on the sink's thread: a Future that resolves
+        once everything queued and the release have finished.  Nothing may
+        be appended after this."""
+        fut: Future = Future()
+        self._q.put(fut)
+        return fut

@@ -20,11 +20,10 @@ in flight.
     for update in ProgressiveAnalyzer(path, device="cuda").updates():
         print(update.t_end, update.fake_probability)
 
-The JAX package smooths through the program coalescer's wrappers
-(``one_euro_scan_chunk_co``, ``v4_smooth_chunk_co``); the port's scans are
-host loops with no launch to save, so it calls ``ops/filters.py``'s
-``one_euro_scan_chunk`` and ``v4_smooth_chunk`` directly, as its V3 and V4
-do.
+Smoothing goes through the program coalescer's wrappers of
+``nodes/_smooth.py`` (``one_euro_scan_chunk_co``, ``v4_smooth_chunk_co``), as
+V3 and V4 do: several analyses at once share one host loop per chunk, each
+bit-equal to its own scan.
 """
 
 from __future__ import annotations
@@ -44,7 +43,8 @@ from fvd_tpu_torch.nodes import c1_lipsync
 from fvd_tpu_torch.nodes._tracking import FaceTracker, TrackerConfig, track_chunk
 from fvd_tpu_torch.nodes.lr_fusion import build_features, load_weights
 from fvd_tpu_torch.ops import fusion
-from fvd_tpu_torch.ops.filters import one_euro_init_carry, one_euro_scan_chunk, v4_smooth_chunk
+from fvd_tpu_torch.nodes._smooth import one_euro_scan_chunk_co, v4_smooth_chunk_co
+from fvd_tpu_torch.ops.filters import one_euro_init_carry
 from fvd_tpu_torch.ops.spectral import interp_to_length, rms_envelope
 from fvd_tpu_torch.providers import Providers, get_providers
 from fvd_tpu_torch.providers.media import (
@@ -179,7 +179,7 @@ class ProgressiveAnalyzer:
             times, raw, valid, _ = track_chunk(
                 all_landmarks, kept_ids, fps, tracker_v3, n_pts=68, dim=2, processed=processed,
             )
-            smoothed, carry = one_euro_scan_chunk(
+            smoothed, carry = one_euro_scan_chunk_co(
                 carry, times, raw, valid, min_cutoff=cfg.landmark_min_cutoff, beta=cfg.landmark_beta,
             )
 
@@ -188,7 +188,7 @@ class ProgressiveAnalyzer:
             _, raw4, valid4, _ = track_chunk(
                 all_landmarks, kept_ids, fps, tracker_v4, n_pts=68, dim=3, processed=processed,
             )
-            _, smoothed_ears, _, lm4_carry, pose_carry = v4_smooth_chunk(
+            _, smoothed_ears, _, lm4_carry, pose_carry = v4_smooth_chunk_co(
                 lm4_carry, pose_carry, times, raw4, valid4, np.zeros((T, 3)), np.zeros(T, bool),
                 lm_min_cutoff=cfg.landmark_min_cutoff, lm_beta=cfg.landmark_beta,
                 pose_min_cutoff=cfg.pose_min_cutoff, pose_beta=cfg.pose_beta,

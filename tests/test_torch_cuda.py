@@ -344,6 +344,74 @@ def test_pose_head_runs_in_f32_under_a_bf16_bundle(cuda, tmp_path):
     np.testing.assert_allclose(np.asarray(got), ref, atol=1e-3, rtol=0)
 
 
+def _face_provider(device, dtype):
+    """The shipped detector, hourglass and pose head on ``device``."""
+    import os
+
+    from fvd_tpu_torch.models.face_ssd import SSDFaceDetector
+    from fvd_tpu_torch.models.landmarks_fan import FANLandmarks
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+    det = SSDFaceDetector(checkpoint=os.path.join(ckpt, "face_ssd.npz"), compute_dtype=dtype, device=device)
+    return FANLandmarks(det, checkpoint=os.path.join(ckpt, "landmarks.npz"),
+                        pose_checkpoint=os.path.join(ckpt, "pose.npz"), compute_dtype=dtype, device=device)
+
+
+def test_chained_detlm_on_card_matches_cpu_and_the_unchained_path(cuda, tmp_path, monkeypatch):
+    """``FVD_TPU_FUSED_DETLM`` on the card, f32 with TF32 off, on a face
+    clip's frames: the chained program finds the unchained path's faces
+    (landmarks within 1e-5 of the crop, poses within 1e-3 degree) and the
+    CPU chained program's (integer boxes equal, landmarks within 1e-4 of the
+    crop and poses within 5e-3 degree: card against CPU convolutions), with
+    one device-to-host copy a call.  Landmarks are compared in crop units,
+    each gap over its detector box's extent: at 240x320 a pixel coordinate's
+    float32 ulp is already 1.5e-5."""
+    from fvd_tpu_torch.models import landmarks_fan
+    from fvd_tpu_torch.providers.media import VideoReader
+    from fvd_tpu_torch.synthetic import make_face_video
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        clip = make_face_video(str(tmp_path), "f", duration=1.6, fps=10.0, opencv=True)
+        frames, _ = VideoReader(use_cache=False).sample(clip, range(16))
+        card, cpu = _face_provider(cuda, torch.float32), _face_provider("cpu", torch.float32)
+        dev = torch.from_numpy(frames).to(cuda)
+        owners, boxes = card._collect_detections(card.face_detector.detect_batch(dev), 320, 240)
+        monkeypatch.delenv("FVD_TPU_FUSED_DETLM", raising=False)
+        lm_u, pose_u = card.landmarks_pose_batch(frames, device_frames=dev, pose_pad=0.1)
+        monkeypatch.setenv("FVD_TPU_FUSED_DETLM", "1")
+        copies = []
+        real_cpu = torch.Tensor.cpu
+
+        def counting_cpu(t, *a, **k):
+            copies.append(t.device.type)
+            return real_cpu(t, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, "cpu", counting_cpu)
+        lm_c, pose_c = card.landmarks_pose_batch(frames, device_frames=dev, pose_pad=0.1)
+        monkeypatch.setattr(torch.Tensor, "cpu", real_cpu)
+        lm_h, pose_h = cpu.landmarks_pose_batch(frames, pose_pad=0.1)
+        prog = [landmarks_fan.detlm_pose_from_frames(
+            p.face_detector.model, p.landmark_model, p.pose_model, f, 320.0, 240.0, 0.5, 0.1,
+            compute_dtype=torch.float32)[0].to("cpu") for p, f in ((card, dev), (cpu, torch.from_numpy(frames)))]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert copies == ["cuda"]
+    assert [len(x) for x in lm_c] == [len(x) for x in lm_u] == [len(x) for x in lm_h] and sum(map(len, lm_c)) >= 14
+    assert owners == sorted(owners) and len(owners) == sum(map(len, lm_c))
+    assert torch.equal(prog[0], prog[1])
+    flat = [(u, c, h) for a, b, d in zip(lm_u, lm_c, lm_h) for u, c, h in zip(a, b, d)]
+    for (u, c, h), (x1, y1, x2, y2) in zip(flat, boxes):
+        extent = np.array([x2 - x1, y2 - y1], np.float64)
+        assert (np.abs(c.astype(np.float64) - u) / extent).max() <= 1e-5
+        assert (np.abs(c.astype(np.float64) - h) / extent).max() <= 1e-4
+    for pa, pb, ph in zip(pose_u, pose_c, pose_h):
+        for x, y, z in zip(pa, pb, ph):
+            np.testing.assert_allclose(y, x, atol=1e-3, rtol=0)
+            np.testing.assert_allclose(y, z, atol=5e-3, rtol=0)
+
+
 @pytest.fixture(scope="module")
 def zoo():
     """The production bundle's four npz models at their shipped checkpoints

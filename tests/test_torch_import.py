@@ -70,7 +70,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.tools.eval_clip_paired", "fvd_tpu_torch.tools.eval_asr_whisper_paired",
             "fvd_tpu_torch.tools.eval_pipeline_paired", "fvd_tpu_torch.tools.diagnose_det_heldout",
             "fvd_tpu_torch.tools.diagnose_lmkpose_heldout", "fvd_tpu_torch.tools.profile_pipeline",
-            "fvd_tpu_torch.tools.repro_node", "fvd_tpu_torch.tools.render_dag_svg"} <= set(mods)
+            "fvd_tpu_torch.tools.repro_node", "fvd_tpu_torch.tools.render_dag_svg",
+            "fvd_tpu_torch.nodes._smooth", "fvd_tpu_torch.tools.ab_bench"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
