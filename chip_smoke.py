@@ -453,6 +453,7 @@ def env_phase():
     phase("env", nvidia_smi=smi_line, torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           python=sys.version.split()[0], libavcodec=ctypes.util.find_library("avcodec"),
+          nvcuvid=ctypes.util.find_library("nvcuvid"),
           ffmpeg=shutil.which("ffmpeg"), copy_mib=_tree_mib(REPO),
           hf_msgpacks={k: os.path.exists(os.path.join(hf, k, "flax_model.msgpack"))
                        for k in ("minilm", "clip", "whisper")})
@@ -500,8 +501,11 @@ def build_phase():
         _kernels.build(name)
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(_kernels.SIGNATURES)) as pool:
-        build_s = dict(pool.map(build, _kernels.SIGNATURES))
+    # one kernel of each source file: a file with several kernels builds once
+    firsts = {_kernels.SOURCES.get(name, name): name for name in reversed(list(_kernels.SIGNATURES))}
+    with ThreadPoolExecutor(len(firsts)) as pool:
+        by_source = dict(pool.map(build, firsts.values()))
+    build_s = {name: by_source[firsts[_kernels.SOURCES.get(name, name)]] for name in _kernels.SIGNATURES}
     for name in _kernels.SIGNATURES:
         _kernels.load(name)
     phase("build", build_s=build_s, load_s=dict(_kernels.BUILD_SECONDS),
@@ -1332,9 +1336,9 @@ def _video_scheduler(root, device, dtype):
     dag = DAG()
     dag.add_node("IN", part(ingest.run, config=cfg), host_only=True)
     dag.add_node("A1", part(a1_standardize.run, config=cfg, device=device), deps=["IN"])
-    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov), deps=["IN"])
+    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov, device=device), deps=["IN"])
     dag.add_node("A3", part(a3_onsets.run, config=cfg, device=device), deps=["A1"])
-    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov), deps=["V1"])
+    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov, device=device), deps=["V1"])
     dag.add_node("C1", part(c1_lipsync.run, config=cfg, device=device), deps=["A3", "V3"])
     dag.add_node("LR", part(lr_fusion.run, config=cfg), deps=["C1"])
     return Scheduler(dag)
@@ -1832,11 +1836,12 @@ BATCH_SENTENCES = (
 )
 #: the batch phase's cuts: bench.py's clips are 30 s; (e)'s CLI takes 4 of
 #: the 8 clips (it paid for the text phase), then 2 (it pays for the levers
-#: phase); (d)'s profiled passes 2 (they paid for the fan phase), and (d)
-#: runs only them (its timed 8-clip passes paid for the levers phase, whose
-#: ab_bench is the per-pass A/B instrument)
+#: phase); (d)'s profiled passes 2 (they paid for the fan phase), then 1
+#: (they pay for decoding the mp4v corpus in every run, while (b) keeps all
+#: 8 clips), and (d) runs only them (its timed 8-clip passes paid for the
+#: levers phase, whose ab_bench is the per-pass A/B instrument)
 BATCH_CLIP_SECONDS, BENCH_CLIP_SECONDS = 10.0, 30.0
-BATCH_PROFILE_CLIPS, BATCH_CLI_CLIPS = 2, 2
+BATCH_PROFILE_CLIPS, BATCH_CLI_CLIPS = 1, 2
 #: every LR feature and the probability, coalesced against alone and card
 #: against CPU, all f32: the bars of tests/test_torch_full_dag.py
 BATCH_FEATURE_TOL, BATCH_PROB_TOL = 1e-4, 1e-5
@@ -1846,23 +1851,29 @@ BATCH_TRAIN_TOL = 1e-6
 BATCH_BUCKETS = {"det": 256, "lm": 512, "lmpose": 512, "pose": 512, "ocr": 256, "ocrdev": 256, "clip": 256}
 
 
-def _corpus_clip(videos, i, seconds):
+def _corpus_clip(videos, i, seconds, container="mp4"):
     """Clip ``i`` of bench.py's real-models corpus: ``make_face_video`` seed
     ``i``, 320x240 at 30 fps, sentence ``i`` in the speech the shipped ASR
     checkpoint names (``asr_speech_domain``; formant phrases in the gate's
     on-windows); an odd seed's mouth moves at 0.37 Hz against the 1 Hz audio
-    gate (dubbed) and its name carries "fake".  A raw-RGBA AVI named
-    ``*.mp4`` in ``videos``, with its wav -> (path, speech)."""
+    gate (dubbed) and its name carries "fake".  As bench.py's corpus holds it,
+    ``<name>.mp4`` in ``mp4v`` encoded by the port on the card (MPEG-4 Part 2
+    at vop_quant 3, an I-VOP every 12 frames, as the JAX package's
+    ``write_video`` writes through OpenCV); with ``container="avi"`` the
+    drawn frames in a lossless raw-RGBA AVI under that name, which reads
+    without decoding (the phases that do not measure decoding keep it: see
+    PERF.md §4).  In ``videos``, with its wav -> (path, speech)."""
     from fvd_tpu_torch.providers.factory import asr_speech_domain
     from fvd_tpu_torch.synthetic import FORMANT_SR, make_face_video
 
     domain = asr_speech_domain(os.path.join(REPO, "checkpoints"))
     speech, sr = ("formant_gated", FORMANT_SR) if domain == "formant" else ("tone", 44100)
     name = f"fake_clip{i}" if i % 2 else f"clip{i}"
-    avi = make_face_video(videos, name, duration=seconds, fps=30.0, width=320, height=240, sr=sr, seed=i,
-                          speech_text=BATCH_SENTENCES[i], speech=speech, mouth_gate_hz=0.37 if i % 2 else None)
-    mp4 = avi[:-len(".avi")] + ".mp4"
-    os.replace(avi, mp4)
+    path = make_face_video(videos, name, duration=seconds, fps=30.0, width=320, height=240, sr=sr, seed=i,
+                           speech_text=BATCH_SENTENCES[i], speech=speech, mouth_gate_hz=0.37 if i % 2 else None,
+                           container=container, device="cuda")
+    mp4 = path[:-len(f".{container}")] + ".mp4"
+    os.replace(path, mp4)
     return mp4, speech
 
 
@@ -1928,6 +1939,7 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _kernels.LAUNCHES["lipsync_score"]
+        codec_launches = {k: _kernels.LAUNCHES[k] for k in CODEC_KERNELS}
     finally:
         batch.Scheduler = Scheduler
         set_tracer(None)
@@ -1949,6 +1961,7 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
 
                 groups[kind]["padded_to"] = [_pad_target(sp.meta["size"], bucket) for sp in spans]
     out = {"finals": [finals[p] for p in paths], "probs": probs, "seconds": seconds, "launches": launches,
+           "codec_launches": codec_launches,
            "nodes_done": {n: counts.get(f"node/{n}", 0) for n in FULL_DAG_NODES}, "groups": groups,
            "spans": {n: _span_ms(tracer, f"node/{n}") for n in FULL_DAG_NODES}}
     if profile:
@@ -1988,6 +2001,7 @@ def _batch_compare(a, b, what):
 def _batch_summary(r, n):
     return {"seconds": r["seconds"], "videos_per_min": n / r["seconds"] * 60.0,
             "wall_ms_per_video": r["seconds"] * 1e3 / n, "lipsync_score_launches": r["launches"],
+            "codec_launches": r["codec_launches"],
             "groups": r["groups"], "node_span_median_ms": r["spans"],
             "fake_probabilities": [f.fake_probability for f in r["finals"]]}
 
@@ -2101,6 +2115,17 @@ def batch_phase():
                       and all(np.isfinite(v) for v in f.features.values()) for f in r["finals"]),
                   f"batch {what}: {[f.features for f in r['finals']]}")
         check(b["launches"] == n, f"batch (b): {b['launches']} C1 launches for {n} videos")
+        # the clips are mp4v: the card runs decode through the codec kernels,
+        # each clip's VOPs up to V3's last 5 fps frame at least once (the
+        # 1 fps and 5 fps grids' union, 50 frames to RGB); the CPU run
+        # through the plain versions
+        vops = (int(round(BATCH_CLIP_SECONDS * 30.0)) - 1) // 6 * 6 + 1
+        for r, what, clips in ((a, "(a)", n), (b, "(b)", n), (c, "(c)", 0)):
+            got = r["codec_launches"]
+            check(got["mpeg4_recon"] >= vops * clips and got["yuv420_rgb"] >= clips and got["mpeg4_forward"] == 0
+                  and (clips or not any(got.values())), f"batch {what}: codec launches {got} for {clips} clips")
+        for k in CODEC_KERNELS:
+            CODEC_LAUNCHES[k] += a["codec_launches"][k] + b["codec_launches"][k]
         c1 = a["groups"].get("c1_lipsync", {"groups": 0, "videos_per_group": []})
         check(a["launches"] == c1["groups"] and sum(c1["videos_per_group"]) == n,
               f"batch (a): {a['launches']} C1 launches for C1 groups {c1}")
@@ -2115,6 +2140,9 @@ def batch_phase():
         result["b_vs_c"] = _batch_compare(b["finals"][:1], c["finals"], "(b) card f32 vs (c) CPU f32")
         result["outputs_b"] = [{k: o[k] for k in ("transcript", "texture", "gestures")}
                                for o in map(_batch_outputs, b["finals"])]
+        result["decode"] = {"container": "mp4v (MPEG-4 Part 2) in MP4, written by the port on the card",
+                            "file_bytes": [os.path.getsize(p) for p in paths],
+                            "raw_bytes": 320 * 240 * 3 * int(round(BATCH_CLIP_SECONDS * 30.0))}
         result["runs"] = {"a_card_f32_concurrency_8": _batch_summary(a, n),
                           "b_card_f32_one_at_a_time": _batch_summary(b, n),
                           "c_cpu_f32_one_clip": _batch_summary(c, len(c["finals"]))}
@@ -2131,6 +2159,7 @@ def batch_phase():
             check(d["launches"] == (c1["groups"] if half == "coalesced" else k),
                   f"batch (d) {half}: {d['launches']} C1 launches, C1 groups {c1}")
             summary = {"clips": k, "seconds_under_profiler": d["seconds"], "lipsync_score_launches": d["launches"],
+                       "codec_launches": d["codec_launches"],
                        "groups": d["groups"], "fake_probabilities": d["probs"]}
             p = d["profile"]
             summary["profile"] = {key: v for key, v in p.items() if key != "top10"}
@@ -2256,8 +2285,8 @@ def stream_phase():
     launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        clips = {"sync": _corpus_clip(os.path.join(tmp, "videos"), 0, seconds)[0],
-                 "dubbed": _corpus_clip(os.path.join(tmp, "videos"), 1, seconds)[0]}
+        clips = {"sync": _corpus_clip(os.path.join(tmp, "videos"), 0, seconds, "avi")[0],
+                 "dubbed": _corpus_clip(os.path.join(tmp, "videos"), 1, seconds, "avi")[0]}
         result["make_clips_s"] = time.perf_counter() - t0
         cfg = _batch_config(tmp)  # LR reads the shipped weights: no lr_weights.json under tmp
         runs, summary = {}, {}
@@ -2373,7 +2402,7 @@ def ui_phase():
     result = {"nvidia_smi": SMI_LINE, "clip_seconds": UI_CLIP_SECONDS, "tolerance": UI_PROB_TOL, "tf32": False}
     launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        clip, _ = _corpus_clip(os.path.join(tmp, "videos"), 0, UI_CLIP_SECONDS)
+        clip, _ = _corpus_clip(os.path.join(tmp, "videos"), 0, UI_CLIP_SECONDS, "avi")
         cfg = _batch_config(tmp)
         prov = production_providers(os.path.join(REPO, "checkpoints"), use_llm=False, use_search=False,
                                     recorded_services=True, device="cuda", compute_dtype=torch.float32)
@@ -4069,9 +4098,10 @@ def eval_phase():
     return sum(launches.values())
 
 
-#: the levers phase: the 16 nodes on 2 clips of the batch corpus at 10 s
-#: (bench.py's 8 at 30 s) 2 at once, and ``ab_bench`` for 4 passes (its 8)
-LEVERS_CLIP_SECONDS, LEVERS_CLIPS = 10.0, 2
+#: the levers phase: the 16 nodes on 2 clips of the batch corpus at 5 s
+#: (bench.py's 8 at 30 s; 10 s until the corpus became mp4v) 2 at once,
+#: and ``ab_bench`` for 4 passes (its 8) on 2 clips of 5 s
+LEVERS_CLIP_SECONDS, LEVERS_CLIPS = 5.0, 2
 #: chained against unchained landmarks, f32 on the card: the f32 landmark bar
 #: of tests/test_torch_pose.py in crop [0, 1] units; poses in degrees (the
 #: JAX test's bar)
@@ -4086,7 +4116,7 @@ LEVERS_ROUNDS = 10
 LEVERS_EXACT = ("FVD_TPU_NO_ARTIFACT_CACHE", "FVD_TPU_NO_STACK_MEMO")
 LEVERS_CLOSE = ("FVD_TPU_NO_FUSED_POSE", "FVD_TPU_NO_DEVICE_OCR", "FVD_TPU_FUSED_DETLM")
 LEVERS_PROB_TOL = 1e-5
-AB_BENCH_ARGV = ["FVD_TPU_FUSED_DETLM=1", "--passes", "4", "--n-videos", "2", "--duration", "10",
+AB_BENCH_ARGV = ["FVD_TPU_FUSED_DETLM=1", "--passes", "4", "--n-videos", "2", "--duration", "5",
                  "--concurrency", "2"]
 AB_BENCH_KEYS = ["lever", "a_best", "b_best", "a_med", "b_med", "speedup_best", "speedup_med", "passes"]
 
@@ -4313,7 +4343,7 @@ def levers_phase():
                             "cpu_pose_deg": LEVERS_CPU_POSE_TOL, "prob": LEVERS_PROB_TOL}}
     with tempfile.TemporaryDirectory() as tmp:
         videos = os.path.join(tmp, "videos")
-        paths = [_corpus_clip(videos, i, LEVERS_CLIP_SECONDS)[0] for i in range(LEVERS_CLIPS)]
+        paths = [_corpus_clip(videos, i, LEVERS_CLIP_SECONDS, "avi")[0] for i in range(LEVERS_CLIPS)]
         t0 = time.perf_counter()
         result["chained"] = _levers_chained(paths[0])
         result["chained_s"] = time.perf_counter() - t0
@@ -4326,8 +4356,189 @@ def levers_phase():
     return launches
 
 
+#: the codec phase: corpus clips 0 and 1 at 10 s, 320x240, 30 fps
+CODEC_CLIPS, CODEC_SECONDS = 2, 10.0
+#: the VOPs of clip 0 held bit for bit against the plain versions: two GOPs
+CODEC_PLAIN_VOPS = 24
+CODEC_KERNELS = ("mpeg4_recon", "yuv420_rgb", "mpeg4_forward")
+#: each codec kernel's launches on the main path: the codec phase's encode and
+#: decode, and the batch phase's card runs (a) and (b)
+CODEC_LAUNCHES = {k: 0 for k in CODEC_KERNELS}
+#: each codec kernel's row of the kernels line (the codec phase)
+CODEC_ROWS = {}
+CODEC_SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode", "mpeg4_forward": "mpeg4_encode"}
+CODEC_REPLACES = {
+    "mpeg4_recon": "native/decode_shim.cc:155 (fvd_read_frames: libavcodec's mpeg4 decoder; "
+                   "cv2 at fvd_tpu/providers/media.py:521)",
+    "yuv420_rgb": "native/decode_shim.cc:155 (fvd_read_frames: sws_scale yuv420p -> rgb24; "
+                  "cv2 at fvd_tpu/providers/media.py:521)",
+    "mpeg4_forward": "fvd_tpu/providers/media.py:774 (write_video: cv2 VideoWriter 'mp4v', "
+                     "libavcodec's mpeg4 encoder and libswscale)",
+}
+
+
+def _codec_bounds(geo, p_vop, coded_blocks):
+    """Least device time a VOP of each codec kernel could take: each input
+    it needs read once and each output written once at HBM rate, or its
+    integer operations at the data sheet's non-tensor-core float32 rate (the
+    guide's table has no int32 entry; the card's integer rate is no higher),
+    whichever is longer -> {kernel: (ms, bound_by, bytes, ops)}.  The
+    reconstruction needs the levels, the dequantisation and the IDCT of the
+    VOP's ``coded_blocks`` only: an uncoded block adds nothing."""
+    n_blk, n_mb, frame = geo.n_blocks, geo.n_mb, geo.frame_bytes
+    px = geo.width * geo.height
+    rows = {
+        # the coded blocks' int16 levels, every block's qscale, intra flag,
+        # vector and coded flag in; the reference (P-VOP) read, the frame
+        # written; dequantisation 5 ops a coefficient and the two IDCT passes
+        # 48 ops a row or column of a coded block, the prediction and the
+        # add 15 ops a pixel
+        "mpeg4_recon": (coded_blocks * 64 * 2 + (2 * n_mb + 3 * n_blk) * 2 + frame * (2 if p_vop else 1),
+                        coded_blocks * (64 * 5 + 16 * 48) + n_blk * 64 * 15),
+        # the frame in, RGB out; 10 ops a pixel and 12 a 2x2 quad
+        "yuv420_rgb": (frame + 3 * px, 10 * px + 12 * (px // 4)),
+        # RGB and the reference (P-VOP) in, int16 levels out; colour 8 ops a
+        # pixel, the FDCT's two passes 16 ops a coefficient each, quantisation 5
+        "mpeg4_forward": (3 * px + (frame if p_vop else 0) + n_blk * 64 * 2,
+                          8 * px + n_blk * 64 * (2 * 16 + 5)),
+    }
+    out = {}
+    for k, (nbytes, ops) in rows.items():
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+        out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return out
+
+
+def codec_phase():
+    """MPEG-4 Part 2 in MP4 on the card, the slice's main path: corpus clips 0
+    and 1 (10 s, 320x240, 30 fps) encoded with ``write_mp4v`` and decoded with
+    ``NativeVideo`` on the card (counted), then clip 0's first VOPs through
+    ``mpeg4_recon``, ``yuv420_rgb`` and ``mpeg4_forward`` against their plain
+    versions on the card, bit for bit over two GOPs; ms a VOP for the host parse, the
+    reconstruction and the colour conversion, encode ms a frame, file bytes
+    against raw, luma PSNR against the drawn frames, each kernel's device time
+    and bound."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.c1_timing import graph_ms, interleaved_ms
+    from fvd_tpu_torch.ops import mpeg4 as ops
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.providers import native_decode as nd
+    from fvd_tpu_torch.utils import mp4, mpeg4v
+
+    n = int(round(CODEC_SECONDS * 30.0))
+    result = {"nvidia_smi": SMI_LINE, "clips": CODEC_CLIPS, "clip_seconds": CODEC_SECONDS, "fps": 30.0,
+              "frame_size": [240, 320], "vop_quant": nd.QUANT, "gop": nd.GOP}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        drawn = []
+        for i in range(CODEC_CLIPS):
+            raw, _ = _corpus_clip(tmp, i, CODEC_SECONDS, "avi")
+            drawn.append(media.VideoReader(use_cache=False).sample(raw, range(n))[0])
+        result["draw_s"] = time.perf_counter() - t0
+        paths = [os.path.join(tmp, f"codec{i}.mp4") for i in range(CODEC_CLIPS)]
+        # the main path, counted: encode, then decode every frame, on the card
+        _kernels.reset_launches()
+        enc, dec = [], []
+        for frames, path in zip(drawn, paths):
+            t0 = time.perf_counter()
+            stats = nd.write_mp4v(path, frames, 30.0, device="cuda")
+            enc.append(dict(stats, wall_s=time.perf_counter() - t0))
+        decoded = []
+        for path in paths:
+            t0 = time.perf_counter()
+            with nd.NativeVideo(path, device="cuda") as v:
+                frames, kept = v.read_frames(range(n))
+                dec.append(dict(v.stats, wall_s=time.perf_counter() - t0))
+            check(kept == list(range(n)) and frames.shape == (n, 240, 320, 3), f"codec: decoded {len(kept)} frames")
+            decoded.append(frames)
+        torch.cuda.synchronize()
+        launches = {k: _kernels.LAUNCHES[k] for k in CODEC_KERNELS}
+        check(launches == {"mpeg4_recon": 2 * n * CODEC_CLIPS, "yuv420_rgb": n * CODEC_CLIPS,
+                           "mpeg4_forward": n * CODEC_CLIPS},
+              f"codec: launches {launches}: one recon a VOP in the encoder and one in the decoder, "
+              f"one colour conversion a frame, one forward a frame")
+        for k in CODEC_KERNELS:
+            CODEC_LAUNCHES[k] += launches[k]
+        result["main_path_launches"] = launches
+        result["encode_ms_per_frame"] = [e["wall_s"] * 1e3 / n for e in enc]
+        result["encode_host_ms_per_frame"] = {k: [e[k] * 1e3 / n for e in enc] for k in ("forward_s", "recon_s", "bits_s")}
+        result["decode_ms_per_frame"] = [d["wall_s"] * 1e3 / n for d in dec]
+        result["parse_ms_per_vop"] = [d["parse_s"] * 1e3 / d["vops"] for d in dec]
+        result["recon_host_ms_per_vop"] = [d["recon_s"] * 1e3 / d["vops"] for d in dec]
+        result["rgb_host_ms_per_frame"] = [d["rgb_s"] * 1e3 / n for d in dec]
+        result["file_bytes"] = [os.path.getsize(p) for p in paths]
+        result["raw_bytes"] = int(drawn[0].nbytes)
+        result["raw_over_file"] = [drawn[0].nbytes / b for b in result["file_bytes"]]
+
+        # bit for bit against the plain versions on the card: the first two
+        # GOPs of clip 0 (every VOP goes through the kernels, for the PSNR)
+        data = open(paths[0], "rb").read()
+        track = mp4.parse(paths[0], data)
+        decoder = mpeg4v.Decoder(mpeg4v.find_vol(track.config))
+        geo = ops.Geometry(320, 240)
+        ref_k = ref_p = None
+        worst = {k: 0 for k in CODEC_KERNELS}
+        ys, keep = [], {}
+        for i, (off, size) in enumerate(zip(track.offsets, track.sizes)):
+            vop = decoder.decode(data[off:off + size])
+            args = [torch.from_numpy(a).cuda() for a in (vop.levels, vop.qscale, vop.intra, vop.mv, vop.coded)]
+            p_vop = vop.kind == "P"
+            rgb = torch.from_numpy(drawn[0][i]).cuda()
+            k = ops.reconstruct_vop(*args, ref_k if p_vop else None, vop.rounding, geo)
+            rk = ops.yuv420_to_rgb(k, geo)
+            check(torch.equal(rk.cpu(), torch.from_numpy(decoded[0][i])), f"codec: frame {i} differs from the decode")
+            if i < CODEC_PLAIN_VOPS:
+                fk = ops.forward_vop(rgb, ref_k if p_vop else None, nd.QUANT, geo)
+                fp = ops.forward_vop_plain(rgb, ref_p if p_vop else None, nd.QUANT, geo)
+                worst["mpeg4_forward"] = max(worst["mpeg4_forward"], int((fk.int() - fp.int()).abs().max()))
+                p = ops.reconstruct_vop_plain(*args, ref_p if p_vop else None, vop.rounding, geo)
+                worst["mpeg4_recon"] = max(worst["mpeg4_recon"], int((k.int() - p.int()).abs().max()))
+                rp = ops.yuv420_to_rgb_plain(p[None], geo)[0]
+                worst["yuv420_rgb"] = max(worst["yuv420_rgb"], int((rk.int() - rp.int()).abs().max()))
+                ref_p = p
+            ys.append(k[:320 * 240])
+            if i in (0, 1):  # an I-VOP and a P-VOP for the timings
+                keep[vop.kind] = (args, ref_k, vop.rounding, rgb)
+            ref_k = k
+        check(not any(worst.values()), f"codec: kernels against their plain versions: max |d| {worst}")
+        result["bit_equal_vops"] = min(CODEC_PLAIN_VOPS, len(track.sizes))
+        ref_y = torch.stack([ops.rgb_to_yuv420_plain(torch.from_numpy(f).cuda(), geo)[:320 * 240] for f in drawn[0]])
+        mse = ((torch.stack(ys).double() - ref_y.double()) ** 2).mean().item()
+        result["luma_psnr_db"] = 10 * np.log10(255 ** 2 / mse)
+        check(result["luma_psnr_db"] > 35.0, f"codec: luma PSNR {result['luma_psnr_db']} dB")
+
+        # timings: the wrapper per call (CUDA events), the plain version, the device time
+        (ia, _, _, irgb), (pa, pref, prnd, prgb) = keep["I"], keep["P"]
+        frame = ref_k
+        rows = {
+            "mpeg4_recon": (lambda: ops.reconstruct_vop(*pa, pref, prnd, geo),
+                            lambda: ops.reconstruct_vop_plain(*pa, pref, prnd, geo)),
+            "yuv420_rgb": (lambda: ops.yuv420_to_rgb(frame, geo),
+                           lambda: ops.yuv420_to_rgb_plain(frame[None], geo)),
+            "mpeg4_forward": (lambda: ops.forward_vop(prgb, pref, nd.QUANT, geo),
+                              lambda: ops.forward_vop_plain(prgb, pref, nd.QUANT, geo)),
+        }
+        coded_blocks = int(pa[4].sum())
+        bounds = _codec_bounds(geo, p_vop=True, coded_blocks=coded_blocks)
+        timing = {}
+        for name, (fn, plain) in rows.items():
+            t = interleaved_ms({"ms": fn, "plain_ms": plain})
+            t["device_ms"] = graph_ms(fn)
+            bound_ms, bound_by, nbytes, nops = bounds[name]
+            timing[name] = {**t, "device_us": t["device_ms"] * 1e3, "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+                            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "coded_blocks": coded_blocks,
+                            "shape": "P-VOP, 300 MBs, 1800 blocks"}
+            CODEC_ROWS[name] = {"max_abs_err": worst[name], "ms": t["ms"], "device_ms": t["device_ms"],
+                                "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by}
+        timing["mpeg4_recon"]["i_vop_device_us"] = graph_ms(lambda: ops.reconstruct_vop(*ia, None, 0, geo)) * 1e3
+        result["kernels"] = timing
+    phase("codec", **result)
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
-PHASES = ("models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
+PHASES = ("codec", "models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
           "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval", "levers")
 
 
@@ -4360,7 +4571,7 @@ def main(argv=None) -> int:
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase,
                "levers": levers_phase}
-    uncounted = {"models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
+    uncounted = {"codec": codec_phase, "models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0
     for name in PHASES:
@@ -4385,6 +4596,16 @@ def main(argv=None) -> int:
         "library_ms": entry_row["library_ms"],
         "build_s": build_s["lipsync_score"],
     }]
+    for name in CODEC_KERNELS:
+        if "codec" in only:
+            check(CODEC_LAUNCHES[name] > 0, f"{name}: no launch on the main path")
+        row = CODEC_ROWS.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"fvd_tpu_torch/csrc/{CODEC_SOURCES[name]}.cu",
+            "replaces": CODEC_REPLACES[name], "launches": CODEC_LAUNCHES[name],
+            "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
+            "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
+            "library_ms": None, "build_s": build_s[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain ``extern "C"``
-launcher and no PyTorch header.  At first use it is compiled by ``nvcc`` for
+Each kernel lives in a ``csrc/<source>.cu`` file (its own name unless
+``SOURCES`` names another; a file may hold several kernels) with a plain
+``extern "C"`` launcher and no PyTorch header.  At first use the file is
+compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``build/fvd_tpu_torch_kernels/`` at the
 root of the checkout, named by a hash of its source and ``NVCC_FLAGS``, and
 loaded with ``ctypes``.  Nothing here runs at import; a missing ``nvcc`` or a
@@ -33,7 +35,13 @@ _P = ctypes.c_void_p
 #: scalar arguments' struct and the stream, all as ``c_void_p``
 SIGNATURES = {
     "lipsync_score": ("lipsync_score_launch", [_P] * 8),
+    "mpeg4_recon": ("mpeg4_recon_launch", [_P] * 9),
+    "yuv420_rgb": ("yuv420_rgb_launch", [_P] * 4),
+    "mpeg4_forward": ("mpeg4_forward_launch", [_P] * 6),
 }
+#: kernel name -> the ``csrc/`` file that holds it, where that is not its name
+SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode",
+           "mpeg4_forward": "mpeg4_encode"}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 #: seconds each kernel's build (or load of a cached build) took in this process
@@ -58,7 +66,8 @@ def count_launch(name: str) -> None:
 
 
 def source_path(name: str) -> Path:
-    return _PKG / "csrc" / f"{name}.cu"
+    """The ``.cu`` file of kernel (or source) ``name``."""
+    return _PKG / "csrc" / f"{SOURCES.get(name, name)}.cu"
 
 
 def _nvcc() -> str:
@@ -78,7 +87,7 @@ def library_path(name: str) -> Path:
     source and of ``NVCC_FLAGS``, so a change of either builds anew."""
     digest = hashlib.sha256(source_path(name).read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{SOURCES.get(name, name)}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -88,7 +97,7 @@ def build(name: str) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -99,16 +108,18 @@ def build(name: str) -> Path:
 
 
 def load(name: str):
-    """The launcher function of kernel ``name``, built and bound on first use."""
+    """The launcher function of kernel ``name``, built and bound on first use
+    (one build and one load per source file)."""
+    source = SOURCES.get(name, name)
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(source)
         if lib is None:
             t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build(name)))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            _loaded[name] = lib
-    return getattr(lib, SIGNATURES[name][0])
+            BUILD_SECONDS[source] = time.perf_counter() - t0
+            _loaded[source] = lib
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

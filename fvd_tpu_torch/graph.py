@@ -66,12 +66,12 @@ def build_graph(
     dag = DAG()
     dag.add_node("IN", with_cfg(ingest.run), host_only=True)
     dag.add_node("A1", with_cfg(a1_standardize.run, device=dev), deps=["IN"])
-    dag.add_node("V1", with_prov(v1_faces.run), deps=["IN"])
+    dag.add_node("V1", with_prov(v1_faces.run, device=dev), deps=["IN"])
     dag.add_node("A2", with_prov(a2_asr.run), deps=["A1"])
     dag.add_node("A3", with_cfg(a3_onsets.run, device=dev), deps=["A1"])
     dag.add_node("V2", with_prov(v2_ocr.run), deps=["V1"])
-    dag.add_node("V3", with_prov(v3_landmarks.run), deps=["V1"])
-    dag.add_node("V4", with_prov(v4_dynamics.run), deps=["V1"])
+    dag.add_node("V3", with_prov(v3_landmarks.run, device=dev), deps=["V1"])
+    dag.add_node("V4", with_prov(v4_dynamics.run, device=dev), deps=["V1"])
     dag.add_node("V5", with_prov(v5_forensics.run, device=dev), deps=["V1"])
     dag.add_node("C1", with_cfg(c1_lipsync.run, device=dev), deps=["A3", "V3"])
     dag.add_node("C2", with_prov(c2_gesture.run), deps=["A2", "V1"])

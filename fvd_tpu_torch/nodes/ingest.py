@@ -5,9 +5,9 @@ Reference behavior (``main.py:56-290``): create ``processed/video_<ts>/``,
 copy the local video to ``video.mp4`` (whatever its container), extract
 ``audio.wav``, record metadata ``{duration, fps, size, rotation}``.
 
-The port reads raw-RGBA AVI (``fvd_tpu_torch/providers/media.py``): a video in
-another container fails here with an error that names the container, where
-the JAX package would transcode it with ffmpeg.  Audio comes from ffmpeg
+The port reads raw-RGBA AVI and ``mp4v`` MP4 (``fvd_tpu_torch/providers/media.py``):
+a video in another container or codec fails here with an error that names it,
+where the JAX package would transcode it with ffmpeg.  Audio comes from ffmpeg
 where a binary exists, else from the sibling ``.wav``.  The URL branch
 (yt-dlp download with retries) is not ported yet: a URL raises.
 """
@@ -19,15 +19,25 @@ import os
 import shutil
 
 from fvd_tpu_torch.config import Config, default_config
-from fvd_tpu_torch.providers.media import VideoReader, extract_audio
+from fvd_tpu_torch.providers import native_decode
+from fvd_tpu_torch.providers.media import VideoReader, extract_audio, is_mp4
 from fvd_tpu_torch.runtime.debug import dump_node_debug
 from fvd_tpu_torch.state import State, StateDelta
 
 
 def probe_codec_rotation(video_path: str) -> tuple:
-    """(codec_name, rotation_degrees): ``("", 0)``, what the JAX package
-    reports without its libav shim; the port has no shim."""
-    return "", 0
+    """(codec_name, rotation_degrees) of an MP4, as the JAX package's shim
+    reports them (``avcodec_get_name``, and the ``tkhd`` display matrix's
+    rotation): ``("mpeg4", r)`` for an ``mp4v`` file; ``("", 0)`` for
+    anything else."""
+    try:
+        if not is_mp4(video_path):
+            return "", 0
+        with native_decode.NativeVideo(video_path) as nv:
+            rotation, codec = nv.probe_extra()
+        return codec, rotation
+    except (OSError, ValueError):
+        return "", 0
 
 
 def _make_run_dir(processed_dir: str) -> str:
@@ -77,7 +87,7 @@ def run(state: State, config: Config = default_config()) -> StateDelta:
     # Metadata probe; raises UnsupportedVideo, naming the container, for a
     # file the port cannot read.
     meta = VideoReader().probe(video_path)
-    _, rotation = probe_codec_rotation(video_path)
+    codec, rotation = probe_codec_rotation(video_path)
     if meta is not None:
         metadata.update(
             {
@@ -87,6 +97,8 @@ def run(state: State, config: Config = default_config()) -> StateDelta:
                 "rotation": rotation,
             }
         )
+        if codec:
+            metadata["codec"] = codec
 
     dump_node_debug(output_dir, "IN", {"video": video_path, "audio": extracted or "none"})
     return {"data_dir": output_dir, "metadata": metadata, "debug": debug}

@@ -107,7 +107,9 @@ def run(
     state: State,
     config: Config = default_config(),
     providers: Optional[Providers] = None,
+    device=None,
 ) -> StateDelta:
+    """``device``: where an ``mp4v`` video decodes (default the card)."""
     providers = providers or get_providers()
     cfg = config.face_detect
     output_dir = state.get("data_dir")
@@ -159,22 +161,22 @@ def run(
     # streaming path.
     use_device = detector is not None and getattr(
         detector, "accepts_device_frames", False)
-    device = getattr(detector, "device", None)
+    det_device = getattr(detector, "device", None)
     if use_device and meta.fps:
         lmk_stride = max(1, int(round(meta.fps / config.landmarks.sample_fps)))
         union_ids = sorted(set(frame_ids) | set(range(0, meta.frame_count, lmk_stride)))
         if len(union_ids) <= chunk_size:
-            union_frames, union_kept = reader.sample(video_path, union_ids)
+            union_frames, union_kept = reader.sample(video_path, union_ids, device)
             if len(union_kept) > 0:
-                device_frames_for(video_path, union_kept, union_frames, device)
+                device_frames_for(video_path, union_kept, union_frames, det_device)
 
     ck = content_key(video_path)
     writer = ArtifactWriter()
     try:
         for frames, kept_ids in StreamingSampler(video_path, frame_ids,
-                                                 chunk_size=chunk_size):
+                                                 chunk_size=chunk_size, device=device):
             if detector is not None:
-                dev = device_frames_for(video_path, kept_ids, device=device) if use_device else None
+                dev = device_frames_for(video_path, kept_ids, device=det_device) if use_device else None
                 detections_per_frame = detector.detect_batch(
                     dev if dev is not None else frames)
             else:

@@ -53,7 +53,9 @@ def run(
     state: State,
     config: Config = default_config(),
     providers: Optional[Providers] = None,
+    device=None,
 ) -> StateDelta:
+    """``device``: where an ``mp4v`` video decodes (default the card)."""
     providers = providers or get_providers()
     cfg = config.landmarks
     output_dir = state.get("data_dir")
@@ -105,7 +107,7 @@ def run(
     tracer = get_tracer()
     try:
         chunks = iter(StreamingSampler(video_path, sample_ids,
-                                       chunk_size=cfg.stream_chunk_frames))
+                                       chunk_size=cfg.stream_chunk_frames, device=device))
         while True:
             with tracer.span("v3/decode"):
                 chunk = next(chunks, None)

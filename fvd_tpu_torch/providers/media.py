@@ -6,14 +6,18 @@ Decode happens ONCE per run: ``VideoReader.sample`` returns a contiguous
 V1 uploads one frame tensor to the device and V3 gathers its frames from it
 there (``_DeviceFrameCache``).
 
-The JAX package decodes with OpenCV or a libav shim.  The port uses neither:
-it reads raw-RGBA AVI, the layout OpenCV's libav writer gives for fourcc
-``RGBA`` (``fvd_tpu_torch/utils/avi.py``), through ``mmap`` with random
-access, and :func:`write_video` writes that layout.  A file in any other
-container raises ``fvd_tpu_torch.utils.avi.UnsupportedVideo`` naming the
-container.  Audio comes from an ffmpeg binary where one exists, else from a
-sibling ``.wav`` next to the input, else none (the reference tolerates
-missing audio, main.py:267-271).
+The JAX package decodes with OpenCV or a libav shim.  The port uses neither.
+It reads by content: raw-RGBA AVI, the layout OpenCV's libav writer gives for
+fourcc ``RGBA`` (``fvd_tpu_torch/utils/avi.py``), through ``mmap`` with
+random access; and MPEG-4 Part 2 (``mp4v``) in MP4, the JAX package's own
+clips, through ``fvd_tpu_torch/providers/native_decode.py``: entropy decoding
+on the host, reconstruction and colour conversion in CUDA kernels on the
+``device`` that the caller passes (the card unless it passes ``"cpu"``; the
+DAG's nodes pass the DAG's device).  :func:`write_video` writes either.
+A file in any other container or codec raises
+``fvd_tpu_torch.utils.avi.UnsupportedVideo`` naming it.  Audio comes from an
+ffmpeg binary where one exists, else from a sibling ``.wav`` next to the
+input, else none (the reference tolerates missing audio, main.py:267-271).
 The viz videos are PNG-in-AVI (fourcc ``png ``), which OpenCV reads
 losslessly.
 """
@@ -31,7 +35,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fvd_tpu_torch.utils import avi
+from fvd_tpu_torch.providers import native_decode
+from fvd_tpu_torch.utils import avi, mp4
+
+def is_mp4(path: str) -> bool:
+    """Does the file at ``path`` announce an ISO BMFF (MP4) container?"""
+    with open(path, "rb") as f:
+        return mp4.is_mp4(f.read(12))
 
 
 @dataclass
@@ -409,7 +419,8 @@ _EMPTY = np.zeros((0, 0, 0, 3), np.uint8)
 
 
 class VideoReader:
-    """Batched probe + frame sampling of raw-RGBA AVI files.
+    """Batched probe + frame sampling of raw-RGBA AVI and ``mp4v`` MP4 files;
+    MP4 decodes on the ``device`` given to :meth:`sample` (default the card).
 
     Decoded frames are shared across nodes via a process-wide cache.
     """
@@ -426,7 +437,11 @@ class VideoReader:
                 return cached
         if not os.path.exists(path):
             return None
-        fps, frames, w, h = avi.probe(path)
+        if is_mp4(path):
+            with native_decode.NativeVideo(path) as v:
+                fps, frames, w, h, _, _ = v.probe()
+        else:
+            fps, frames, w, h = avi.probe(path)
         if fps <= 0 or frames <= 0:
             return None
         meta = VideoMeta(fps=fps, frame_count=frames, width=w, height=h)
@@ -434,18 +449,18 @@ class VideoReader:
             self._cache.put_meta(path, meta)
         return meta
 
-    def sample(self, path: str, frame_ids: Sequence[int]) -> Tuple[np.ndarray, List[int]]:
+    def sample(self, path: str, frame_ids: Sequence[int], device=None) -> Tuple[np.ndarray, List[int]]:
         """Read the requested frames -> (uint8 [T, H, W, 3] RGB, kept ids).
 
         Results are served from / folded into the shared frame cache so
         concurrent V-nodes read each file at most once."""
         wanted = sorted(set(int(i) for i in frame_ids))
         if self._cache is None:
-            return self._sample_uncached(path, wanted)
+            return self._sample_uncached(path, wanted, device)
         with self._cache.lock_for(path):
             found, missing = self._cache.lookup(path, wanted)
             if missing:
-                frames, kept = self._sample_uncached(path, missing)
+                frames, kept = self._sample_uncached(path, missing, device)
                 # serve read frames directly — a concurrent eviction of this
                 # path between insert and a re-lookup must not lose them
                 found.update(dict(zip(kept, frames)))
@@ -466,10 +481,14 @@ class VideoReader:
             return stacked, kept
 
     @staticmethod
-    def _sample_uncached(path: str, frame_ids: Sequence[int]) -> Tuple[np.ndarray, List[int]]:
+    def _sample_uncached(path: str, frame_ids: Sequence[int], device=None) -> Tuple[np.ndarray, List[int]]:
         if not os.path.exists(path):
             return _EMPTY, []
-        frames, kept = avi.read_frames(path, frame_ids)
+        if is_mp4(path):
+            with native_decode.NativeVideo(path, device) as v:
+                frames, kept = v.read_frames(frame_ids)
+        else:
+            frames, kept = avi.read_frames(path, frame_ids)
         return (frames, kept) if kept else (_EMPTY, [])
 
     def sample_at_fps(self, path: str, sample_fps: float) -> Tuple[np.ndarray, List[int], VideoMeta]:
@@ -487,10 +506,13 @@ class VideoReader:
 class StreamingSampler:
     """Chunked frame sampling for long videos: yields ``(frames uint8
     [<=chunk, H, W, 3], kept_ids)`` batches, so memory stays bounded by the
-    chunk size regardless of duration."""
+    chunk size regardless of duration.  An MP4 keeps one decoding session
+    across the chunks (one pass over the file), as the shim's does, on
+    ``device`` (default the card)."""
 
-    def __init__(self, path: str, frame_ids: Sequence[int], chunk_size: int = 512):
+    def __init__(self, path: str, frame_ids: Sequence[int], chunk_size: int = 512, device=None):
         self.path = path
+        self.device = device
         self.ids = sorted(set(int(i) for i in frame_ids))
         self.chunk_size = max(1, chunk_size)
 
@@ -499,9 +521,17 @@ class StreamingSampler:
         # concurrent nodes sampling the same grid read the file once;
         # genuinely long videos stream uncached with bounded memory.
         if len(self.ids) <= self.chunk_size:
-            frames, kept = VideoReader().sample(self.path, self.ids)
+            frames, kept = VideoReader().sample(self.path, self.ids, self.device)
             if len(kept) > 0:
                 yield frames, kept
+            return
+        if os.path.exists(self.path) and is_mp4(self.path):
+            with native_decode.NativeVideo(self.path, self.device) as v:
+                for start in range(0, len(self.ids), self.chunk_size):
+                    frames, kept = v.read_frames(self.ids[start:start + self.chunk_size])
+                    if not kept:
+                        return
+                    yield frames, kept
             return
         for start in range(0, len(self.ids), self.chunk_size):
             frames, kept = VideoReader._sample_uncached(self.path, self.ids[start:start + self.chunk_size])
@@ -638,10 +668,18 @@ class IncrementalVideoWriter:
         return self._sink.close_async()
 
 
-def write_video(path: str, frames: np.ndarray, fps: float) -> None:
-    """RGB uint8 [T, H, W, 3] -> raw-RGBA AVI (test fixtures and clips):
-    lossless, and what :class:`VideoReader` reads."""
-    avi.write_avi(path, frames, fps)
+def write_video(path: str, frames: np.ndarray, fps: float, container: str = "avi",
+                device=None) -> None:
+    """RGB uint8 [T, H, W, 3] -> a file :class:`VideoReader` reads, whatever
+    its name: raw-RGBA AVI (``container="avi"``, lossless: test fixtures and
+    clips), or ``"mp4"``, an ``mp4v`` MP4 as the JAX package's
+    ``write_video`` writes, encoded on ``device`` (default the card)."""
+    if container == "mp4":
+        native_decode.write_mp4v(path, frames, fps, device=device)
+    elif container == "avi":
+        avi.write_avi(path, frames, fps)
+    else:
+        raise ValueError(f"container must be 'avi' or 'mp4', got {container!r}")
 
 
 def ffmpeg_bin() -> Optional[str]:

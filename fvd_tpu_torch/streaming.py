@@ -165,7 +165,7 @@ class ProgressiveAnalyzer:
         chunk_index = 0
         processed = 0
 
-        for frames, kept_ids in StreamingSampler(self.video_path, sample_ids, chunk_size=chunk_frames):
+        for frames, kept_ids in StreamingSampler(self.video_path, sample_ids, chunk_size=chunk_frames, device=dev):
             T = len(kept_ids)
             frames_dev = (device_frames_for(self.video_path, kept_ids, frames, device=lm_device)
                           if getattr(providers.landmarks, "accepts_device_frames", False)

@@ -401,8 +401,12 @@ def make_face_video(
     speech: str = "tone",
     heldout: bool = False,
     opencv: bool = False,
+    container: str = "avi",
+    device=None,
 ) -> str:
-    """A face clip ``<dirpath>/<name>.avi`` and its audio ``<name>.wav``.
+    """A face clip ``<dirpath>/<name>.avi`` and its audio ``<name>.wav``;
+    with ``container="mp4"``, ``<name>.mp4`` in ``mp4v`` as the JAX function
+    writes it, encoded on ``device`` (default the card).
 
     The mouth opens with ``0.5 * (1 + sin(2 pi mouth_gate_hz t))`` and the
     audio is a 330 Hz tone gated by ``sin(2 pi gate_hz t) > 0`` (or tone-coded
@@ -500,8 +504,8 @@ def make_face_video(
             noisy = frame.astype(np.float32) + sensor_noise * rng.randn(*frame.shape)
             frame = np.clip(noisy, 0, 255).astype(np.uint8)
         frames[i] = frame
-    video_path = os.path.join(dirpath, f"{name}.avi")
-    write_video(video_path, frames, fps)
+    video_path = os.path.join(dirpath, f"{name}.{container}")
+    write_video(video_path, frames, fps, container=container, device=device)
 
     if speech_text is not None and speech == "formant":
         sig = np.zeros(int(sr * duration), np.float32)

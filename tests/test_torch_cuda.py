@@ -201,9 +201,9 @@ def _video_dag(root, device, dtype):
     dag = DAG()
     dag.add_node("IN", part(ingest.run, config=cfg), host_only=True)
     dag.add_node("A1", part(a1_standardize.run, config=cfg, device=device), deps=["IN"])
-    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov), deps=["IN"])
+    dag.add_node("V1", part(v1_faces.run, config=cfg, providers=prov, device=device), deps=["IN"])
     dag.add_node("A3", part(a3_onsets.run, config=cfg, device=device), deps=["A1"])
-    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov), deps=["V1"])
+    dag.add_node("V3", part(v3_landmarks.run, config=cfg, providers=prov, device=device), deps=["V1"])
     dag.add_node("C1", part(c1_lipsync.run, config=cfg, device=device), deps=["A3", "V3"])
     dag.add_node("LR", part(lr_fusion.run, config=cfg), deps=["C1"])
     return dag
@@ -1015,3 +1015,73 @@ def test_whisper_canvas_batch_on_card_matches_cpu(cuda):
         out[d.type] = (pool.cpu(), compose_canvas_batch(pool, idx.to(d), off.to(d)).cpu())
     assert torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-6 * float(out["cpu"][0].abs().max()))
     assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1e-4
+
+
+def _mpeg4_gop(tmp_path, w=320, h=240, n=24):
+    """A GOP and a half of parsed VOPs of a moving texture written by the
+    port's encoder (I-VOPs and P-VOPs with not_coded macroblocks), and the
+    frames, for the decode kernels."""
+    from fvd_tpu_torch.providers import native_decode as tnd
+
+    rng = np.random.RandomState(3)
+    base = rng.randint(0, 256, (h + n, w + 2 * n, 3)).astype(np.float32)
+    for _ in range(4):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) / 3
+    frames = np.stack([base[t // 3:t // 3 + h, 2 * t:2 * t + w] for t in range(n)]).astype(np.uint8)
+    path = str(tmp_path / "gop.mp4")
+    tnd.write_mp4v(path, frames, 30.0, device="cpu")
+    with tnd.NativeVideo(path, device="cpu") as v:
+        vops = v.next_gop(n) + v.next_gop(n)
+    return vops, frames, v.geo
+
+
+def test_mpeg4_kernels_match_plain_over_a_gop(cuda, tmp_path):
+    """mpeg4_recon and yuv420_rgb against their plain versions, bit for bit,
+    on every VOP of a GOP and a half, each VOP predicted from the kernel's own
+    previous frame; one launch per VOP and per frame."""
+    from fvd_tpu_torch.ops import mpeg4 as tops
+
+    vops, _, geo = _mpeg4_gop(tmp_path)
+    ref_k = ref_p = None
+    before = dict(_kernels.LAUNCHES)
+    for v in vops:
+        args = [torch.from_numpy(a) for a in (v.levels, v.qscale, v.intra, v.mv, v.coded)]
+        pred = None if v.kind == "I" else ref_k
+        out_k = tops.reconstruct_vop(*[a.to(cuda) for a in args], pred, v.rounding, geo)
+        out_p = tops.reconstruct_vop_plain(*args, None if v.kind == "I" else ref_p, v.rounding, geo)
+        assert torch.equal(out_k.cpu(), out_p)
+        ref_k, ref_p = out_k, out_p
+        assert torch.equal(tops.yuv420_to_rgb(out_k, geo).cpu(),
+                           tops.yuv420_to_rgb_plain(out_p[None], geo)[0])
+    assert _kernels.LAUNCHES["mpeg4_recon"] - before["mpeg4_recon"] == len(vops)
+    assert _kernels.LAUNCHES["yuv420_rgb"] - before["yuv420_rgb"] == len(vops)
+
+
+@pytest.mark.parametrize("w,h", [(320, 240), (72, 40)])
+def test_mpeg4_forward_matches_plain(cuda, tmp_path, w, h):
+    """mpeg4_forward against its plain version, bit for bit, for an I-VOP and
+    a P-VOP, at an aligned size and at one the macroblocks overhang."""
+    from fvd_tpu_torch.ops import mpeg4 as tops
+
+    rng = np.random.RandomState(w)
+    geo = tops.Geometry(w, h)
+    rgb = torch.from_numpy(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    ref = torch.from_numpy(rng.randint(0, 256, geo.frame_bytes).astype(np.uint8))
+    for r in (None, ref):
+        got = tops.forward_vop(rgb.to(cuda), None if r is None else r.to(cuda), 3, geo)
+        assert torch.equal(got.cpu(), tops.forward_vop_plain(rgb, r, 3, geo))
+
+
+def test_mpeg4_file_on_card_matches_cpu(cuda, tmp_path):
+    """The whole codec on the card against the CPU: the same file bytes from
+    the encoder, the same frames from the decoder."""
+    from fvd_tpu_torch.providers import native_decode as tnd
+
+    _, frames, _ = _mpeg4_gop(tmp_path)
+    a, b = str(tmp_path / "card.mp4"), str(tmp_path / "cpu.mp4")
+    tnd.write_mp4v(a, frames, 30.0, device=cuda)
+    tnd.write_mp4v(b, frames, 30.0, device="cpu")
+    assert open(a, "rb").read() == open(b, "rb").read()
+    with tnd.NativeVideo(a, device=cuda) as v, tnd.NativeVideo(a, device="cpu") as c:
+        np.testing.assert_array_equal(v.read_frames(range(len(frames)))[0],
+                                      c.read_frames(range(len(frames)))[0])

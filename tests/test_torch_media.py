@@ -183,12 +183,15 @@ def test_avi_missing_frames_raises(tmp_path, damage):
 @pytest.mark.parametrize("kind", ["mp4", "png_avi", "xvid_avi", "empty", "text"])
 def test_other_containers_raise_naming_them(tmp_path, kind):
     path = str(tmp_path / f"v.{kind}")
-    if kind == "mp4":
+    if kind == "mp4":  # an mp4v file reads now; its sample entry rewritten to H.264's
         wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (16, 16))
         for f in _frames(3, 16, 16):
             wr.write(f)
         wr.release()
-        expect = "MP4"
+        data = open(path, "rb").read()
+        at = data.index(b"mp4v", data.index(b"stsd"))
+        open(path, "wb").write(data[:at] + b"avc1" + data[at + 4:])
+        expect = "avc1"
     elif kind == "png_avi":
         avi.write_avi(path, _frames(3, 16, 16), 10.0, avi.FOURCC_PNG)
         expect = "png"
@@ -295,7 +298,7 @@ def test_sample_matches_jax_reader_and_cache(video, monkeypatch):
     calls = []
     orig = tmedia.VideoReader._sample_uncached
     monkeypatch.setattr(tmedia.VideoReader, "_sample_uncached",
-                        staticmethod(lambda p, ids: calls.append(list(ids)) or orig(p, ids)))
+                        staticmethod(lambda p, ids, device=None: calls.append(list(ids)) or orig(p, ids, device)))
     reader = tmedia.VideoReader()
     f1, k1 = reader.sample(video, [12, 0, 6])
     f2, k2 = reader.sample(video, [0, 6, 12])
@@ -322,7 +325,7 @@ def test_concurrent_readers_read_once(video, monkeypatch):
     calls = []
     orig = tmedia.VideoReader._sample_uncached
     monkeypatch.setattr(tmedia.VideoReader, "_sample_uncached",
-                        staticmethod(lambda p, ids: calls.append(1) or orig(p, ids)))
+                        staticmethod(lambda p, ids, device=None: calls.append(1) or orig(p, ids, device)))
     out = []
     threads = [threading.Thread(target=lambda: out.append(tmedia.VideoReader().sample(video, range(10))))
                for _ in range(8)]
@@ -401,7 +404,10 @@ def test_ingest_errors(tmp_cwd):
     wr = cv2.VideoWriter("v.mp4", cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (16, 16))
     wr.write(np.zeros((16, 16, 3), np.uint8))
     wr.release()
-    with pytest.raises(avi.UnsupportedVideo, match="MP4"):
+    data = open("v.mp4", "rb").read()  # an mp4v file reads now: make it H.264's
+    at = data.index(b"mp4v", data.index(b"stsd"))
+    open("v.mp4", "wb").write(data[:at] + b"avc1" + data[at + 4:])
+    with pytest.raises(avi.UnsupportedVideo, match="avc1"):
         tingest.run(TState(input_path="v.mp4"))
 
 

@@ -81,9 +81,9 @@ def _dag(runtime, cfg, prov, mods, **dev):
     dag = runtime.DAG()
     dag.add_node("IN", part(ingest.run, config=cfg), host_only=True)
     dag.add_node("A1", part(a1.run, config=cfg, **dev), deps=["IN"])
-    dag.add_node("V1", part(v1.run, config=cfg, providers=prov), deps=["IN"])
+    dag.add_node("V1", part(v1.run, config=cfg, providers=prov, **dev), deps=["IN"])
     dag.add_node("A3", part(a3.run, config=cfg, **dev), deps=["A1"])
-    dag.add_node("V3", part(v3.run, config=cfg, providers=prov), deps=["V1"])
+    dag.add_node("V3", part(v3.run, config=cfg, providers=prov, **dev), deps=["V1"])
     dag.add_node("C1", part(c1.run, config=cfg, **dev), deps=["A3", "V3"])
     dag.add_node("LR", part(lr.run, config=cfg), deps=["C1"])
     return dag
