@@ -68,10 +68,11 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              AVI round trip; prints wall times, node and ``v3/*`` span
              medians, PNG seconds, the OneEuro scan's time and a
              ``torch.profiler`` view of one video;
-10. full_dag all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the same 4
-             clips, with ``pose.npz`` and a hermetic bundle (ScriptedASR,
+10. full_dag all 16 nodes of ``fvd_tpu_torch.graph.build_graph`` on the
+             first 2 of those clips (the two in sync; all 4 until the h264
+             phase), with ``pose.npz`` and a hermetic bundle (ScriptedASR,
              ScriptedLLM, StaticSearch with fixed content, NullOCR, StubClip):
-             card bf16 and card f32 one video at a time, card bf16 with all 4
+             card bf16 and card f32 one video at a time, card bf16 with both
              at once under the program coalescer, and CPU f32 on one of the
              clips (the one in sync: a cut that keeps the script's time with
              the batch phase; the dubbed one too until the hf_train phase).  Checks all 16
@@ -171,16 +172,17 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              step's loss) and float64 (every step's loss, the first step's
              gradients and the last parameters per tensor); (b) the tool in
              a subprocess on the card (the one trainer still run so, its
-             ``python -m`` entry as a user runs it), ``--steps 15
-             --consistency``, then in this process ``--only det --resume
-             --steps 10``, which must
-             continue from step 15: per trainer the median host data ms and device ms of a
+             ``python -m`` entry as a user runs it), ``--steps 8
+             --consistency`` (15 until the h264 phase), then in this process ``--only det --resume
+             --steps 5`` (10 until the h264 phase), which must
+             continue from step 8: per trainer the median host data ms and device ms of a
              step (CUDA events), images/s, the first and last loss (the last
              must be lower) and the eval metric; (c) the npz files it wrote
              served by ``SSDFaceDetector`` and ``FANLandmarks`` (with the
              pose head) on the card; (d) the tool in this process with the
              realism levers, ``--dense --photometric --shading --portrait
-             --augment --steps 3``, writing its checkpoints.  Training
+             --augment --steps 1`` (3 until the h264 phase), writing its
+             checkpoints.  Training
              launches no kernel of the repo's;
 17. net      the production bundle with ``use_llm=True, use_search=True``:
              ``OpenAILLM`` and the cached Serper -> Google CSE -> DuckDuckGo
@@ -213,9 +215,9 @@ Phases, each printed as one JSON line with its seconds before the next starts:
 19. corpus   the labeled-corpus experiment (``python -m
              fvd_tpu_torch.tools.{make_labeled_corpus,accuracy_trajectory,
              calibrate_lr}``): (a) ``build_corpus`` draws 2 real, 2 fake, 1
-             ambiguous and 1 hard-real clip of 10 s at 30 fps and 320x240
-             with OpenCV's shapes (the labels the names encode are
-             checked); (b) ``accuracy_trajectory.main`` in process on them
+             ambiguous and 1 hard-real clip of 3 s (10 s until the h264
+             phase) at 30 fps and 320x240 with OpenCV's shapes (the labels
+             the names encode are checked); (b) ``accuracy_trajectory.main`` in process on them
              with the shipped bundle in bf16 and the recorded services, a
              baseline run and 3 ``--train`` runs: the order the harness
              takes the clips in (online SGD depends on it: ``get_videos``
@@ -224,9 +226,10 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              every clip's probability (each results table scores every clip
              in that order), run 0's features, at least one C1 launch per
              clip; (c) a
-             ``texture_noise`` fake and a hard real of 5 s through the 16
-             nodes, card f32 against CPU f32 at the batch phase's bars; (d)
-             ``calibrate_lr.main`` on 1 real, 2 fakes and 1 hard real of 5 s
+             ``texture_noise`` fake and a hard real of 2 s (5 until the h264
+             phase) through the 16 nodes, card f32 against CPU f32 at the
+             batch phase's bars; (d) ``calibrate_lr.main`` on 1 real, 2
+             fakes and 1 hard real of 2 s (5 until the h264 phase)
              for training and again for validation: the accuracies, the
              vector (its sign constraints hold), one C1 launch per clip, and
              ``--refit-from-meta`` giving the same vector exactly;
@@ -319,8 +322,26 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              interpreter, its JSON line.  Paid for by cuts in ``batch``
              (PERF.md §4).
 
+25. codec    (runs right after ``kernel``) MPEG-4 Part 2 in MP4: corpus
+             clips 0 and 1 encoded with ``write_mp4v`` and decoded with
+             ``NativeVideo`` on the card, the three codec kernels against
+             their plain versions over two GOPs, their times and bounds;
+26. h264     (after ``codec``) H.264 in MP4: NVDEC's capabilities; the
+             four known-answer streams of ``utils/h264_pcm.py`` (320x240
+             I-only, IPBPB over two GOPs with still frames, 320x180 coded
+             320x192, planes of 0x00-0x03 samples), every frame's NV12 picture
+             through ``nv12_rgb`` against its plain version and the expected
+             frame; the counted main path: each stream through
+             ``NvdecVideo`` bit for bit, in chunks, from two threads,
+             ``nv12_rgb`` on the mapped surfaces, and corpus clip 0 (5 s) as
+             H.264 through the lip-sync path against a raw AVI of its frames;
+             any NVDEC failure fails, but in a container without NVIDIA's
+             video capability, where every cuvid call returns CUresult 2 and
+             the first read must raise just that, the main path cannot run;
+             IN on an H.264 clip; ``nv12_rgb``'s times and bound.
+
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-24 alone.  Then one JSON line with every kernel's numbers, the card's
+4-26 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -1747,6 +1768,9 @@ def _zoo_outputs(f):
 #: the full_dag phase's CPU runs: sync_a of the four (sync_a and dubbed until
 #: the hf_train phase: a cut that pays for it)
 CPU_CLIPS = slice(0, 1)
+#: the clips each bundle of the full_dag phase draws and runs: the two in sync
+#: (all 4 of the video phase's until the h264 phase, a cut that pays for it)
+FULL_DAG_CLIPS = 2
 
 
 def full_dag_phase():
@@ -1768,7 +1792,7 @@ def full_dag_phase():
     with tempfile.TemporaryDirectory() as tmp:
         for bundle in ("hermetic", "zoo", "hf"):
             models = bundle != "hermetic"
-            clips, _ = _video_clips(os.path.join(tmp, bundle, "clips"), *speech[bundle])
+            clips, _ = _video_clips(os.path.join(tmp, bundle, "clips"), *speech[bundle], n=FULL_DAG_CLIPS)
             n = len(clips)
             runs, summary = {}, {}
             for name, device, dtype, modes in configs[bundle]:
@@ -1955,7 +1979,9 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
             groups[kind] = {"groups": len(spans), "videos_per_group": sorted((sp.meta["n"] for sp in spans),
                                                                              reverse=True),
                             "items": [sp.meta["size"] for sp in spans],
-                            "median_ms": statistics.median(sp.elapsed_s * 1e3 for sp in spans)}
+                            "median_ms": statistics.median(sp.elapsed_s * 1e3 for sp in spans),
+                            # when each group started running, seconds into the run
+                            "starts_s": sorted(round(sp.start_s - t0, 3) for sp in spans)}
             if bucket:
                 from fvd_tpu_torch.providers.coalesce import _pad_target
 
@@ -2543,13 +2569,14 @@ TRAIN_ZERO_GRAD = {"lmk": ("Conv_1.bias",)}
 TRAIN_ZERO_GRAD_TOL = 1e-12
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3
-#: the tool's steps: 15 since the hf_train phase (30 until
-#: then, 50 before the fan phase); every loss still falls by a third or more
-TRAIN_CLI_STEPS = 15
-TRAIN_RESUME_STEPS = 10
+#: the tool's steps: 8 since the h264 phase (15 since the hf_train phase, 30
+#: until then, 50 before the fan phase); over 15 steps the losses fell to
+#: 41%, 14% and 11% of the first (det, lmk, pose; the h264 phase's runs)
+TRAIN_CLI_STEPS = 8
+TRAIN_RESUME_STEPS = 5   # 10 until the h264 phase
 #: the realism levers' run of the tool (the JAX tool's flags)
 TRAIN_LEVERS = ["--dense", "--photometric", "--shading", "--portrait", "--augment"]
-TRAIN_LEVER_STEPS = 3
+TRAIN_LEVER_STEPS = 1    # 3 until the h264 phase
 
 
 def _train_batches():
@@ -3104,17 +3131,19 @@ def parallel_phase():
 
 
 #: the corpus phase's labeled corpus: 2 real, 2 fake, 1 ambiguous and 1 hard
-#: real clip of 10 s at 30 fps and 320x240 (the JAX experiment's corpus holds
-#: 12-23 of them), and the trajectory's trained runs after the baseline
+#: real clip of 3 s at 30 fps and 320x240 (10 s until the h264 phase, a cut
+#: that pays for it; the JAX experiment's corpus holds 12-23 of them), and the
+#: trajectory's trained runs after the baseline
 CORPUS_FAMILIES = {"n_real": 2, "n_fake": 2, "n_ambiguous": 1, "n_hard_real": 1}
-CORPUS_CLIP_SECONDS = 10.0
+CORPUS_CLIP_SECONDS = 3.0
 CORPUS_RUNS = 3
-#: (c)'s two lever clips, each cut to 5 s under its own seed: the texture
-#: fake (FAKE_RECIPES[1]) and the first hard real
-CORPUS_LEVER_SECONDS = 5.0
-#: (d)'s calibration corpus: 1 real, 2 fakes, 1 hard real of 5 s for train
-#: and again for validation (the JAX tool's default is 18 of 10 s each)
-CORPUS_CALIBRATE = ["--n-real", "1", "--n-fake", "2", "--ambiguous", "0", "--hard-reals", "1", "--duration", "5"]
+#: (c)'s two lever clips, each cut to 2 s (5 until the h264 phase) under its
+#: own seed: the texture fake (FAKE_RECIPES[1]) and the first hard real
+CORPUS_LEVER_SECONDS = 2.0
+#: (d)'s calibration corpus: 1 real, 2 fakes, 1 hard real of 2 s (5 until the
+#: h264 phase) for train and again for validation (the JAX tool's default is
+#: 18 of 10 s each)
+CORPUS_CALIBRATE = ["--n-real", "1", "--n-fake", "2", "--ambiguous", "0", "--hard-reals", "1", "--duration", "2"]
 
 
 def _quiet(fn, *args):
@@ -4361,12 +4390,19 @@ CODEC_CLIPS, CODEC_SECONDS = 2, 10.0
 #: the VOPs of clip 0 held bit for bit against the plain versions: two GOPs
 CODEC_PLAIN_VOPS = 24
 CODEC_KERNELS = ("mpeg4_recon", "yuv420_rgb", "mpeg4_forward")
-#: each codec kernel's launches on the main path: the codec phase's encode and
-#: decode, and the batch phase's card runs (a) and (b)
-CODEC_LAUNCHES = {k: 0 for k in CODEC_KERNELS}
-#: each codec kernel's row of the kernels line (the codec phase)
+#: the kernels line's rows after lipsync_score: the codec kernels and the
+#: h264 phase's nv12_rgb
+ROW_KERNELS = CODEC_KERNELS + ("nv12_rgb",)
+#: each row kernel's launches on the main path: the codec phase's encode and
+#: decode and the batch phase's card runs (a) and (b); the h264 phase's NVDEC
+#: decodes
+CODEC_LAUNCHES = {k: 0 for k in ROW_KERNELS}
+#: each row kernel's row of the kernels line (the codec and h264 phases), and
+#: the phase whose main path must launch it
 CODEC_ROWS = {}
-CODEC_SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode", "mpeg4_forward": "mpeg4_encode"}
+MAIN_PATH_PHASE = {"mpeg4_recon": "codec", "yuv420_rgb": "codec", "mpeg4_forward": "codec", "nv12_rgb": "h264"}
+CODEC_SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode", "mpeg4_forward": "mpeg4_encode",
+                 "nv12_rgb": "nvdec"}
 CODEC_REPLACES = {
     "mpeg4_recon": "native/decode_shim.cc:155 (fvd_read_frames: libavcodec's mpeg4 decoder; "
                    "cv2 at fvd_tpu/providers/media.py:521)",
@@ -4374,6 +4410,8 @@ CODEC_REPLACES = {
                   "cv2 at fvd_tpu/providers/media.py:521)",
     "mpeg4_forward": "fvd_tpu/providers/media.py:774 (write_video: cv2 VideoWriter 'mp4v', "
                      "libavcodec's mpeg4 encoder and libswscale)",
+    "nv12_rgb": "native/decode_shim.cc:147-204 (fvd_read_frames: libavcodec's h264 decoder, then sws_scale "
+                "yuv420p -> rgb24 at :154-156; cv2 at fvd_tpu/providers/media.py:541)",
 }
 
 
@@ -4537,8 +4575,273 @@ def codec_phase():
     phase("codec", **result)
 
 
+#: the h264 phase: the known-answer streams (name -> frames, height, width,
+#: fps, display-order pattern), corpus clip 0 for the DAG, the surface pitch
+#: nv12_rgb is held at where no NVDEC surface exists
+H264_STREAMS = {"i_only": (10, 240, 320, 30.0, None), "ipbpb": (24, 240, 320, 30.0, "gop"),
+                "cropped": (8, 180, 320, 25.0, "IPBPIBPP"), "low_samples": (6, 48, 64, 10.0, "IPPBPP")}
+H264_CLIP_SECONDS = 5.0
+H264_PITCH = 512
+
+
+def _h264_sources():
+    """Each known-answer stream's frames: a smoothed random texture moving a
+    pixel a frame with still frames (all-skip P pictures) in it, or Y, Cb, Cr
+    planes of 0x00-0x03 runs (emulation prevention in the samples)."""
+    out = {}
+    for name, (n, h, w, fps, pattern) in H264_STREAMS.items():
+        rng = np.random.RandomState(len(out))
+        if name == "low_samples":
+            y = rng.randint(0, 4, (n, h, w)).astype(np.uint8)
+            u = rng.randint(0, 4, (n, h // 2, w // 2)).astype(np.uint8)
+            v = np.where(np.arange(w // 2) % 3 == 0, 255, 0).astype(np.uint8) * np.ones_like(u)
+            y[2], u[2], v[2] = y[1], u[1], v[1]
+            src = (y, u, v)
+        else:
+            base = rng.randint(0, 256, (h + n, w + n, 3)).astype(np.float32)
+            base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) / 3
+            frames = [base[i:i + h, i:i + w] for i in range(n)]
+            for i in (4, 5, 15):
+                if i < n:
+                    frames[i] = frames[i - 1]
+            src = np.stack(frames).astype(np.uint8)
+        out[name] = src
+    return out
+
+
+def _nv12_surface(flat, geo, pitch):
+    """A flat YUV 4:2:0 frame (macroblock-aligned planes) as an NV12 surface
+    on the card, ``pitch`` bytes a row, as a decoder lays its pictures out."""
+    import torch
+
+    h, w = geo.luma
+    f = torch.from_numpy(flat).cuda()
+    surface = torch.zeros((h * 3 // 2, pitch), dtype=torch.uint8, device="cuda")
+    surface[:h, :w] = f[:h * w].view(h, w)
+    surface[h:, 0:w:2] = f[h * w:h * w * 5 // 4].view(h // 2, w // 2)
+    surface[h:, 1:w:2] = f[h * w * 5 // 4:].view(h // 2, w // 2)
+    return surface[:h], surface[h:]
+
+
+def _h264_dag(tmp):
+    """Corpus clip 0 (5 s) as all-PCM H.264 and as a raw AVI of the same
+    decoded frames, each with the sibling wav, through the lip-sync path on
+    the card in f32 -> the two final states, the H.264 run's C1 and
+    nv12_rgb launches."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.utils import h264_pcm
+
+    raw, _ = _corpus_clip(tmp, 0, H264_CLIP_SECONDS, "avi")
+    n = int(round(H264_CLIP_SECONDS * 30.0))
+    frames = media.VideoReader(use_cache=False).sample(raw, range(n))[0]
+    h264_path, avi_path = os.path.join(tmp, "clip0_h264.mp4"), os.path.join(tmp, "clip0_avi.avi")
+    expect = h264_pcm.write_pcm_h264(h264_path, frames, 30.0, h264_pcm.gop_pattern(n))
+    media.write_video(avi_path, expect, 30.0)
+    for path in (h264_path, avi_path):
+        shutil.copy(raw[:-len(".mp4")] + ".wav", os.path.splitext(path)[0] + ".wav")
+    sched = _video_scheduler(os.path.join(tmp, "dag"), "cuda", torch.float32)
+    _video_run(sched, os.path.join(tmp, "dag"), [avi_path], coalesced=False)  # warm-up: cuDNN picks its algorithms
+    a = _video_run(sched, os.path.join(tmp, "dag"), [h264_path], coalesced=False)
+    nv12 = _kernels.LAUNCHES["nv12_rgb"]
+    b = _video_run(sched, os.path.join(tmp, "dag"), [avi_path], coalesced=False)
+    return a, b, nv12
+
+
+def h264_phase():
+    """H.264 in MP4 on the card: (a) NVDEC's capabilities for H.264 4:2:0
+    8-bit; (b) the four known-answer streams of ``utils/h264_pcm.py``
+    (320x240 I-only, IPBPB over two GOPs with still frames, 320x180 coded
+    320x192, YUV planes of 0x00-0x03 runs), every frame's NV12 picture
+    through nv12_rgb against its plain version and the expected RGB, bit for
+    bit; (c) the main path, counted: each stream through ``NvdecVideo``
+    (every frame equal to the expected, in display order, as many as
+    ``probe()`` counts; a pass in chunks; two sessions from two threads;
+    nv12_rgb on the mapped surfaces against its plain version), then corpus
+    clip 0 (5 s) as all-PCM H.264 through the lip-sync path against a raw
+    AVI of the same frames; (d) IN on the H.264 clip; (e) nv12_rgb's time,
+    its plain version's, its device time and its bound at 320x240.  Any
+    failure of NVDEC fails the phase, but for one state that the machine
+    causes (``nvdec.out_of_reach``: CUresult 2 in a container without
+    NVIDIA's video capability): there the first read must raise that same
+    failure (no fallback), and (c)'s NVDEC steps and nv12_rgb's main-path
+    launch check cannot run."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.c1_timing import graph_ms, interleaved_ms
+    from fvd_tpu_torch.nodes import ingest
+    from fvd_tpu_torch.ops import mpeg4 as ops
+    from fvd_tpu_torch.providers import nvdec
+    from fvd_tpu_torch.state import State
+    from fvd_tpu_torch.utils import h264, h264_pcm, mp4
+
+    result = {"nvidia_smi": SMI_LINE, "driver_capabilities": os.environ.get("NVIDIA_DRIVER_CAPABILITIES"),
+              "kernel_release": os.uname().release}
+    try:
+        result["nvdec_caps"] = nvdec.decoder_caps("cuda")
+        available = True
+    except RuntimeError as e:
+        check(nvdec.out_of_reach(e), f"h264 (a): NVDEC failed: {type(e).__name__}: {e}")
+        result["nvdec_caps"] = f"{type(e).__name__}: {e}"
+        available = False
+    check(not available or result["nvdec_caps"]["supported"] == 1,
+          f"h264 (a): this card's NVDEC does not decode H.264 4:2:0 8-bit: {result['nvdec_caps']}")
+    result["nvdec_available"] = available
+    c1_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the known-answer streams and their NV12 pictures through the kernel
+        t0 = time.perf_counter()
+        streams = {}
+        for name, src in _h264_sources().items():
+            n, h, w, fps, pattern = H264_STREAMS[name]
+            path = os.path.join(tmp, f"{name}.mp4")
+            pattern = h264_pcm.gop_pattern(n) if pattern == "gop" else pattern
+            geo = ops.Geometry(w, h)
+            streams[name] = (path, h264_pcm.write_pcm_h264(path, src, fps, pattern), h264_pcm.yuv_frames(src, geo),
+                             geo)
+        result["write_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / sum(v[0] for v in H264_STREAMS.values())
+        worst, frames_held = 0, 0
+        for name, (path, expect, flat, geo) in streams.items():
+            for i in range(len(expect)):
+                luma, uv = _nv12_surface(flat[i], geo, H264_PITCH)
+                k = ops.nv12_to_rgb(luma, uv, geo.width, geo.height)
+                p = ops.nv12_to_rgb_plain(luma, uv, geo.width, geo.height)
+                worst = max(worst, int((k.int() - p.int()).abs().max()),
+                            int(np.abs(k.cpu().numpy().astype(np.int64) - expect[i]).max()))
+                frames_held += 1
+        check(worst == 0, f"h264 (b): nv12_rgb against its plain version and the expected frames: max |d| {worst}")
+        result["b_kernel_vs_plain"] = {"frames": frames_held, "max_abs_err": worst, "pitch": H264_PITCH}
+
+        # (c) the main path, counted
+        _kernels.reset_launches()
+        path0 = streams["ipbpb"][0]
+        if not available:
+            try:
+                with nvdec.NvdecVideo(path0, device="cuda") as v:
+                    v.read_frames([0])
+                raised = None
+            except (RuntimeError, ValueError) as e:
+                raised = e
+            check(raised is not None and nvdec.out_of_reach(raised) and "NVDEC" in str(raised),
+                  f"h264 (c): NVDEC refused the capability query but a read raised {raised!r}")
+            check(_kernels.LAUNCHES["nv12_rgb"] == 0, "h264 (c): nv12_rgb launched without a decoded picture")
+            result["c_main_path"] = {"run": False, "read_raised": str(raised)}
+        else:
+            decoded, shown = {}, 0
+            for name, (path, expect, _, _) in streams.items():
+                t0 = time.perf_counter()
+                with nvdec.NvdecVideo(path, device="cuda") as v:
+                    got, kept = v.read_frames(range(len(expect)))
+                    stats, count = dict(v.stats), v.probe()[1]
+                wall = time.perf_counter() - t0
+                check(kept == list(range(len(expect))) and count == len(expect) and np.array_equal(got, expect),
+                      f"h264 (c) {name}: NVDEC gave {len(kept)} of {count} frames, "
+                      f"max |d| {int(np.abs(got.astype(int) - expect[:len(got)]).max()) if len(got) else None}")
+                decoded[name] = {"frames": len(kept), "ms_per_frame": wall * 1e3 / len(kept), **stats}
+                shown += len(kept)
+            path, expect = streams["ipbpb"][:2]
+            with nvdec.NvdecVideo(path, device="cuda") as v:
+                parts = [v.read_frames(ids) for ids in ([0, 1, 2, 5], [1, 7, 8, 20], [21, 99], [22])]
+            check([k for _, k in parts] == [[0, 1, 2, 5], [7, 8, 20], [21], []]
+                  and all(np.array_equal(f, expect[k]) for f, k in parts[:3]), f"h264 (c): chunked pass {parts}")
+            shown += 8
+            both = [None, None]
+
+            def one(j):
+                with nvdec.NvdecVideo(path, device="cuda") as v:
+                    both[j] = v.read_frames(range(len(expect)))[0]
+
+            threads = [threading.Thread(target=one, args=(j,)) for j in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            check(all(b is not None and np.array_equal(b, expect) for b in both), "h264 (c): two sessions at once")
+            shown += 2 * len(expect)
+            check(_kernels.LAUNCHES["nv12_rgb"] == shown,
+                  f"h264 (c): {_kernels.LAUNCHES['nv12_rgb']} nv12_rgb launches for {shown} frames")
+            CODEC_LAUNCHES["nv12_rgb"] += shown
+            a, b, nv12 = _h264_dag(tmp)
+            fa, fb = a["finals"][0], b["finals"][0]
+            gaps = {k: abs(fa.features[k] - fb.features[k]) for k in fa.features}
+            gaps["fake_probability"] = abs(fa.fake_probability - fb.fake_probability)
+            check(not any(gaps.values()) and fa.lip_sync_score == fb.lip_sync_score
+                  and np.isfinite(fa.fake_probability) and 0.0 < fa.fake_probability < 1.0,
+                  f"h264 (c): the DAG on H.264 against the raw AVI of its frames: {gaps}")
+            check(a["launches"] == 1 and nv12 > 0, f"h264 (c): the DAG launched C1 {a['launches']} and nv12_rgb "
+                                                    f"{nv12} times")
+            CODEC_LAUNCHES["nv12_rgb"] += nv12
+            c1_launches += a["launches"] + b["launches"]
+            result["c_main_path"] = {"run": True, "decoded": decoded, "dag": {
+                "gaps": gaps, "lip_sync_score": fa.lip_sync_score, "fake_probability": fa.fake_probability,
+                "nv12_rgb_launches": nv12, "wall_ms": {"h264": a["wall"][0], "avi": b["wall"][0]}}}
+            # nv12_rgb on the decoder's own mapped surfaces against its plain version (not counted)
+            path, expect = streams["cropped"][:2]
+            data = open(path, "rb").read()
+            track = mp4.parse(path, data)
+            cfg = h264.parse_avcc(track.config)
+            session, worst_mapped, shown = nvdec.NvdecSession(torch.device("cuda")), 0, 0
+            try:
+                for i in range(track.frame_count + 1):
+                    session.feed(None if i == track.frame_count else h264.annexb_access_unit(
+                        data[track.offsets[i]:track.offsets[i] + track.sizes[i]], cfg, i in track.sync))
+                    while session.pending():
+                        surf = session.map(torch.cuda.current_stream())
+                        k = ops.nv12_to_rgb(surf.luma, surf.uv, surf.width, surf.height)
+                        p = ops.nv12_to_rgb_plain(surf.luma, surf.uv, surf.width, surf.height)
+                        torch.cuda.synchronize()
+                        worst_mapped = max(worst_mapped, int((k.int() - p.int()).abs().max()),
+                                           int(np.abs(k.cpu().numpy().astype(np.int64) - expect[shown]).max()))
+                        result["c_surface"] = {"pitch": surf.pitch, "luma_rows": surf.luma.shape[0]}
+                        session.unmap()
+                        shown += 1
+            finally:
+                session.close()
+            check(worst_mapped == 0 and shown == len(expect),
+                  f"h264 (c): nv12_rgb on {shown} mapped surfaces against its plain version: max |d| {worst_mapped}")
+        result["c_main_path"]["nv12_rgb_launches"] = CODEC_LAUNCHES["nv12_rgb"]
+
+        # (d) IN on an H.264 clip turned 90 degrees: the host's probe, on any machine
+        clip = os.path.join(tmp, "in_h264.mp4")
+        n = H264_STREAMS["i_only"][0]
+        h264_pcm.write_pcm_h264(clip, _h264_sources()["i_only"], 30.0, rotation=90)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            meta = ingest.run(State(input_path=clip))["metadata"]
+        finally:
+            os.chdir(cwd)
+        check((meta["codec"], meta["rotation"], meta["fps"], meta["size"]) == ("h264", 90, 30.0, [320, 240])
+              and abs(meta["duration"] - n / 30.0) < 1e-9, f"h264 (d): IN recorded {meta}")
+        result["d_ingest"] = {k: meta[k] for k in ("codec", "rotation", "fps", "size", "duration")}
+
+    # (e) timings at 320x240 on a surface at the pitch
+    path, _, flat, geo = streams["i_only"]
+    luma, uv = _nv12_surface(flat[0], geo, H264_PITCH)
+    out = torch.empty((240, 320, 3), dtype=torch.uint8, device="cuda")
+    t = interleaved_ms({"ms": lambda: ops.nv12_to_rgb(luma, uv, 320, 240, out=out),
+                        "plain_ms": lambda: ops.nv12_to_rgb_plain(luma, uv, 320, 240)})
+    t["device_ms"] = graph_ms(lambda: ops.nv12_to_rgb(luma, uv, 320, 240, out=out))
+    px = 320 * 240
+    nbytes, nops = px * 3 // 2 + 3 * px, 10 * px + 12 * (px // 4)   # the picture in, RGB out; as yuv420_rgb
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    result["e_nv12_rgb"] = {**t, "device_us": t["device_ms"] * 1e3, "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+                            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes, "ops": nops,
+                            "shape": f"320x240 at pitch {H264_PITCH}"}
+    # nv12_rgb's main path runs only where the process reaches NVDEC
+    CODEC_ROWS["nv12_rgb"] = {"max_abs_err": worst, "ms": t["ms"], "device_ms": t["device_ms"],
+                              "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                              "bound_by": result["e_nv12_rgb"]["bound_by"], "on_main_path": available}
+    phase("h264", **result)
+    return c1_launches
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
-PHASES = ("codec", "models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
+PHASES = ("codec", "h264", "models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
           "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval", "levers")
 
 
@@ -4570,7 +4873,7 @@ def main(argv=None) -> int:
     counted = {"analyzer": analyzer_phase, "serving": serving_phase, "dag": dag_phase, "video": video_phase,
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase,
-               "levers": levers_phase}
+               "levers": levers_phase, "h264": h264_phase}
     uncounted = {"codec": codec_phase, "models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0
@@ -4596,10 +4899,10 @@ def main(argv=None) -> int:
         "library_ms": entry_row["library_ms"],
         "build_s": build_s["lipsync_score"],
     }]
-    for name in CODEC_KERNELS:
-        if "codec" in only:
-            check(CODEC_LAUNCHES[name] > 0, f"{name}: no launch on the main path")
+    for name in ROW_KERNELS:
         row = CODEC_ROWS.get(name, {})
+        if MAIN_PATH_PHASE[name] in only and row.get("on_main_path", True):
+            check(CODEC_LAUNCHES[name] > 0, f"{name}: no launch on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": f"fvd_tpu_torch/csrc/{CODEC_SOURCES[name]}.cu",
             "replaces": CODEC_REPLACES[name], "launches": CODEC_LAUNCHES[name],

@@ -10,7 +10,9 @@ loaded with ``ctypes``.  Nothing here runs at import; a missing ``nvcc`` or a
 failed build raises, and nothing falls back.
 
 Each wrapper calls :func:`count_launch` where it launches its kernel, so a run
-can show that it went through the kernel.
+can show that it went through the kernel.  A source may also export host
+entry points that launch nothing (``ENTRY_POINTS``: the NVDEC session of
+``csrc/nvdec.cu``); :func:`load` binds those the same way.
 """
 
 from __future__ import annotations
@@ -38,10 +40,25 @@ SIGNATURES = {
     "mpeg4_recon": ("mpeg4_recon_launch", [_P] * 9),
     "yuv420_rgb": ("yuv420_rgb_launch", [_P] * 4),
     "mpeg4_forward": ("mpeg4_forward_launch", [_P] * 6),
+    "nv12_rgb": ("nv12_rgb_launch", [_P] * 5),
 }
 #: kernel name -> the ``csrc/`` file that holds it, where that is not its name
 SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode",
-           "mpeg4_forward": "mpeg4_encode"}
+           "mpeg4_forward": "mpeg4_encode", "nv12_rgb": "nvdec"}
+_I, _L = ctypes.c_int, ctypes.c_longlong
+#: host entry point (its own symbol) -> (its ``csrc/`` file, argtypes); each
+#: returns an int, 0 on success
+ENTRY_POINTS = {
+    "nvdec_open": ("nvdec", [_I, _P]),
+    "nvdec_close": ("nvdec", [_P]),
+    "nvdec_feed": ("nvdec", [_P, _P, _L, _I]),
+    "nvdec_pending": ("nvdec", [_P]),
+    "nvdec_map": ("nvdec", [_P, _P, _P]),
+    "nvdec_unmap": ("nvdec", [_P]),
+    "nvdec_skip": ("nvdec", [_P]),
+    "nvdec_caps": ("nvdec", [_I, _P]),
+    "nvdec_message": ("nvdec", [_P, _P, _I]),
+}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 #: seconds each kernel's build (or load of a cached build) took in this process
@@ -65,9 +82,13 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def _source(name: str) -> str:
+    return ENTRY_POINTS[name][0] if name in ENTRY_POINTS else SOURCES.get(name, name)
+
+
 def source_path(name: str) -> Path:
-    """The ``.cu`` file of kernel (or source) ``name``."""
-    return _PKG / "csrc" / f"{SOURCES.get(name, name)}.cu"
+    """The ``.cu`` file of kernel, entry point (or source) ``name``."""
+    return _PKG / "csrc" / f"{_source(name)}.cu"
 
 
 def _nvcc() -> str:
@@ -87,7 +108,7 @@ def library_path(name: str) -> Path:
     source and of ``NVCC_FLAGS``, so a change of either builds anew."""
     digest = hashlib.sha256(source_path(name).read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCES.get(name, name)}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{_source(name)}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -108,9 +129,9 @@ def build(name: str) -> Path:
 
 
 def load(name: str):
-    """The launcher function of kernel ``name``, built and bound on first use
-    (one build and one load per source file)."""
-    source = SOURCES.get(name, name)
+    """The launcher function of kernel ``name`` (or the entry point ``name``),
+    built and bound on first use (one build and one load per source file)."""
+    source = _source(name)
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -118,7 +139,7 @@ def load(name: str):
             lib = ctypes.CDLL(str(build(name)))
             BUILD_SECONDS[source] = time.perf_counter() - t0
             _loaded[source] = lib
-        symbol, argtypes = SIGNATURES[name]
+        symbol, argtypes = SIGNATURES[name] if name in SIGNATURES else (name, ENTRY_POINTS[name][1])
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -27,7 +27,8 @@
 //      intra block is its clipped residual.
 // yuv420_rgb: one thread per 2x2 quad of the visible frame; libswscale's
 // unscaled yuv420p -> rgb24 in the 16-bit fixed-point form of its x86 build
-// (the JAX package's readers give exactly that).
+// (the JAX package's readers give exactly that; 8Y - 128 is not clamped, so a
+// luma sample below 16 darkens its pixel's three channels).
 //
 // Bound on an H100.  A 320x240 VOP is 300 macroblocks, 1800 blocks: the
 // kernel reads 128 bytes of int16 levels a coded block (230 KB when all are,
@@ -211,7 +212,7 @@ __global__ void yuv420_rgb_kernel(const uint8_t* __restrict__ frame, uint8_t* __
     for (int i = 0; i < 2; ++i) {
       const int xx = 2 * qx + i;
       if (xx >= a.width) break;
-      const int yv = (max(8 * frame[yy * a.luma_w + xx] - Y_OFFSET, 0) * Y_COEFF) >> 16;
+      const int yv = ((8 * frame[yy * a.luma_w + xx] - Y_OFFSET) * Y_COEFF) >> 16;  // not clamped
       uint8_t* o = rgb + ((size_t)yy * a.width + xx) * 3;
       o[0] = (uint8_t)clip255(yv + dr);
       o[1] = (uint8_t)clip255(yv + dg);

@@ -5,9 +5,11 @@ Reference behavior (``main.py:56-290``): create ``processed/video_<ts>/``,
 copy the local video to ``video.mp4`` (whatever its container), extract
 ``audio.wav``, record metadata ``{duration, fps, size, rotation}``.
 
-The port reads raw-RGBA AVI and ``mp4v`` MP4 (``fvd_tpu_torch/providers/media.py``):
-a video in another container or codec fails here with an error that names it,
-where the JAX package would transcode it with ffmpeg.  Audio comes from ffmpeg
+The port reads raw-RGBA AVI, ``mp4v`` MP4 and H.264 MP4 (``avc1``, ``avc3``:
+8-bit 4:2:0 progressive limited-range, on the card's NVDEC)
+(``fvd_tpu_torch/providers/media.py``): a video in another container or codec
+fails here with an error that names it, where the JAX package would transcode
+it to H.264 with ffmpeg.  Audio comes from ffmpeg
 where a binary exists, else from the sibling ``.wav``.  The URL branch
 (yt-dlp download with retries) is not ported yet: a URL raises.
 """
@@ -28,12 +30,12 @@ from fvd_tpu_torch.state import State, StateDelta
 def probe_codec_rotation(video_path: str) -> tuple:
     """(codec_name, rotation_degrees) of an MP4, as the JAX package's shim
     reports them (``avcodec_get_name``, and the ``tkhd`` display matrix's
-    rotation): ``("mpeg4", r)`` for an ``mp4v`` file; ``("", 0)`` for
-    anything else."""
+    rotation): ``("mpeg4", r)`` for an ``mp4v`` file, ``("h264", r)`` for an
+    ``avc1`` or ``avc3`` one; ``("", 0)`` for anything else."""
     try:
         if not is_mp4(video_path):
             return "", 0
-        with native_decode.NativeVideo(video_path) as nv:
+        with native_decode.open_video(video_path) as nv:
             rotation, codec = nv.probe_extra()
         return codec, rotation
     except (OSError, ValueError):

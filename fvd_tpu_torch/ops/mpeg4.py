@@ -1,9 +1,10 @@
 """MPEG-4 Part 2 reconstruction and colour conversion, batched over a VOP's
 blocks: the parallel half of the ``mpeg4`` codec that the JAX package reaches
-through libavcodec and libswscale (``native/decode_shim.cc`` or OpenCV).
+through libavcodec and libswscale (``native/decode_shim.cc`` or OpenCV), and
+the colour conversion of the H.264 pictures that the card's NVDEC decodes.
 
 A frame is one flat uint8 tensor of its three planes, Y then Cb then Cr, at
-the macroblock-aligned size (:class:`Geometry`).  Three functions, each with a
+the macroblock-aligned size (:class:`Geometry`).  Four functions, each with a
 plain PyTorch version on integer tensors and a CUDA kernel:
 
 * :func:`reconstruct_vop` (``csrc/mpeg4_decode.cu`` ``mpeg4_recon``): H.263
@@ -11,7 +12,10 @@ plain PyTorch version on integer tensors and a CUDA kernel:
   motion compensation with ``rounding_type`` and edge clamping, add and clip;
 * :func:`yuv420_to_rgb` (``mpeg4_decode.cu`` ``yuv420_rgb``): libswscale's
   unscaled yuv420p -> rgb24 conversion (BT.601, limited range, in its x86
-  fixed-point form), each chroma sample covering 2x2 pixels;
+  fixed-point form), each chroma sample covering 2x2 pixels; and
+  :func:`nv12_to_rgb` (``csrc/nvdec.cu`` ``nv12_rgb``), the same arithmetic
+  on an NV12 surface (Cb and Cr interleaved) at its pitch, as the card's
+  NVDEC gives H.264 pictures;
 * :func:`forward_vop` (``csrc/mpeg4_encode.cu`` ``mpeg4_forward``): RGB to
   YUV 4:2:0, the residual against the reference frame (vector (0, 0)), an
   integer 8x8 FDCT and H.263 quantisation.
@@ -256,29 +260,47 @@ def reconstruct_vop_plain(levels: torch.Tensor, qscale: torch.Tensor, intra: tor
 
 # --- colour -----------------------------------------------------------------------
 
-def yuv420_to_rgb_plain(frames: torch.Tensor, geo: Geometry) -> torch.Tensor:
-    """Plain PyTorch version of ``yuv420_rgb``: flat frames uint8 ``[T, F]``
-    -> RGB uint8 ``[T, height, width, 3]``.  libswscale's unscaled
-    yuv420p -> rgb24 conversion in the 16-bit fixed-point form its x86 build
+def _planes_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Y ``[T, >=height, >=width]`` and Cb, Cr at half the size, any integer
+    type -> RGB uint8 ``[T, height, width, 3]``: libswscale's unscaled
+    yuv -> rgb24 conversion in the 16-bit fixed-point form its x86 build
     runs, which is what both of the JAX package's readers give: with
-    ``mulhi(a, b) = (a b) >> 16``, ``y = mulhi(max(8 Y - Y_OFFSET, 0),
-    Y_COEFF)``, ``u = 8 Cb - 1024``, ``v = 8 Cr - 1024``, and
-    R = y + mulhi(v, VR), G = y + mulhi(u, UG) + mulhi(v, VG),
-    B = y + mulhi(u, UB), each saturated to [0, 255]."""
-    h, w = geo.luma
-    hc, wc = h // 2, w // 2
-    t = frames.shape[0]
-    f = frames.to(torch.int64)
-    y = f[:, :h * w].reshape(t, h, w)[:, :geo.height, :geo.width]
-    u = f[:, h * w:h * w + hc * wc].reshape(t, hc, wc)
-    v = f[:, h * w + hc * wc:].reshape(t, hc, wc)
-    u = u.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :geo.height, :geo.width] * 8 - 1024
-    v = v.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :geo.height, :geo.width] * 8 - 1024
-    y = ((y * 8 - Y_OFFSET).clamp(min=0) * Y_COEFF) >> 16
+    ``mulhi(a, b) = (a b) >> 16``, ``y = mulhi(8 Y - Y_OFFSET, Y_COEFF)`` (not
+    clamped: below Y = 16 it goes negative), ``u = 8 Cb - 1024``,
+    ``v = 8 Cr - 1024``, and R = y + mulhi(v, VR), G = y + mulhi(u, UG) +
+    mulhi(v, VG), B = y + mulhi(u, UB), each saturated to [0, 255]; each
+    chroma sample covers 2x2 pixels."""
+    y = y[:, :height, :width].to(torch.int64)
+    u = u.to(torch.int64).repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :height, :width] * 8 - 1024
+    v = v.to(torch.int64).repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :height, :width] * 8 - 1024
+    y = ((y * 8 - Y_OFFSET) * Y_COEFF) >> 16
     out = torch.stack([y + ((v * VR_COEFF) >> 16),
                        y + ((u * UG_COEFF) >> 16) + ((v * VG_COEFF) >> 16),
                        y + ((u * UB_COEFF) >> 16)], dim=-1)
     return out.clamp_(0, 255).to(torch.uint8)
+
+
+def yuv420_to_rgb_plain(frames: torch.Tensor, geo: Geometry) -> torch.Tensor:
+    """Plain PyTorch version of ``yuv420_rgb``: flat frames uint8 ``[T, F]``
+    -> RGB uint8 ``[T, height, width, 3]`` (the arithmetic of
+    :func:`_planes_to_rgb`)."""
+    h, w = geo.luma
+    hc, wc = h // 2, w // 2
+    t = frames.shape[0]
+    y = frames[:, :h * w].reshape(t, h, w)
+    u = frames[:, h * w:h * w + hc * wc].reshape(t, hc, wc)
+    v = frames[:, h * w + hc * wc:].reshape(t, hc, wc)
+    return _planes_to_rgb(y, u, v, geo.height, geo.width)
+
+
+def nv12_to_rgb_plain(luma: torch.Tensor, uv: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Plain PyTorch version of ``nv12_rgb``: an NV12 picture -> RGB uint8
+    ``[height, width, 3]``.  ``luma`` is uint8 ``[>=height, >=width]`` and
+    ``uv`` uint8 ``[>=height/2, >=width]``, Cb and Cr interleaved, both at any
+    row stride (a decoder surface's pitch): de-interleaved, then the
+    arithmetic of :func:`yuv420_to_rgb_plain`."""
+    cw, ch = (width + 1) // 2, (height + 1) // 2
+    return _planes_to_rgb(luma[None], uv[None, :ch, 0:2 * cw:2], uv[None, :ch, 1:2 * cw:2], height, width)[0]
 
 
 def rgb_to_yuv420_plain(rgb: torch.Tensor, geo: Geometry) -> torch.Tensor:
@@ -356,6 +378,11 @@ class _ReconArgs(ctypes.Structure):
 class _RgbArgs(ctypes.Structure):
     """``RgbArgs`` in ``csrc/mpeg4_decode.cu``."""
     _fields_ = [(f, ctypes.c_int) for f in ("width", "height", "luma_w", "luma_h")]
+
+
+class _Nv12Args(ctypes.Structure):
+    """``Nv12Args`` in ``csrc/nvdec.cu``."""
+    _fields_ = [(f, ctypes.c_int) for f in ("width", "height", "luma_pitch", "uv_pitch", "out_pitch")]
 
 
 class _ForwardArgs(ctypes.Structure):
@@ -440,6 +467,32 @@ def yuv420_to_rgb(frame: torch.Tensor, geo: Geometry, out: Optional[torch.Tensor
     h, w = geo.luma
     args = _RgbArgs(geo.width, geo.height, w, h)
     _launch("yuv420_rgb", dev, frame.contiguous().data_ptr(), out.data_ptr(), ctypes.addressof(args))
+    return out
+
+
+def nv12_to_rgb(luma: torch.Tensor, uv: torch.Tensor, width: int, height: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """An NV12 picture (``luma`` uint8 ``[>=height, >=width]``, ``uv`` uint8
+    ``[>=height/2, >=width]`` interleaved Cb Cr, each at its own row stride:
+    a decoder surface's pitch) -> RGB uint8 ``[height, width, 3]``: one launch
+    of ``nv12_rgb`` on CUDA tensors (into ``out`` where given, whose rows may
+    be strided); :func:`nv12_to_rgb_plain` on the CPU."""
+    dev = _on_cuda("nv12_to_rgb", luma, uv, out)
+    if dev is None:
+        rgb = nv12_to_rgb_plain(luma, uv, width, height)
+        return rgb if out is None else out.copy_(rgb)
+    cw, ch = (width + 1) // 2, (height + 1) // 2
+    for name, t, rows, cols in (("luma", luma, height, width), ("uv", uv, ch, 2 * cw)):
+        if t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1 or t.shape[0] < rows or t.shape[1] < cols:
+            raise ValueError(f"nv12_to_rgb: {name} {t.dtype} {tuple(t.shape)} (strides {t.stride()}) does "
+                             f"not hold {rows} rows of {cols} bytes")
+    if out is None:
+        out = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (height, width, 3) or out.stride()[1:] != (3, 1):
+        raise ValueError(f"nv12_to_rgb: out {out.dtype} {tuple(out.shape)} {out.stride()} is not "
+                         f"[{height}, {width}, 3] uint8 with packed rows")
+    args = _Nv12Args(width, height, luma.stride(0), uv.stride(0), out.stride(0))
+    _launch("nv12_rgb", dev, luma.data_ptr(), uv.data_ptr(), out.data_ptr(), ctypes.addressof(args))
     return out
 
 

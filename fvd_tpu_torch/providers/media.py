@@ -9,11 +9,15 @@ there (``_DeviceFrameCache``).
 The JAX package decodes with OpenCV or a libav shim.  The port uses neither.
 It reads by content: raw-RGBA AVI, the layout OpenCV's libav writer gives for
 fourcc ``RGBA`` (``fvd_tpu_torch/utils/avi.py``), through ``mmap`` with
-random access; and MPEG-4 Part 2 (``mp4v``) in MP4, the JAX package's own
+random access; MPEG-4 Part 2 (``mp4v``) in MP4, the JAX package's own
 clips, through ``fvd_tpu_torch/providers/native_decode.py``: entropy decoding
 on the host, reconstruction and colour conversion in CUDA kernels on the
 ``device`` that the caller passes (the card unless it passes ``"cpu"``; the
-DAG's nodes pass the DAG's device).  :func:`write_video` writes either.
+DAG's nodes pass the DAG's device); and H.264 (``avc1``, ``avc3``) in MP4,
+what phones and the JAX package's own transcodes give, through
+``fvd_tpu_torch/providers/nvdec.py``: the card's NVDEC and a colour kernel
+(on the CPU, H.264 raises naming NVDEC).  :func:`write_video` writes raw AVI
+or ``mp4v``.
 A file in any other container or codec raises
 ``fvd_tpu_torch.utils.avi.UnsupportedVideo`` naming it.  Audio comes from an
 ffmpeg binary where one exists, else from a sibling ``.wav`` next to the
@@ -419,8 +423,9 @@ _EMPTY = np.zeros((0, 0, 0, 3), np.uint8)
 
 
 class VideoReader:
-    """Batched probe + frame sampling of raw-RGBA AVI and ``mp4v`` MP4 files;
-    MP4 decodes on the ``device`` given to :meth:`sample` (default the card).
+    """Batched probe + frame sampling of raw-RGBA AVI, ``mp4v`` and H.264 MP4
+    files; MP4 decodes on the ``device`` given to :meth:`sample` (default the
+    card).
 
     Decoded frames are shared across nodes via a process-wide cache.
     """
@@ -438,7 +443,7 @@ class VideoReader:
         if not os.path.exists(path):
             return None
         if is_mp4(path):
-            with native_decode.NativeVideo(path) as v:
+            with native_decode.open_video(path) as v:
                 fps, frames, w, h, _, _ = v.probe()
         else:
             fps, frames, w, h = avi.probe(path)
@@ -485,7 +490,7 @@ class VideoReader:
         if not os.path.exists(path):
             return _EMPTY, []
         if is_mp4(path):
-            with native_decode.NativeVideo(path, device) as v:
+            with native_decode.open_video(path, device) as v:
                 frames, kept = v.read_frames(frame_ids)
         else:
             frames, kept = avi.read_frames(path, frame_ids)
@@ -526,7 +531,7 @@ class StreamingSampler:
                 yield frames, kept
             return
         if os.path.exists(self.path) and is_mp4(self.path):
-            with native_decode.NativeVideo(self.path, self.device) as v:
+            with native_decode.open_video(self.path, self.device) as v:
                 for start in range(0, len(self.ids), self.chunk_size):
                     frames, kept = v.read_frames(self.ids[start:start + self.chunk_size])
                     if not kept:

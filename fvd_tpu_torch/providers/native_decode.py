@@ -1,6 +1,8 @@
 """MPEG-4 Part 2 video in MP4, decoded and encoded by the port: the
 counterpart of ``fvd_tpu/providers/native_decode.py`` (the libav shim,
-``native/decode_shim.cc``) and of OpenCV's ``mp4v`` writer.
+``native/decode_shim.cc``) and of OpenCV's ``mp4v`` writer.  :func:`open_video`
+opens an MP4 by its codec: ``mp4v`` here, H.264 (``avc1``, ``avc3``) on the
+card's NVDEC (``fvd_tpu_torch/providers/nvdec.py``).
 
 Entropy decoding and encoding run on the host (``fvd_tpu_torch/utils/mpeg4v.py``,
 the container in ``fvd_tpu_torch/utils/mp4.py``); reconstruction and colour
@@ -19,7 +21,6 @@ between them, ``vop_quant`` :data:`QUANT`.
 
 from __future__ import annotations
 
-import mmap
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,24 +47,32 @@ def _resolve(device):
     return resolve_device(device)
 
 
+def open_video(path: str, device=None):
+    """A decode session of the MP4 file at ``path`` for its codec, the file
+    parsed once: :class:`NativeVideo` for ``mp4v``,
+    :class:`fvd_tpu_torch.providers.nvdec.NvdecVideo` for ``avc1`` and
+    ``avc3``; another codec raises :class:`UnsupportedVideo` naming it."""
+    from fvd_tpu_torch.providers.nvdec import NvdecVideo
+
+    opened = mp4.open_track(path)
+    return (NvdecVideo if opened[2].codec == "h264" else NativeVideo)(path, device, opened)
+
+
 class NativeVideo:
     """One decode session of an ``mp4v`` MP4 file on ``device`` (default the
     card; resolved at the first decode, so probing needs no card).  ``stats``
     sums host seconds spent parsing, reconstructing and converting, and the
-    VOPs parsed."""
+    VOPs parsed.  ``opened`` is :func:`fvd_tpu_torch.utils.mp4.open_track`'s
+    result for ``path`` where the caller has it."""
 
-    def __init__(self, path: str, device=None):
+    def __init__(self, path: str, device=None, opened=None):
         self.path = path
         self._device_arg = device
         self._device: Optional[torch.device] = None
-        self._f = open(path, "rb")
+        self._f, self._data, self.track = opened or mp4.open_track(path)
         try:
-            self._data = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
-        except ValueError:
-            self._f.close()
-            raise UnsupportedVideo(f"{path}: empty file") from None
-        try:
-            self.track = mp4.parse(path, self._data)
+            if self.track.fourcc != "mp4v":
+                raise UnsupportedVideo(f"{path}: MP4 video of codec {self.track.fourcc!r}, not MPEG-4 Part 2")
             if not self.track.sizes:
                 raise UnsupportedVideo(f"{path}: MP4 video track without samples")
             vol = mpeg4v.find_vol(self.track.config) or mpeg4v.find_vol(self._sample(0))

@@ -1,4 +1,5 @@
-"""ISO base media (MP4) files of MPEG-4 Part 2 video, with the standard library.
+"""ISO base media (MP4) files of MPEG-4 Part 2 and H.264 video, with the
+standard library.
 
 The JAX package writes its clips through OpenCV's ``mp4v`` writer, whose
 libavformat mov muxer lays a file out as
@@ -9,20 +10,26 @@ libavformat mov muxer lays a file out as
           stsc, stsz, stco)))), udta
 
 :func:`parse` walks ``moov/trak/mdia`` of the first video track for its
-timescale, the ``tkhd`` display matrix, the ``mp4v`` sample entry with the
-DecoderSpecificInfo of its ``esds`` (the VOS/VO/VOL headers), and the sample
-table (``stts``, ``stss``, ``stsc``, ``stsz``, ``stco`` or ``co64``), giving
-each sample's byte range.  A video track of any other sample entry (``avc1``,
-``hvc1``, ``av01``, ...) raises :class:`UnsupportedVideo` naming its fourcc.
+timescale, the ``tkhd`` display matrix, the first ``elst`` edit's
+``media_time``, the sample entry and the sample table (``stts``, ``ctts``,
+``stss``, ``stsc``, ``stsz``, ``stco`` or ``co64``), giving each sample's byte
+range and composition offset.  The sample entry is ``mp4v`` with the
+DecoderSpecificInfo of its ``esds`` (the VOS/VO/VOL headers), or ``avc1`` /
+``avc3`` with its ``avcC`` (H.264's parameter sets: ``utils/h264.py``); a video
+track of any other sample entry (``hvc1``, ``av01``, ...), or an ``avc1``
+without ``avcC``, raises :class:`UnsupportedVideo` naming its fourcc.
 
 :class:`Mp4Writer` writes the same layout: samples into ``mdat`` as they
-come, and ``moov`` at the end with the VOL in ``esds`` and an ``stss`` of the
-I-VOPs.
+come, and ``moov`` at the end with the VOL in ``esds`` (or the ``avcC``) and
+an ``stss`` of the sync samples; samples shown later than they decode (H.264's
+B pictures) get a ``ctts`` and an ``elst`` whose ``media_time`` is the first
+sample's composition offset, as FFmpeg's mov muxer writes them.
 """
 
 from __future__ import annotations
 
 import math
+import mmap
 import struct
 from dataclasses import dataclass, field
 from fractions import Fraction
@@ -44,8 +51,16 @@ class Track:
     offsets: List[int]
     sizes: List[int]
     sync: Optional[List[int]]          # 0-based ids of the sync samples; None: all
-    config: bytes                      # esds DecoderSpecificInfo
+    config: bytes                      # esds DecoderSpecificInfo (mp4v) or the avcC body (avc1, avc3)
     matrix: Tuple[int, ...] = field(default=(0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000))
+    composition_offsets: Optional[List[int]] = None   # ctts per sample; None: all 0
+    media_time: int = 0                # the first edit's start in the media timescale
+    movie_duration: float = 0.0        # mvhd's duration in seconds (libavformat's ``fmt->duration``)
+
+    @property
+    def codec(self) -> str:
+        """The decoder's name as libavcodec gives it (``avcodec_get_name``)."""
+        return "h264" if self.fourcc in ("avc1", "avc3") else "mpeg4"
 
     @property
     def frame_count(self) -> int:
@@ -150,12 +165,18 @@ def _sample_table(data, s: int, e: int, path: str, tkhd) -> Track:
         raise UnsupportedVideo(f"{path}: MP4 video track without a sample entry")
     kind, es, ee = entries[0]
     fourcc = kind.decode("latin-1")
-    if kind != b"mp4v":
-        raise UnsupportedVideo(f"{path}: MP4 video of codec {fourcc!r}; the port reads MPEG-4 "
-                               f"Part 2 ('mp4v') only")
     width, height = struct.unpack_from(">HH", data, es + 24)
-    esds = _child(data, es + 78, ee, b"esds")
-    config = _esds_config(data, *esds) if esds else b""
+    if kind == b"mp4v":
+        esds = _child(data, es + 78, ee, b"esds")
+        config = _esds_config(data, *esds) if esds else b""
+    elif kind in (b"avc1", b"avc3"):
+        avcc = _child(data, es + 78, ee, b"avcC")
+        if avcc is None:
+            raise UnsupportedVideo(f"{path}: MP4 video of codec {fourcc!r} without an avcC box")
+        config = bytes(data[avcc[0]:avcc[1]])
+    else:
+        raise UnsupportedVideo(f"{path}: MP4 video of codec {fourcc!r}; the port reads MPEG-4 "
+                               f"Part 2 ('mp4v') and H.264 ('avc1', 'avc3') only")
 
     def table(kind):
         box = _child(data, s, e, kind)
@@ -212,12 +233,51 @@ def _sample_table(data, s: int, e: int, path: str, tkhd) -> Track:
         sync = [v - 1 for v in struct.unpack_from(f">{t[1]}I", data, t[0])]
     if len(deltas) < len(sizes):
         deltas += [deltas[-1] if deltas else 0] * (len(sizes) - len(deltas))
+    cto = None
+    t = table(b"ctts")
+    if t is not None:
+        fmt = ">Ii" if data[t[0] - 8] == 1 else ">II"
+        cto = []
+        for i in range(t[1]):
+            count, off = struct.unpack_from(fmt, data, t[0] + 8 * i)
+            cto += [off] * count
+        cto = (cto + [0] * len(sizes))[:len(sizes)]
     return Track(fourcc, width, height, 0, deltas[:len(sizes)], offsets, sizes, sync, config,
-                 tkhd or Track.matrix)
+                 tkhd or Track.matrix, cto)
 
 
-def parse(path: str, data) -> Track:
-    """The first video track of the MP4 file whose bytes are ``data``."""
+def _media_time(data, s: int, e: int) -> int:
+    """The ``media_time`` of the first non-empty edit of a ``trak``'s
+    ``edts/elst``, or 0."""
+    edts = _child(data, s, e, b"edts")
+    elst = _child(data, *edts, b"elst") if edts else None
+    if elst is None:
+        return 0
+    version = data[elst[0]]
+    (n,) = struct.unpack_from(">I", data, elst[0] + 4)
+    fmt, step = (">Qq", 20) if version == 1 else (">Ii", 12)
+    for i in range(n):
+        _, media_time = struct.unpack_from(fmt, data, elst[0] + 8 + step * i)
+        if media_time != -1:
+            return media_time
+    return 0
+
+
+def _movie_duration(data, s: int, e: int) -> float:
+    """``mvhd``'s duration over its timescale, in seconds (0 without one)."""
+    mvhd = _child(data, s, e, b"mvhd")
+    if mvhd is None:
+        return 0.0
+    if data[mvhd[0]] == 1:
+        scale, duration = struct.unpack_from(">IQ", data, mvhd[0] + 20)
+    else:
+        scale, duration = struct.unpack_from(">II", data, mvhd[0] + 12)
+    return duration / scale if scale else 0.0
+
+
+def _video_trak(path: str, data):
+    """(trak start, trak end, moov, stbl) of the first video track of the MP4
+    file whose bytes are ``data``."""
     name = container_name(bytes(data[:200]))
     if not name.startswith("MP4"):
         raise UnsupportedVideo(f"{path}: {name}, not MP4")
@@ -233,23 +293,50 @@ def parse(path: str, data) -> Track:
         hdlr = _child(data, *mdia, b"hdlr")
         if hdlr is None or bytes(data[hdlr[0] + 8:hdlr[0] + 12]) != b"vide":
             continue
-        matrix = None
-        tkhd = _child(data, s, e, b"tkhd")
-        if tkhd is not None:
-            off = tkhd[0] + (52 if data[tkhd[0]] == 1 else 40)
-            matrix = struct.unpack_from(">9i", data, off)
-        mdhd = _child(data, *mdia, b"mdhd")
-        timescale = 0
-        if mdhd is not None:
-            timescale = struct.unpack_from(">I", data, mdhd[0] + (20 if data[mdhd[0]] == 1 else 12))[0]
         minf = _child(data, *mdia, b"minf")
         stbl = _child(data, *minf, b"stbl") if minf else None
         if stbl is None:
             raise UnsupportedVideo(f"{path}: MP4 video track without a sample table")
-        track = _sample_table(data, *stbl, path, matrix)
-        track.timescale = timescale
-        return track
+        return s, e, moov, stbl
     raise UnsupportedVideo(f"{path}: MP4 without a video track")
+
+
+def parse(path: str, data) -> Track:
+    """The first video track of the MP4 file whose bytes are ``data``."""
+    s, e, moov, stbl = _video_trak(path, data)
+    mdia = _child(data, s, e, b"mdia")
+    matrix = None
+    tkhd = _child(data, s, e, b"tkhd")
+    if tkhd is not None:
+        off = tkhd[0] + (52 if data[tkhd[0]] == 1 else 40)
+        matrix = struct.unpack_from(">9i", data, off)
+    mdhd = _child(data, *mdia, b"mdhd")
+    timescale = 0
+    if mdhd is not None:
+        timescale = struct.unpack_from(">I", data, mdhd[0] + (20 if data[mdhd[0]] == 1 else 12))[0]
+    track = _sample_table(data, *stbl, path, matrix)
+    track.timescale = timescale
+    track.media_time = _media_time(data, s, e)
+    track.movie_duration = _movie_duration(data, *moov)
+    return track
+
+
+def open_track(path: str):
+    """The MP4 file at ``path`` opened and mapped, and its first video track
+    -> (file, mmap, :class:`Track`); the caller closes the mmap, then the
+    file."""
+    f = open(path, "rb")
+    try:
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    except ValueError:
+        f.close()
+        raise UnsupportedVideo(f"{path}: empty file") from None
+    try:
+        return f, data, parse(path, data)
+    except BaseException:
+        data.close()
+        f.close()
+        raise
 
 
 def is_mp4(head: bytes) -> bool:
@@ -278,15 +365,21 @@ _ENCODER = b"fvd_tpu_torch"
 
 
 class Mp4Writer:
-    """Appends MPEG-4 Part 2 samples; :meth:`close` writes ``moov``.
+    """Appends video samples; :meth:`close` writes ``moov``.
 
-    ``config`` is the VOS/VO/VOL headers.  The track's timescale is the
-    frame rate's numerator doubled up to at least 10000 and every sample
-    lasts ``timescale / fps``, as libavformat's mov muxer does."""
+    ``codec`` is ``"mp4v"`` (``config`` the VOS/VO/VOL headers) or ``"avc1"``
+    (``config`` the ``avcC`` body).  The track's timescale is the frame rate's
+    numerator doubled up to at least 10000 and every sample lasts
+    ``timescale / fps``, as libavformat's mov muxer does; ``matrix`` is the
+    ``tkhd`` display matrix."""
 
-    def __init__(self, path: str, width: int, height: int, fps: float, config: bytes):
+    def __init__(self, path: str, width: int, height: int, fps: float, config: bytes, codec: str = "mp4v",
+                 matrix: Tuple[int, ...] = None):
+        if codec not in ("mp4v", "avc1"):
+            raise ValueError(f"Mp4Writer writes 'mp4v' or 'avc1', not {codec!r}")
         rate, scale = fps_rational(fps)
         self.path, self.width, self.height, self.config = path, width, height, config
+        self.codec, self.matrix = codec, tuple(matrix or _IDENTITY)
         self.timescale = rate
         while self.timescale < 10000:
             self.timescale *= 2
@@ -299,13 +392,15 @@ class Mp4Writer:
         self._pos = self._mdat_at + 8
         self._sizes: List[int] = []
         self._sync: List[int] = []
-        self._max = 0
+        self._cto: List[int] = []
 
-    def write(self, sample: bytes, sync: bool) -> None:
+    def write(self, sample: bytes, sync: bool, composition_offset: int = 0) -> None:
+        """Append one sample; ``composition_offset`` is in frame durations."""
         if sync:
             self._sync.append(len(self._sizes) + 1)
         self._f.write(sample)
         self._sizes.append(len(sample))
+        self._cto.append(composition_offset * self.delta)
         self._pos += len(sample)
 
     def close(self) -> None:
@@ -332,32 +427,46 @@ class Mp4Writer:
         n = len(self._sizes)
         duration = n * self.delta
         movie_ms = duration * 1000 // self.timescale
-        matrix = struct.pack(">9i", *_IDENTITY)
+        media_time = self._cto[0] if self._cto else 0
         mvhd = _fullbox(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, movie_ms),
-                        struct.pack(">IH", 0x10000, 0x100), bytes(10), matrix, bytes(24),
+                        struct.pack(">IH", 0x10000, 0x100), bytes(10), struct.pack(">9i", *_IDENTITY), bytes(24),
                         struct.pack(">I", 2))
         tkhd = _fullbox(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, movie_ms), bytes(8),
-                        struct.pack(">hhH", 0, 0, 0), bytes(2), matrix,
+                        struct.pack(">hhH", 0, 0, 0), bytes(2), struct.pack(">9i", *self.matrix),
                         struct.pack(">II", self.width << 16, self.height << 16))
-        edts = _box(b"edts", _fullbox(b"elst", 0, 0, struct.pack(">IIiHH", 1, movie_ms, 0, 1, 0)))
+        edts = _box(b"edts", _fullbox(b"elst", 0, 0, struct.pack(">IIiHH", 1, movie_ms, media_time, 1, 0)))
         mdhd = _fullbox(b"mdhd", 0, 0, struct.pack(">IIII", 0, 0, self.timescale, duration),
                         struct.pack(">HH", 0x55C4, 0))
         hdlr = _fullbox(b"hdlr", 0, 0, bytes(4), b"vide", bytes(12), b"VideoHandler\x00")
         dinf = _box(b"dinf", _fullbox(b"dref", 0, 0, struct.pack(">I", 1), _fullbox(b"url ", 0, 1)))
-        bitrate = int(sum(self._sizes) * 8 * self.timescale / max(duration, 1))
-        dcd = _desc(0x04, bytes([0x20, 0x11]) + struct.pack(">I", max(self._sizes, default=0) * 8)[1:]
-                    + struct.pack(">II", bitrate, bitrate) + _desc(0x05, self.config))
-        esds = _fullbox(b"esds", 0, 0, _desc(0x03, struct.pack(">HB", 1, 0) + dcd + _desc(0x06, b"\x02")))
-        mp4v = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
-                    struct.pack(">HHIIIH", self.width, self.height, 0x480000, 0x480000, 0, 1),
-                    bytes(32), struct.pack(">Hh", 0x18, -1), esds)
-        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1), mp4v)
+        if self.codec == "avc1":
+            decoder_config = _box(b"avcC", self.config)
+        else:
+            bitrate = int(sum(self._sizes) * 8 * self.timescale / max(duration, 1))
+            dcd = _desc(0x04, bytes([0x20, 0x11]) + struct.pack(">I", max(self._sizes, default=0) * 8)[1:]
+                        + struct.pack(">II", bitrate, bitrate) + _desc(0x05, self.config))
+            decoder_config = _fullbox(b"esds", 0, 0, _desc(0x03, struct.pack(">HB", 1, 0) + dcd
+                                                           + _desc(0x06, b"\x02")))
+        entry = _box(self.codec.encode(), bytes(6), struct.pack(">H", 1), bytes(16),
+                     struct.pack(">HHIIIH", self.width, self.height, 0x480000, 0x480000, 0, 1),
+                     bytes(32), struct.pack(">Hh", 0x18, -1), decoder_config)
+        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1), entry)
         stts = _fullbox(b"stts", 0, 0, struct.pack(">III", 1, n, self.delta))
+        ctts = b""
+        if any(self._cto):
+            runs: List[List[int]] = []
+            for off in self._cto:
+                if runs and runs[-1][1] == off:
+                    runs[-1][0] += 1
+                else:
+                    runs.append([1, off])
+            ctts = _fullbox(b"ctts", 0, 0, struct.pack(f">I{2 * len(runs)}I", len(runs),
+                                                       *[v for run in runs for v in run]))
         stss = _fullbox(b"stss", 0, 0, struct.pack(f">I{len(self._sync)}I", len(self._sync), *self._sync))
         stsc = _fullbox(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, n, 1))
         stsz = _fullbox(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *self._sizes))
         stco = _fullbox(b"stco", 0, 0, struct.pack(">II", 1, self._mdat_at + 8))
-        stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
+        stbl = _box(b"stbl", stsd, stts, ctts, stss, stsc, stsz, stco)
         vmhd = _fullbox(b"vmhd", 0, 1, bytes(8))
         minf = _box(b"minf", vmhd, dinf, stbl)
         mdia = _box(b"mdia", mdhd, hdlr, minf)

@@ -1085,3 +1085,99 @@ def test_mpeg4_file_on_card_matches_cpu(cuda, tmp_path):
     with tnd.NativeVideo(a, device=cuda) as v, tnd.NativeVideo(a, device="cpu") as c:
         np.testing.assert_array_equal(v.read_frames(range(len(frames)))[0],
                                       c.read_frames(range(len(frames)))[0])
+
+
+def _nv12_surface(flat, geo, pitch, top=0, left=0):
+    """A flat YUV 4:2:0 frame laid out as an NV12 surface ``pitch`` bytes
+    wide, its picture ``top`` rows and ``left`` columns in (both even)."""
+    h, w = geo.luma
+    rows = h + top
+    surface = torch.full((rows + rows // 2, pitch), 200, dtype=torch.uint8)
+    surface[top:top + h, left:left + w] = flat[:h * w].reshape(h, w)
+    uv = surface[rows + top // 2:rows + top // 2 + h // 2, left:left + w]
+    uv[:, 0::2] = flat[h * w:h * w * 5 // 4].reshape(h // 2, w // 2)
+    uv[:, 1::2] = flat[h * w * 5 // 4:].reshape(h // 2, w // 2)
+    return surface, rows
+
+
+@pytest.mark.parametrize("w,h,pitch,top,left", [(320, 240, 512, 0, 0), (320, 180, 384, 4, 32), (72, 40, 128, 0, 8)])
+def test_nv12_rgb_matches_plain(cuda, w, h, pitch, top, left):
+    """nv12_rgb against its plain version and against yuv420_to_rgb_plain of
+    the same samples, bit for bit, at a pitch wider than the picture and from
+    an offset (a surface's display rectangle); luma below 16 included."""
+    from fvd_tpu_torch.ops import mpeg4 as tops
+
+    geo = tops.Geometry(w, h)
+    flat = torch.from_numpy(np.random.RandomState(w + h).randint(0, 256, geo.frame_bytes).astype(np.uint8))
+    surface, rows = _nv12_surface(flat, geo, pitch, top, left)
+    luma, uv = surface[top:rows, left:], surface[rows + top // 2:, left:]
+    dev = surface.to(cuda)
+    before = _kernels.LAUNCHES["nv12_rgb"]
+    got = tops.nv12_to_rgb(dev[top:rows, left:], dev[rows + top // 2:, left:], w, h)
+    assert _kernels.LAUNCHES["nv12_rgb"] == before + 1
+    want = tops.yuv420_to_rgb_plain(flat[None], geo)[0]
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tops.nv12_to_rgb_plain(luma, uv, w, h), want)
+    assert torch.equal(tops.nv12_to_rgb_plain(dev[top:rows, left:], dev[rows + top // 2:, left:], w, h).cpu(), want)
+
+
+@pytest.fixture
+def nvdec_caps(cuda):
+    """The card's NVDEC capabilities for H.264, or a skip in the one state
+    that the machine causes (``out_of_reach``: CUresult 2 in a container
+    without NVIDIA's video capability); any other failure, or a card that
+    does not decode H.264 4:2:0 8-bit, fails."""
+    from fvd_tpu_torch.providers import nvdec as tnv
+
+    try:
+        caps = tnv.decoder_caps(cuda)
+    except RuntimeError as e:
+        if not tnv.out_of_reach(e):
+            raise
+        pytest.skip(f"NVDEC is out of reach on this machine: {e}")
+    assert caps["supported"] == 1, caps
+    return caps
+
+
+@pytest.mark.parametrize("h,pattern", [(240, "IBPBPBPPIBPP"), (180, "IPBPIBPP")])
+def test_nvdec_decodes_known_answer_streams(nvdec_caps, tmp_path, h, pattern):
+    """NVDEC and nv12_rgb give the known-answer writer's frames bit for bit,
+    in display order: B pictures reordered, a cropped height, still P
+    pictures of P_Skip runs; one nv12_rgb launch a frame."""
+    from fvd_tpu_torch.providers import nvdec as tnv
+    from fvd_tpu_torch.utils import h264_pcm
+
+    rng = np.random.RandomState(h)
+    frames = rng.randint(0, 256, (len(pattern), h, 320, 3)).astype(np.uint8)
+    frames[5] = frames[4]
+    path = str(tmp_path / "v.mp4")
+    expect = h264_pcm.write_pcm_h264(path, frames, 30.0, pattern)
+    before = _kernels.LAUNCHES["nv12_rgb"]
+    with tnv.NvdecVideo(path, device="cuda") as v:
+        got, kept = v.read_frames(range(len(pattern)))
+    assert kept == list(range(len(pattern)))
+    np.testing.assert_array_equal(got, expect)
+    assert _kernels.LAUNCHES["nv12_rgb"] - before == len(pattern)
+
+
+def test_nvdec_fails_without_fallback(cuda, tmp_path):
+    """No fallback on the card: where NVDEC answers, a stream wider than it
+    decodes raises naming NVDEC; where it is out of reach, the first read
+    raises naming NVDEC and the reason."""
+    from fvd_tpu_torch.providers import nvdec as tnv
+    from fvd_tpu_torch.utils import h264_pcm
+    from fvd_tpu_torch.utils.avi import UnsupportedVideo
+
+    path = str(tmp_path / "wide.mp4")
+    h264_pcm.write_pcm_h264(path, np.zeros((2, 32, 4112, 3), np.uint8), 30.0)
+    try:
+        tnv.decoder_caps(cuda)
+        expected = UnsupportedVideo
+    except RuntimeError as e:
+        if not tnv.out_of_reach(e):
+            raise
+        expected = tnv.NvdecError
+    with tnv.NvdecVideo(path, device="cuda") as v:
+        with pytest.raises(expected, match="NVDEC") as raised:
+            v.read_frames([0, 1])
+    assert expected is UnsupportedVideo or tnv.out_of_reach(raised.value)

@@ -73,7 +73,8 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.tools.repro_node", "fvd_tpu_torch.tools.render_dag_svg",
             "fvd_tpu_torch.nodes._smooth", "fvd_tpu_torch.tools.ab_bench",
             "fvd_tpu_torch.utils.mp4", "fvd_tpu_torch.utils.mpeg4v", "fvd_tpu_torch.ops.mpeg4",
-            "fvd_tpu_torch.providers.native_decode"} <= set(mods)
+            "fvd_tpu_torch.providers.native_decode", "fvd_tpu_torch.utils.h264", "fvd_tpu_torch.utils.h264_pcm",
+            "fvd_tpu_torch.providers.nvdec"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"
