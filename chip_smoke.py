@@ -116,7 +116,13 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              lip-sync above the dubbed, an 8-row results table and the
              device-trained weights against the host replay (1e-6); prints
              videos/min, wall ms a video, kernels a video and the
-             wrappers' groups and padded sizes;
+             wrappers' groups and padded sizes; since the codec phase the
+             clips are ``mp4v`` (their VOPs parsed on the card), since
+             the aac phase each carries its speech as its own AAC-LC track
+             and no sibling wav (one ``aac_synth`` and one
+             ``audio_resample`` launch a video in (a) and (b)), and (a)
+             prints each video's decode and AAC seconds, the detector
+             groups' starts and spread and ``mpeg4_parse``'s launches;
 12. stream   progressive analysis (``fvd_tpu_torch.streaming``) of two
              clips of the batch corpus at 20 s (bench.py's 30 s until the
              hf_train phase; seed 0 in sync,
@@ -325,7 +331,10 @@ Phases, each printed as one JSON line with its seconds before the next starts:
 25. codec    (runs right after ``kernel``) MPEG-4 Part 2 in MP4: corpus
              clips 0 and 1 encoded with ``write_mp4v`` and decoded with
              ``NativeVideo`` on the card, the three codec kernels against
-             their plain versions over two GOPs, their times and bounds;
+             their plain versions over two GOPs, ``mpeg4_parse`` against the
+             host parser on every VOP of the clips and of three
+             known-answer streams (``utils/mpeg4v_ka.py``), their times and
+             bounds;
 26. h264     (after ``codec``) H.264 in MP4: NVDEC's capabilities; the
              four known-answer streams of ``utils/h264_pcm.py`` (320x240
              I-only, IPBPB over two GOPs with still frames, 320x180 coded
@@ -338,10 +347,21 @@ Phases, each printed as one JSON line with its seconds before the next starts:
              any NVDEC failure fails, but in a container without NVIDIA's
              video capability, where every cuvid call returns CUresult 2 and
              the first read must raise just that, the main path cannot run;
-             IN on an H.264 clip; ``nv12_rgb``'s times and bound.
+             IN on an H.264 clip; ``nv12_rgb``'s times and bound;
+27. aac      (after ``h264``) AAC-LC audio in MP4: two known-answer tracks
+             (``utils/aac_writer.py``; mono 44.1 kHz, stereo 48 kHz)
+             through ``media.extract_audio`` on the card (the counted main
+             path: ``aac_synth`` and ``audio_resample`` once a track) and
+             on the CPU, the WAVs within an int16 step; both kernels against
+             their float64 plain versions (1e-6) on those tracks and on a
+             5 s clip's own stereo 48 kHz track, their times and bounds, the
+             host parse's ms a frame; the CLI on that clip, whose only sound
+             is its AAC track: IN's WAV within an int16 step of the CPU's
+             decode, and the probability against the same pixels with the
+             CPU's decode as a sibling wav (``STREAM_CLI_TOL``).
 
 ``--only PHASE[,PHASE]`` runs env, build, kernel and the named phases of
-4-26 alone.  Then one JSON line with every kernel's numbers, the card's
+4-27 alone.  Then one JSON line with every kernel's numbers, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero; it also exits non-zero, printing no result, where no card is
@@ -351,10 +371,13 @@ present.  Imports torch, numpy and the port only.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
+import glob
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1901,11 +1924,36 @@ def _corpus_clip(videos, i, seconds, container="mp4"):
     return mp4, speech
 
 
+def _own_aac(src, out, signal, rate):
+    """``src``'s ``mp4v`` samples written to ``out`` (``src`` itself
+    allowed) with ``signal`` (float ``[n]`` or ``[n, 2]`` at ``rate``) as the
+    file's own AAC-LC track (:func:`aac_writer.encode_signal`, the plain
+    encoder) -> out."""
+    from fvd_tpu_torch.utils import aac_writer, mp4
+
+    data = open(src, "rb").read()
+    track = mp4.parse(src, data)
+    asc, units = aac_writer.encode_signal(signal, rate)
+    sync = set(track.sync or range(track.frame_count))
+    with mp4.Mp4Writer(out, track.width, track.height, track.fps, track.config) as w:
+        for i, (o, n) in enumerate(zip(track.offsets, track.sizes)):
+            w.write(data[o:o + n], sync=i in sync)
+        w.add_audio(asc, rate, 1 if np.ndim(signal) == 1 else 2, units, 1024)
+    return out
+
+
 def _batch_corpus(root):
     """bench.py's real-models corpus at 10 s (:func:`_corpus_clip` 0-7) in
-    ``root/videos``."""
+    ``root/videos``, each clip's speech its own AAC-LC track, as an upload
+    carries it, and no sibling wav."""
+    from fvd_tpu_torch.utils.wav import read_wav
+
     videos = os.path.join(root, "videos")
     clips = [_corpus_clip(videos, i, BATCH_CLIP_SECONDS) for i in range(len(BATCH_SENTENCES))]
+    for path, _ in clips:
+        wav = path[:-len(".mp4")] + ".wav"
+        _own_aac(path, path, *read_wav(wav))
+        os.remove(wav)
     return videos, [p for p, _ in clips], clips[0][1]
 
 
@@ -1947,10 +1995,52 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
             return batch.run_pipeline_many(paths, cfg, providers, concurrency=concurrency, device=device)
         return [batch.run_pipeline(p, None, cfg, providers, device=device) for p in paths]
 
+    from fvd_tpu_torch.providers import native_decode
+
+    # each decode session's stats, summed by file, when it closes
+    decode = {}
+    decode_lock = threading.Lock()
+    close = native_decode.NativeVideo.close
+
+    def counted_close(self):
+        if self._f is not None:
+            with decode_lock:
+                total = decode.setdefault(self.path, {"parse_s": 0.0, "recon_s": 0.0, "rgb_s": 0.0, "vops": 0,
+                                                      "ranges": 0, "sessions": 0})
+                for k in ("parse_s", "recon_s", "rgb_s", "vops", "ranges"):
+                    total[k] += self.stats[k]
+                total["sessions"] += 1
+        close(self)
+
+    # each AAC track's host seconds in IN: the whole extraction, its host parse
+    from fvd_tpu_torch.providers import audio
+    from fvd_tpu_torch.utils import aac
+
+    extract, parse = audio.extract, aac.decode
+    sound = {"extract_s": [], "parse": []}
+
+    def timed_extract(*a, **k):
+        t = time.perf_counter()
+        try:
+            return extract(*a, **k)
+        finally:
+            with decode_lock:
+                sound["extract_s"].append(round(time.perf_counter() - t, 4))
+
+    def timed_parse(cfg, units):
+        t = time.perf_counter()
+        try:
+            return parse(cfg, units)
+        finally:
+            with decode_lock:
+                sound["parse"].append((len(units), round(time.perf_counter() - t, 4)))
+
+    audio.extract, aac.decode = timed_extract, timed_parse
     media.clear_frame_cache()
     io_pool.clear_artifact_caches()
     tracer = set_tracer(Tracer())
     batch.Scheduler = Keep
+    native_decode.NativeVideo.close = counted_close
     try:
         _kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1963,9 +2053,11 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _kernels.LAUNCHES["lipsync_score"]
-        codec_launches = {k: _kernels.LAUNCHES[k] for k in CODEC_KERNELS}
+        codec_launches = {k: _kernels.LAUNCHES[k] for k in CODEC_KERNELS + AAC_KERNELS}
     finally:
         batch.Scheduler = Scheduler
+        native_decode.NativeVideo.close = close
+        audio.extract, aac.decode = extract, parse
         set_tracer(None)
         shutil.rmtree(os.path.join(root, "processed"), ignore_errors=True)
     check(all(p is not None for p in probs) and len(finals) == len(paths),
@@ -1987,7 +2079,8 @@ def _batch_run(providers, paths, root, device, concurrency, profile=False):
 
                 groups[kind]["padded_to"] = [_pad_target(sp.meta["size"], bucket) for sp in spans]
     out = {"finals": [finals[p] for p in paths], "probs": probs, "seconds": seconds, "launches": launches,
-           "codec_launches": codec_launches,
+           "codec_launches": codec_launches, "decode": sorted(decode.values(), key=lambda d: -d["parse_s"]),
+           "aac": sound,
            "nodes_done": {n: counts.get(f"node/{n}", 0) for n in FULL_DAG_NODES}, "groups": groups,
            "spans": {n: _span_ms(tracer, f"node/{n}") for n in FULL_DAG_NODES}}
     if profile:
@@ -2149,12 +2242,30 @@ def batch_phase():
         for r, what, clips in ((a, "(a)", n), (b, "(b)", n), (c, "(c)", 0)):
             got = r["codec_launches"]
             check(got["mpeg4_recon"] >= vops * clips and got["yuv420_rgb"] >= clips and got["mpeg4_forward"] == 0
-                  and (clips or not any(got.values())), f"batch {what}: codec launches {got} for {clips} clips")
-        for k in CODEC_KERNELS:
+                  and got["mpeg4_parse"] >= clips and got["aac_synth"] == got["audio_resample"] == clips
+                  and (clips or not any(got.values())),
+                  f"batch {what}: codec launches {got} for {clips} clips (one AAC track each)")
+        for k in CODEC_KERNELS + AAC_KERNELS:
             CODEC_LAUNCHES[k] += a["codec_launches"][k] + b["codec_launches"][k]
         c1 = a["groups"].get("c1_lipsync", {"groups": 0, "videos_per_group": []})
         check(a["launches"] == c1["groups"] and sum(c1["videos_per_group"]) == n,
               f"batch (a): {a['launches']} C1 launches for C1 groups {c1}")
+        # the decode on the card (each video's sessions' seconds), the
+        # detector groups' start times, mpeg4_parse's launches
+        starts = a["groups"].get("det", {}).get("starts_s", [])
+        gaps = [round(y - x, 3) for x, y in zip(starts, starts[1:])]
+        spread = round(starts[-1] - starts[0], 3) if starts else None
+        decode_s = [round(d["parse_s"] + d["recon_s"] + d["rgb_s"], 3) for d in a["decode"]]
+        result["a_decode"] = {"per_video": [{k: round(v, 4) if isinstance(v, float) else v for k, v in d.items()}
+                                            for d in a["decode"]],
+                              "det_group_starts_s": starts, "det_group_spread_s": spread, "det_group_gaps_s": gaps,
+                              "mpeg4_parse_launches": a["codec_launches"]["mpeg4_parse"],
+                              "aac_extract_s": a["aac"]["extract_s"], "aac_parse_frames_s": a["aac"]["parse"],
+                              "in_ms": a["spans"].get("IN")}
+        print(f"batch (a): decode seconds a video {decode_s} (parse {[round(d['parse_s'], 3) for d in a['decode']]}),"
+              f" AAC extraction seconds {a['aac']['extract_s']} (host parse {a['aac']['parse']}), detector groups "
+              f"start {starts} s (spread {spread}), mpeg4_parse launches {a['codec_launches']['mpeg4_parse']}",
+              flush=True)
         vision = [m for k in ("det", "lm", "lmpose") for m in a["groups"].get(k, {}).get("videos_per_group", [])]
         check(vision and max(vision) >= 2, f"batch (a): no detector or landmark group holds two videos: "
                                            f"{ {k: a['groups'].get(k) for k in ('det', 'lm', 'lmpose')} }")
@@ -2166,7 +2277,8 @@ def batch_phase():
         result["b_vs_c"] = _batch_compare(b["finals"][:1], c["finals"], "(b) card f32 vs (c) CPU f32")
         result["outputs_b"] = [{k: o[k] for k in ("transcript", "texture", "gestures")}
                                for o in map(_batch_outputs, b["finals"])]
-        result["decode"] = {"container": "mp4v (MPEG-4 Part 2) in MP4, written by the port on the card",
+        result["decode"] = {"container": "mp4v (MPEG-4 Part 2) and its own AAC-LC track in MP4, written by the "
+                                         "port on the card (the video) and the plain encoder (the sound)",
                             "file_bytes": [os.path.getsize(p) for p in paths],
                             "raw_bytes": 320 * 240 * 3 * int(round(BATCH_CLIP_SECONDS * 30.0))}
         result["runs"] = {"a_card_f32_concurrency_8": _batch_summary(a, n),
@@ -2202,8 +2314,7 @@ def batch_phase():
         cli_root = os.path.join(tmp, "cli")
         os.makedirs(os.path.join(cli_root, "videos"))
         for p in paths[:BATCH_CLI_CLIPS]:
-            for f in (p, p[:-len(".mp4")] + ".wav"):
-                os.link(f, os.path.join(cli_root, "videos", os.path.basename(f)))
+            os.link(p, os.path.join(cli_root, "videos", os.path.basename(p)))
         result["e_cli"] = _batch_cli(cli_root, names[:BATCH_CLI_CLIPS])
     phase("batch", **result)
     return launches
@@ -4389,10 +4500,12 @@ def levers_phase():
 CODEC_CLIPS, CODEC_SECONDS = 2, 10.0
 #: the VOPs of clip 0 held bit for bit against the plain versions: two GOPs
 CODEC_PLAIN_VOPS = 24
-CODEC_KERNELS = ("mpeg4_recon", "yuv420_rgb", "mpeg4_forward")
+CODEC_KERNELS = ("mpeg4_recon", "yuv420_rgb", "mpeg4_forward", "mpeg4_parse")
+#: the aac phase's kernels
+AAC_KERNELS = ("aac_synth", "audio_resample")
 #: the kernels line's rows after lipsync_score: the codec kernels and the
 #: h264 phase's nv12_rgb
-ROW_KERNELS = CODEC_KERNELS + ("nv12_rgb",)
+ROW_KERNELS = CODEC_KERNELS + ("nv12_rgb",) + AAC_KERNELS
 #: each row kernel's launches on the main path: the codec phase's encode and
 #: decode and the batch phase's card runs (a) and (b); the h264 phase's NVDEC
 #: decodes
@@ -4400,10 +4513,18 @@ CODEC_LAUNCHES = {k: 0 for k in ROW_KERNELS}
 #: each row kernel's row of the kernels line (the codec and h264 phases), and
 #: the phase whose main path must launch it
 CODEC_ROWS = {}
-MAIN_PATH_PHASE = {"mpeg4_recon": "codec", "yuv420_rgb": "codec", "mpeg4_forward": "codec", "nv12_rgb": "h264"}
+MAIN_PATH_PHASE = {"mpeg4_recon": "codec", "yuv420_rgb": "codec", "mpeg4_forward": "codec", "nv12_rgb": "h264",
+                   "mpeg4_parse": "codec", "aac_synth": "aac", "audio_resample": "aac"}
 CODEC_SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode", "mpeg4_forward": "mpeg4_encode",
+                 "mpeg4_parse": "mpeg4_parse", "aac_synth": "aac_synth", "audio_resample": "audio_resample",
                  "nv12_rgb": "nvdec"}
 CODEC_REPLACES = {
+    "mpeg4_parse": "native/decode_shim.cc:155 (fvd_read_frames: libavcodec's mpeg4 entropy decoding; "
+                   "cv2 at fvd_tpu/providers/media.py:521)",
+    "aac_synth": "native/decode_shim.cc:206-264 (fvd_extract_audio: libavcodec's aac IMDCT, windowing and "
+                 "overlap-add)",
+    "audio_resample": "native/decode_shim.cc:213-245 (fvd_extract_audio: libswresample's rematrix and "
+                      "resampler)",
     "mpeg4_recon": "native/decode_shim.cc:155 (fvd_read_frames: libavcodec's mpeg4 decoder; "
                    "cv2 at fvd_tpu/providers/media.py:521)",
     "yuv420_rgb": "native/decode_shim.cc:155 (fvd_read_frames: sws_scale yuv420p -> rgb24; "
@@ -4445,6 +4566,95 @@ def _codec_bounds(geo, p_vop, coded_blocks):
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
         out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
     return out
+
+
+#: the parse kernel's stream set beside the corpus clips: known-answer
+#: streams (every syntax path; width, height, VOPs, seed)
+CODEC_KA_STREAMS = ((64, 48, 24, 0), (96, 64, 24, 1), (320, 240, 36, 2))
+
+
+def _parse_inputs(path):
+    """Every sample of ``path`` as ``parse_vops``' inputs."""
+    from fvd_tpu_torch.utils import mp4, mpeg4v
+
+    data = open(path, "rb").read()
+    track = mp4.parse(path, data)
+    return mpeg4v.scan_samples([data[o:o + n] for o, n in zip(track.offsets, track.sizes)],
+                               mpeg4v.find_vol(track.config))
+
+
+def _codec_parse(tmp, corpus):
+    """``mpeg4_parse`` against the host parser, bit for bit, on every VOP of
+    the corpus clips and of the known-answer streams; its times (wall ms a
+    range of :data:`fvd_tpu_torch.providers.native_decode.PARSE_CHUNK_BYTES`,
+    device microseconds a launch, the host parser's ms a VOP) and bound."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.c1_timing import graph_ms
+    from fvd_tpu_torch.ops import mpeg4 as ops
+    from fvd_tpu_torch.providers import native_decode as nd
+    from fvd_tpu_torch.utils import mpeg4v_ka
+
+    streams = list(corpus)
+    for w, h, n, seed in CODEC_KA_STREAMS:
+        path = os.path.join(tmp, f"ka_{w}x{h}.mp4")
+        mpeg4v_ka.write_mp4(path, w, h, 30.0, mpeg4v_ka.covering_stream(w, h, n, seed=seed))
+        streams.append(path)
+    worst, vops, plain_s = 0, 0, 0.0
+    for path in streams:
+        args = _parse_inputs(path)
+        got = ops.parse_vops(*args, device="cuda")
+        t0 = time.perf_counter()
+        want = ops.parse_vops_plain(*args)
+        plain_s += time.perf_counter() - t0
+        check(got.kinds == want.kinds and got.rounding == want.rounding,
+              f"codec: mpeg4_parse kinds/rounding differ on {os.path.basename(path)}")
+        worst = max(worst, int((got.packed.cpu().int() - want.packed.int()).abs().max()))
+        vops += len(got)
+    check(worst == 0, f"codec: mpeg4_parse against the host parser: max |d| {worst}")
+    # timings on clip 0's first range, the size a session parses
+    data, offsets, ids, vols = _parse_inputs(corpus[0])
+    geo = ops.Geometry(vols[0].width, vols[0].height)
+    per_vop = 2 * (sum(ops.row_parts(geo)) + ops.parse_scratch_len(geo))
+    k = min(len(offsets), nd.PARSE_CHUNK_BYTES // per_vop)
+    end = offsets[k - 1][2]
+    rng_args = (data[:end], offsets[:k], ids[:k], vols)
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        ops.parse_vops(*rng_args, device="cuda")
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ops.parse_vops_plain(*rng_args)
+    plain_range_s = time.perf_counter() - t0
+    # the kernel alone: its inputs staged once, the two memsets and the launch in a graph
+    blob_np, starts = ops._parse_blob(*rng_args)
+    blob = torch.from_numpy(blob_np).cuda()
+    packed = torch.zeros((k, sum(ops.row_parts(geo))), dtype=torch.int16, device="cuda")
+    scratch = torch.zeros((k, ops.parse_scratch_len(geo)), dtype=torch.int16, device="cuda")
+    info = torch.zeros((k, 4), dtype=torch.int32, device="cuda")
+    tab, tab_len = ops._parse_tables_c()
+    pargs = ops._ParseArgs(k, len(vols), geo.mb_w, geo.mb_h, packed.shape[1], scratch.shape[1], tab_len, *starts)
+
+    def launch():
+        packed.zero_()
+        scratch.zero_()
+        ops._launch("mpeg4_parse", packed.device, blob.data_ptr(), packed.data_ptr(), scratch.data_ptr(),
+                    info.data_ptr(), ctypes.addressof(tab), ctypes.addressof(pargs))
+
+    before = _kernels.LAUNCHES["mpeg4_parse"]
+    device_ms = graph_ms(launch)
+    _kernels.LAUNCHES["mpeg4_parse"] = before  # the timing's launches are not the main path's
+    nbytes = len(blob_np) + packed.numel() * 2 + info.numel() * 4
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    CODEC_ROWS["mpeg4_parse"] = {"max_abs_err": worst, "ms": statistics.median(walls) * 1e3, "device_ms": device_ms,
+                                 "plain_ms": plain_range_s * 1e3, "bound_ms": bound_ms, "bound_by": "bytes"}
+    return {"streams": [os.path.basename(p) for p in streams], "vops_bit_equal": vops,
+            "plain_ms_per_vop": plain_s * 1e3 / vops, "range_vops": k, "range_wall_ms": statistics.median(walls) * 1e3,
+            "range_device_us": device_ms * 1e3, "device_us_per_vop": device_ms * 1e3 / k,
+            "wall_ms_per_vop": statistics.median(walls) * 1e3 / k, "plain_range_ms": plain_range_s * 1e3,
+            "bound_us": bound_ms * 1e3, "bound_bytes": nbytes}
 
 
 def codec_phase():
@@ -4493,10 +4703,12 @@ def codec_phase():
             decoded.append(frames)
         torch.cuda.synchronize()
         launches = {k: _kernels.LAUNCHES[k] for k in CODEC_KERNELS}
+        ranges = sum(d["ranges"] for d in dec)
         check(launches == {"mpeg4_recon": 2 * n * CODEC_CLIPS, "yuv420_rgb": n * CODEC_CLIPS,
-                           "mpeg4_forward": n * CODEC_CLIPS},
+                           "mpeg4_forward": n * CODEC_CLIPS, "mpeg4_parse": ranges} and ranges >= CODEC_CLIPS,
               f"codec: launches {launches}: one recon a VOP in the encoder and one in the decoder, "
-              f"one colour conversion a frame, one forward a frame")
+              f"one colour conversion a frame, one forward a frame, one parse a range ({ranges} ranges)")
+        result["parse"] = _codec_parse(tmp, paths)
         for k in CODEC_KERNELS:
             CODEC_LAUNCHES[k] += launches[k]
         result["main_path_launches"] = launches
@@ -4504,6 +4716,7 @@ def codec_phase():
         result["encode_host_ms_per_frame"] = {k: [e[k] * 1e3 / n for e in enc] for k in ("forward_s", "recon_s", "bits_s")}
         result["decode_ms_per_frame"] = [d["wall_s"] * 1e3 / n for d in dec]
         result["parse_ms_per_vop"] = [d["parse_s"] * 1e3 / d["vops"] for d in dec]
+        result["parse_ranges"] = [d["ranges"] for d in dec]
         result["recon_host_ms_per_vop"] = [d["recon_s"] * 1e3 / d["vops"] for d in dec]
         result["rgb_host_ms_per_frame"] = [d["rgb_s"] * 1e3 / n for d in dec]
         result["file_bytes"] = [os.path.getsize(p) for p in paths]
@@ -4514,7 +4727,7 @@ def codec_phase():
         # GOPs of clip 0 (every VOP goes through the kernels, for the PSNR)
         data = open(paths[0], "rb").read()
         track = mp4.parse(paths[0], data)
-        decoder = mpeg4v.Decoder(mpeg4v.find_vol(track.config))
+        decoder = mpeg4v.Decoder(mpeg4v.find_vol(track.config))  # the plain comparisons' VOPs
         geo = ops.Geometry(320, 240)
         ref_k = ref_p = None
         worst = {k: 0 for k in CODEC_KERNELS}
@@ -4840,8 +5053,247 @@ def h264_phase():
     return c1_launches
 
 
+#: the aac phase: the known-answer streams (channels, rate, frames, seed;
+#: every syntax path of the parser, 48 kHz resampled to 44.1), the CLI clip's
+#: length and its own track's rate (stereo at 48 kHz, as a phone records it,
+#: so the resampler runs at a clip's length too)
+AAC_STREAMS = ((1, 44100, 48, 1), (2, 48000, 48, 2))
+AAC_CLI_SECONDS = 5.0
+AAC_CLI_RATE = 48000
+#: the kernels against their float64 plain versions: a few float32 steps at
+#: the signals' scale (the kernels sum in float64 too, in another order)
+AAC_TOL = 1e-6
+#: H100 SXM data sheet: float64 on the tensor cores, the card's float64 peak
+#: (the measurement guide's table has no float64 entry); aac_synth and
+#: audio_resample compute in float64
+H100_F64_FLOPS = 67e12
+
+
+def _aac_synth_flops(meta):
+    """The floating-point operations the function ``aac_synth`` computes
+    needs at least, for the bound: per frame and channel an FFT-based IMDCT
+    (an N-point IMDCT as an N/4-point complex FFT, 5 (N/4) log2(N/4), with
+    its pre- and post-twiddles, 6 a complex product, N/4 each), one of
+    2048 points for a long window or eight of 256 for short ones, then the
+    window and the overlap-add, 3 an output sample."""
+    seq = np.asarray(meta[0])
+    short = int((seq == 2).sum())
+
+    def imdct(n):
+        q = n // 4
+        return 5 * q * math.log2(q) + 12 * q
+
+    return (seq.size - short) * imdct(2048) + short * 8 * imdct(256) + seq.size * 3 * 1024
+
+
+def _aac_direct_flops(meta):
+    """The floating-point operations (two a multiply-add) this design of
+    ``aac_synth`` does, a direct O(N^2) IMDCT: 1024 multiply-adds an output
+    sample of a long frame's half, none for the 448 samples a short-window
+    meeting zeroes, 128 a short window's sample."""
+    seq, _, pseq, _ = meta
+    frames, chans = seq.shape
+    macs = 0
+    for f in range(frames):
+        for c in range(chans):
+            long_overlap = pseq[f, c] in (0, 3) and seq[f, c] in (0, 1)
+            if seq[f, c] == 2:
+                macs += 1024 * 128   # windows 0-4 cover the left half's samples 1024 times in all
+            else:
+                macs += (1024 if long_overlap else 576) * 1024
+            if f:
+                if seq[f - 1, c] == 2:
+                    macs += 1024 * 128   # windows 3-7 over the right half
+                else:
+                    macs += (1024 if long_overlap else 576) * 1024
+    return 2 * macs
+
+
+def _aac_clip(tmp):
+    """A face clip (``make_face_video``, 320x240 at 30 fps, 44.1 kHz speech)
+    as ``mp4v`` with its sound as the track's own AAC (the plain encoder),
+    stereo at :data:`AAC_CLI_RATE` (the speech interpolated to that rate,
+    0.7 and 0.5 of it in the two channels), no sibling wav -> (that clip,
+    the same video without a track, its sibling wav beside it)."""
+    from fvd_tpu_torch.synthetic import make_face_video
+    from fvd_tpu_torch.utils.wav import read_wav
+
+    src = make_face_video(os.path.join(tmp, "src"), "clip", duration=AAC_CLI_SECONDS, fps=30.0, sr=44100,
+                          speech_text=ZOO_SPEECH, container="mp4", device="cuda")
+    speech, sr = read_wav(src[:-4] + ".wav")
+    t = np.arange(int(len(speech) * AAC_CLI_RATE / sr)) / AAC_CLI_RATE
+    up = np.interp(t, np.arange(len(speech)) / sr, speech)
+    out = os.path.join(tmp, "clips", "aac_clip.mp4")
+    os.makedirs(os.path.dirname(out))
+    return _own_aac(src, out, np.stack([0.7 * up, 0.5 * up], axis=1), AAC_CLI_RATE), src
+
+
+def _aac_kernel_rows(path, ch, rate):
+    """``aac_synth`` and ``audio_resample`` against their float64 plain
+    versions on the AAC track of ``path``, timed (CUDA events a call, a
+    CUDA graph's device time, the plain versions on the host), with their
+    bounds; the host parse's ms a frame."""
+    import torch
+
+    from fvd_tpu_torch.c1_timing import graph_ms, interleaved_ms
+    from fvd_tpu_torch.ops import aac as oaac
+    from fvd_tpu_torch.utils import aac, mp4
+
+    data = open(path, "rb").read()
+    track = mp4.audio_track(path, data)
+    cfg = aac.parse_asc(track.config)
+    units = [data[o:o + k] for o, k in zip(track.offsets, track.sizes)]
+    t0 = time.perf_counter()
+    spectra = aac.decode(cfg, units)
+    parse_ms = (time.perf_counter() - t0) * 1e3 / len(units)
+    meta = np.stack([spectra.sequence, spectra.shape, spectra.prev_sequence, spectra.prev_shape])
+    coef_d, meta_d = torch.from_numpy(spectra.coef).cuda(), torch.from_numpy(meta).cuda()
+    pcm_d = oaac.imdct_synth(coef_d, meta_d)
+    t0 = time.perf_counter()
+    pcm_p = oaac.imdct_synth_plain(spectra.coef, *meta)
+    plain_synth = (time.perf_counter() - t0) * 1e3
+    synth_err = float(np.abs(pcm_d.cpu().numpy() - pcm_p).max())
+    first, end = oaac.output_range(len(units), track.sample_deltas, track.media_time, track.edit_duration)
+    src, pcm_np = pcm_d[:, first:end], pcm_p[:, first:end]
+    mono_d = oaac.resample(src, rate, 44100)
+    t0 = time.perf_counter()
+    mono_p = oaac.resample_plain(pcm_np, rate, 44100)
+    plain_res = (time.perf_counter() - t0) * 1e3
+    check(mono_d.shape[0] == mono_p.shape[0], f"aac: resample lengths {mono_d.shape} {mono_p.shape}")
+    res_err = float(np.abs(mono_d.cpu().numpy() - mono_p).max())
+    check(synth_err <= AAC_TOL and res_err <= AAC_TOL,
+          f"aac: {path}: aac_synth |d| {synth_err}, audio_resample |d| {res_err} > {AAC_TOL}")
+    t = interleaved_ms({"synth": lambda: oaac.imdct_synth(coef_d, meta_d),
+                        "resample": lambda: oaac.resample(src, rate, 44100)}, warmup=3, rounds=20)
+    dev = {"synth": graph_ms(lambda: oaac.imdct_synth(coef_d, meta_d), reps=10, replays=5),
+           "resample": graph_ms(lambda: oaac.resample(src, rate, 44100), reps=20, replays=5)}
+    n_out = mono_p.shape[0]
+    length = oaac.resampler(rate, 44100).length if rate != 44100 else 0
+    synth_bytes = spectra.coef.nbytes + meta.nbytes + pcm_p.nbytes
+    res_bytes = pcm_np.nbytes + n_out * 4
+    res_flops = 2 * n_out * max(length, 1) + (n_out if ch == 2 else 0)
+    rows = {}
+    for name, err, ms, dms, pms, nbytes, ops, extra in (
+            ("aac_synth", synth_err, t["synth"], dev["synth"], plain_synth, synth_bytes, _aac_synth_flops(meta),
+             {"design_flops": _aac_direct_flops(meta)}),
+            ("audio_resample", res_err, t["resample"], dev["resample"], plain_res, res_bytes, res_flops, {})):
+        tb, to = nbytes / H100_BYTES_PER_S, ops / H100_F64_FLOPS
+        bound_ms = max(tb, to) * 1e3
+        rows[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms, "device_us": dms * 1e3, "plain_host_ms": pms,
+                      "bound_ms": bound_ms, "bound_by": "bytes" if tb >= to else "operations",
+                      "device_over_bound": dms / bound_ms, "bytes": nbytes, "flops": ops, **extra,
+                      "frames": len(units), "channels": ch, "rate": rate}
+    return rows, parse_ms
+
+
+def aac_phase():
+    """AAC-LC audio in MP4 on the card: the known-answer streams through
+    ``media.extract_audio`` (the counted main path: the host parse, then
+    ``aac_synth`` and ``audio_resample``), the card's WAV against the CPU's,
+    each kernel against its float64 plain version on those tracks and on a
+    5 s clip's own stereo 48 kHz track, and the CLI on that clip (no sibling
+    wav): its IN's WAV against the CPU's decode of the track, and its
+    probability against the CLI on the same pixels with the CPU's decode as
+    a sibling wav; the host parse's ms a frame, the kernels' device time and
+    bounds."""
+    import torch
+
+    from fvd_tpu_torch import _kernels
+    from fvd_tpu_torch.providers import media
+    from fvd_tpu_torch.providers import native_decode as nd
+    from fvd_tpu_torch.utils import aac_tables, aac_writer
+    from fvd_tpu_torch.utils.wav import read_wav
+
+    result = {"nvidia_smi": SMI_LINE, "streams": [dict(zip(("channels", "rate", "frames", "seed"), s))
+                                                 for s in AAC_STREAMS], "tolerance": AAC_TOL, "target_sr": 44100}
+
+    def lsb(x, y):
+        a, b = read_wav(x)[0], read_wav(y)[0]
+        check(a.shape == b.shape, f"aac: WAV lengths {a.shape} {b.shape} ({x}, {y})")
+        return int(np.round(np.abs(a - b).max() * 32768))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for ch, rate, n, seed in AAC_STREAMS:
+            index = aac_tables.SAMPLE_RATES.index(rate)
+            units = [aac_writer.write_frame(f, index) for f in aac_writer.covering_frames(ch, rate, n=n, seed=seed)]
+            path = os.path.join(tmp, f"aac_{ch}_{rate}.mp4")
+            nd.write_mp4v(path, np.zeros((3, 16, 16, 3), np.uint8), 10.0, device="cuda",
+                          audio=(aac_writer.audio_specific_config(rate, ch), rate, ch, units, 1024))
+            paths.append(path)
+        # the main path, counted: IN's extract_audio on the card
+        _kernels.reset_launches()
+        card_wavs = []
+        for i, path in enumerate(paths):
+            out = os.path.join(tmp, f"card{i}.wav")
+            check(media.extract_audio(path, out, 44100, device="cuda") == out, f"aac: no audio from {path}")
+            card_wavs.append(out)
+        torch.cuda.synchronize()
+        launches = {k: _kernels.LAUNCHES[k] for k in AAC_KERNELS}
+        check(launches == {k: len(paths) for k in AAC_KERNELS}, f"aac: launches {launches}, one each a track")
+        for k in AAC_KERNELS:
+            CODEC_LAUNCHES[k] += launches[k]
+        result["main_path_launches"] = launches
+        # the card's WAVs against the CPU's (the plain versions)
+        steps = []
+        for i, path in enumerate(paths):
+            cpu = os.path.join(tmp, f"cpu{i}.wav")
+            media.extract_audio(path, cpu, 44100, device="cpu")
+            steps.append(lsb(card_wavs[i], cpu))
+        check(max(steps) <= 1, f"aac: card WAVs against the CPU's: {steps} int16 steps")
+        result["card_vs_cpu_wav_lsb"] = steps
+        # the CLI clip: its own stereo 48 kHz track
+        t0 = time.perf_counter()
+        clip, src = _aac_clip(tmp)
+        result["clip_s"] = time.perf_counter() - t0
+        # each kernel against its plain version, on every track; timings
+        rows, parse = {}, {}
+        tracks = [(f"ka_{ch}ch_{rate}", path, ch, rate) for (ch, rate, _, _), path in zip(AAC_STREAMS, paths)]
+        for key, path, ch, rate in tracks + [("clip_2ch_48000", clip, 2, AAC_CLI_RATE)]:
+            got, parse[key] = _aac_kernel_rows(path, ch, rate)
+            for name, row in got.items():
+                rows.setdefault(name, {})[key] = row
+        result["kernels"] = rows
+        result["host_parse_ms_per_frame"] = parse
+        for name in AAC_KERNELS:  # the kernels line takes the clip's row
+            r = rows[name]["clip_2ch_48000"]
+            CODEC_ROWS[name] = {"max_abs_err": max(v["max_abs_err"] for v in rows[name].values()), "ms": r["ms"],
+                                "device_ms": r["device_ms"], "plain_ms": r["plain_host_ms"],
+                                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+        # the CLI: the AAC clip (no sibling wav), then the same pixels with
+        # the CPU's decode of that track (the plain versions) as a sibling wav
+        cpu_wav = os.path.join(tmp, "clip_cpu.wav")
+        check(media.extract_audio(clip, cpu_wav, 44100, device="cpu") == cpu_wav, "aac: no CPU audio from the clip")
+        cwd = os.path.join(tmp, "run")
+        os.makedirs(cwd)
+        cli = {}
+        for name, path in (("aac_track", clip), ("sibling_wav", None)):
+            if path is None:
+                path = os.path.join(tmp, "clips", "wav_clip.mp4")
+                shutil.copy(src, path)
+                shutil.copy(cpu_wav, path[:-4] + ".wav")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "fvd_tpu_torch.cli", path], cwd=cwd, env=_subprocess_env(),
+                                  capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, f"aac cli {name}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+            last = proc.stdout.strip().splitlines()[-1]
+            check(last.startswith("Fake probability: "), f"aac cli {name}: last line {last!r}")
+            check("no audio track available" not in proc.stdout, f"aac cli {name}: IN found no audio")
+            cli[name] = {"seconds": time.perf_counter() - t0, "fake_probability": float(last.split(": ", 1)[1])}
+            if name == "aac_track":
+                runs = sorted(glob.glob(os.path.join(cwd, "processed", "video_*", "audio.wav")))
+                check(len(runs) == 1, f"aac: the AAC run's audio.wav: {runs}")
+                cli[name]["wav_vs_cpu_lsb"] = lsb(runs[0], cpu_wav)
+                check(cli[name]["wav_vs_cpu_lsb"] <= 1,
+                      f"aac cli: IN's WAV {cli[name]['wav_vs_cpu_lsb']} int16 steps from the CPU's decode")
+        dp = abs(cli["aac_track"]["fake_probability"] - cli["sibling_wav"]["fake_probability"])
+        check(dp <= STREAM_CLI_TOL, f"aac cli: |dp| {dp} between the AAC track and the CPU's decode as a sibling wav")
+        result["cli"] = dict(cli, abs_diff=dp, tolerance=STREAM_CLI_TOL)
+    phase("aac", **result)
+
+
 #: the phases after ``kernel``, in order; ``--only`` runs some of them
-PHASES = ("codec", "h264", "models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
+PHASES = ("codec", "h264", "aac", "models", "hf", "analyzer", "serving", "dag", "video", "full_dag", "batch", "stream", "ui", "cli",
           "parallel", "train", "net", "zoo_train", "corpus", "text", "fan", "hf_train", "eval", "levers")
 
 
@@ -4874,7 +5326,7 @@ def main(argv=None) -> int:
                "full_dag": full_dag_phase, "batch": batch_phase, "stream": stream_phase, "ui": ui_phase,
                "parallel": parallel_phase, "net": net_phase, "corpus": corpus_phase, "eval": eval_phase,
                "levers": levers_phase, "h264": h264_phase}
-    uncounted = {"codec": codec_phase, "models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
+    uncounted = {"codec": codec_phase, "aac": aac_phase, "models": models_phase, "hf": hf_phase, "cli": cli_phase, "train": train_phase,
                  "zoo_train": zoo_train_phase, "text": text_phase, "fan": fan_phase, "hf_train": hf_train_phase}
     launches = 0
     for name in PHASES:

@@ -41,6 +41,9 @@ SIGNATURES = {
     "yuv420_rgb": ("yuv420_rgb_launch", [_P] * 4),
     "mpeg4_forward": ("mpeg4_forward_launch", [_P] * 6),
     "nv12_rgb": ("nv12_rgb_launch", [_P] * 5),
+    "mpeg4_parse": ("mpeg4_parse_launch", [_P] * 7),
+    "aac_synth": ("aac_synth_launch", [_P] * 6),
+    "audio_resample": ("audio_resample_launch", [_P] * 5),
 }
 #: kernel name -> the ``csrc/`` file that holds it, where that is not its name
 SOURCES = {"mpeg4_recon": "mpeg4_decode", "yuv420_rgb": "mpeg4_decode",

@@ -2,9 +2,8 @@
 // Hopper (sm_90a): the parallel half of the decode that the JAX package gets
 // from libavcodec's mpeg4 decoder and libswscale, through
 // native/decode_shim.cc (fvd_read_frames) or OpenCV's VideoCapture.  Entropy
-// decoding stays on the host (fvd_tpu_torch/utils/mpeg4v.py); what crosses to
-// the card per VOP is the quantised levels, the vectors and a few bytes a
-// macroblock.
+// decoding runs on the card too (mpeg4_parse.cu), which leaves each VOP's
+// quantised levels, vectors and a few values a macroblock on the card.
 //
 // A frame is one flat uint8 buffer of its planes at the macroblock-aligned
 // size: Y (16 mb_h x 16 mb_w), then Cb and Cr (8 mb_h x 8 mb_w each).

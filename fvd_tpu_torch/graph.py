@@ -64,7 +64,7 @@ def build_graph(
         return partial(fn, config=cfg, **kw)
 
     dag = DAG()
-    dag.add_node("IN", with_cfg(ingest.run), host_only=True)
+    dag.add_node("IN", with_cfg(ingest.run, device=dev), host_only=True)
     dag.add_node("A1", with_cfg(a1_standardize.run, device=dev), deps=["IN"])
     dag.add_node("V1", with_prov(v1_faces.run, device=dev), deps=["IN"])
     dag.add_node("A2", with_prov(a2_asr.run), deps=["A1"])

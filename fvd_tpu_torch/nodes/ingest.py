@@ -9,7 +9,8 @@ The port reads raw-RGBA AVI, ``mp4v`` MP4 and H.264 MP4 (``avc1``, ``avc3``:
 8-bit 4:2:0 progressive limited-range, on the card's NVDEC)
 (``fvd_tpu_torch/providers/media.py``): a video in another container or codec
 fails here with an error that names it, where the JAX package would transcode
-it to H.264 with ffmpeg.  Audio comes from ffmpeg
+it to H.264 with ffmpeg.  Audio comes from an MP4's AAC-LC track (decoded by
+the port, its kernels on ``device``, default the card), else from ffmpeg
 where a binary exists, else from the sibling ``.wav``.  The URL branch
 (yt-dlp download with retries) is not ported yet: a URL raises.
 """
@@ -59,7 +60,7 @@ def _make_run_dir(processed_dir: str) -> str:
             path = f"{base}_{n}"
 
 
-def run(state: State, config: Config = default_config()) -> StateDelta:
+def run(state: State, config: Config = default_config(), device=None) -> StateDelta:
     cfg = config.ingest
     input_path = state.get("input_path", "")
     debug = state.get("debug", False)
@@ -82,7 +83,7 @@ def run(state: State, config: Config = default_config()) -> StateDelta:
 
     # Audio extraction (reference main.py:262-283).
     audio_path = os.path.join(output_dir, "audio.wav")
-    extracted = extract_audio(video_path, audio_path)
+    extracted = extract_audio(video_path, audio_path, device=device)
     if extracted is None:
         print("IN: warning - no audio track available for this video.")
 

@@ -4,9 +4,13 @@ through libavcodec and libswscale (``native/decode_shim.cc`` or OpenCV), and
 the colour conversion of the H.264 pictures that the card's NVDEC decodes.
 
 A frame is one flat uint8 tensor of its three planes, Y then Cb then Cr, at
-the macroblock-aligned size (:class:`Geometry`).  Four functions, each with a
-plain PyTorch version on integer tensors and a CUDA kernel:
+the macroblock-aligned size (:class:`Geometry`).  Five functions, each with a
+plain version and a CUDA kernel:
 
+* :func:`parse_vops` (``csrc/mpeg4_parse.cu`` ``mpeg4_parse``): the entropy
+  decoding of a range of VOPs, a thread a VOP, into the packed int16 rows the
+  reconstruction splits; its plain version is the host parser
+  (``fvd_tpu_torch/utils/mpeg4v.py``), one VOP at a time;
 * :func:`reconstruct_vop` (``csrc/mpeg4_decode.cu`` ``mpeg4_recon``): H.263
   inverse quantisation, libavcodec's ``simple_idct`` bit for bit, half-pel
   motion compensation with ``rounding_type`` and edge clamping, add and clip;
@@ -20,9 +24,10 @@ plain PyTorch version on integer tensors and a CUDA kernel:
   YUV 4:2:0, the residual against the reference frame (vector (0, 0)), an
   integer 8x8 FDCT and H.263 quantisation.
 
-A wrapper takes the plain version only for CPU tensors; on CUDA tensors it
-launches its kernel (each launch counted in ``fvd_tpu_torch._kernels``) and
-raises if the build or the launch fails.
+A wrapper takes the plain version only for CPU tensors (``parse_vops``: for
+a CPU ``device``); on CUDA tensors it launches its kernel (each launch
+counted in ``fvd_tpu_torch._kernels``) and raises if the build or the launch
+fails.
 """
 
 from __future__ import annotations
@@ -31,11 +36,14 @@ import ctypes
 import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from fvd_tpu_torch import _kernels
+from fvd_tpu_torch.utils import mpeg4v
+from fvd_tpu_torch.utils.avi import UnsupportedVideo
 
 # simple_idct's constants: W_i = round(cos(i pi / 16) sqrt(2) 2^14), W4 one less
 W1, W2, W3, W4, W5, W6, W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
@@ -368,7 +376,186 @@ def forward_vop_plain(rgb: torch.Tensor, ref: Optional[torch.Tensor], q: int, ge
     return quantize_plain(fdct_plain(blocks), q, ref is None, luma_blk)
 
 
+# --- parsing --------------------------------------------------------------------------
+
+def row_parts(geo: Geometry) -> Tuple[int, int, int, int, int]:
+    """The int16 lengths of a parsed VOP's packed row: levels ``[n_blocks,
+    64]``, qscale and intra ``[n_mb]``, mv ``[n_blocks, 2]``, coded
+    ``[n_blocks]``."""
+    return geo.n_blocks * 64, geo.n_mb, geo.n_mb, 2 * geo.n_blocks, geo.n_blocks
+
+
+@dataclass
+class VopRange:
+    """Parsed VOPs: ``packed`` int16 ``[n, sum(row_parts)]`` (one row a VOP,
+    on the device the range was parsed on), ``kinds`` one of "I", "P", "N"
+    a VOP, ``rounding`` each VOP's ``rounding_type``."""
+    packed: torch.Tensor
+    kinds: str
+    rounding: List[int]
+
+    def __len__(self) -> int:
+        return len(self.kinds)
+
+    def split(self, i: int, geo: Geometry):
+        """VOP ``i``'s (levels ``[n_blocks, 64]``, qscale, intra, mv
+        ``[n_blocks, 2]``, coded), views of its row."""
+        lv, q, intra, mv, coded = torch.split(self.packed[i], row_parts(geo))
+        return lv.view(geo.n_blocks, 64), q, intra, mv.view(geo.n_blocks, 2), coded
+
+    def vop(self, i: int, geo: Geometry) -> mpeg4v.VopData:
+        """VOP ``i`` as the host parser's :class:`VopData` (copied to the host)."""
+        lv, q, intra, mv, coded = (t.cpu().numpy() for t in self.split(i, geo))
+        return mpeg4v.VopData(self.kinds[i], self.rounding[i], lv, q, intra, mv, coded)
+
+
+#: the kernel's status codes -> the plain parser's message for the same fault
+PARSE_ERRORS = {
+    1: "MPEG-4 video with B-VOPs",
+    2: "MPEG-4 video with S-VOPs (sprites)",
+    3: "truncated VOP header",
+    4: "missing marker bit after {what}",
+    5: "MPEG-4 VOP with vop_quant 0",
+    6: "MPEG-4 VOP with vop_fcode_forward 0",
+    7: "MPEG-4 video with resync markers (video packets)",
+    8: "invalid variable-length code at bit {pos}",
+    9: "invalid TCOEF code at bit {pos}",
+    10: "TCOEF run past the block end at bit {pos}",
+    11: "invalid TCOEF escape at bit {pos}",
+    12: "TCOEF escape with level 0 at bit {pos}",
+}
+#: which marker bit (status code 4, ``what`` in bits 8 and up)
+PARSE_MARKERS = ("modulo_time_base", "vop_time_increment", "dct_dc_differential", "escape run", "escape level")
+
+
+def parse_vops_plain(data: bytes, offsets: Sequence[Tuple[int, int, int]], vol_ids: Sequence[int],
+                     vols: Sequence[mpeg4v.VOL], device="cpu") -> VopRange:
+    """Plain version of ``mpeg4_parse``: each VOP through the host parser
+    (:class:`fvd_tpu_torch.utils.mpeg4v.Decoder`) with the VOL in force for
+    it.  ``offsets`` holds each VOP's (sample start, VOP payload start,
+    sample end) in ``data``; an unsupported VOP raises
+    :class:`UnsupportedVideo` as the host parser does."""
+    geo = Geometry(vols[0].width, vols[0].height)
+    packed = np.zeros((len(offsets), sum(row_parts(geo))), np.int16)
+    kinds, rounding = [], []
+    for i, ((start, vop, end), vid) in enumerate(zip(offsets, vol_ids)):
+        v = mpeg4v.Decoder(vols[vid])._vop(data[start:end], vop - start)
+        packed[i] = np.concatenate([v.levels.reshape(-1), v.qscale, v.intra, v.mv.reshape(-1), v.coded])
+        kinds.append(v.kind)
+        rounding.append(v.rounding)
+    return VopRange(torch.from_numpy(packed).to(device), "".join(kinds), rounding)
+
+
+def _parse_tables() -> np.ndarray:
+    """``kTab`` of ``csrc/mpeg4_parse.cu``, int16, in its layout: each VLC's
+    lookup table (``(symbol << 4) | length``, -1 where no code starts),
+    the TCOEF tables' (last, run, level) and their LMAX and RMAX, the three
+    scans, the DC scalers, ``intra_dc_vlc_thr``'s thresholds and the 4MV
+    chroma rounding."""
+    parts = []
+    for codes, bits in ((mpeg4v.MCBPC_I, 9), (mpeg4v.MCBPC_P, 9), (mpeg4v.CBPY, 6), (mpeg4v.MVD, 12),
+                        (mpeg4v.DC_LUMA, 11), (mpeg4v.DC_CHROMA, 12), (mpeg4v.TCOEF_INTRA_CODES, 12),
+                        (mpeg4v.TCOEF_INTER_CODES, 12)):
+        got, table = mpeg4v._lut(codes)
+        assert got == bits, (got, bits)
+        parts.append([-1 if e is None else (e[0] << 4) | e[1] for e in table])
+    for rll in (mpeg4v.TCOEF_INTRA_RLL, mpeg4v.TCOEF_INTER_RLL):
+        parts.append([(last << 12) | (run << 5) | level for last, run, level in rll] + [0])
+    for tables in (mpeg4v._INTRA, mpeg4v._INTER):
+        for which in (1, 2):  # LMAX by (last, run), RMAX by (last, level)
+            parts.append([tables[which].get((last, k), 0) for last in (0, 1) for k in range(64)])
+    parts += [mpeg4v.ZIGZAG, mpeg4v.ALT_HORIZONTAL, mpeg4v.ALT_VERTICAL, mpeg4v.DC_SCALE_LUMA,
+              mpeg4v.DC_SCALE_CHROMA, mpeg4v.DC_THRESHOLD, mpeg4v._CHROMA_ROUND]
+    return np.concatenate([np.asarray(p, np.int16) for p in parts])
+
+
+@lru_cache(maxsize=1)
+def _parse_tables_c():
+    tab = _parse_tables()
+    return (ctypes.c_int16 * len(tab))(*tab.tolist()), len(tab)
+
+
+def parse_scratch_len(geo: Geometry) -> int:
+    """int16 scratch a VOP needs on the card: the DC predictors of the three
+    block grids (with a border), the first row and column of each intra
+    block, and the luma vectors' grid (x and y)."""
+    grids = (2 * geo.mb_h + 1) * (2 * geo.mb_w + 1) + 2 * (geo.mb_h + 1) * (geo.mb_w + 1)
+    return 17 * grids + 2 * (2 * geo.mb_h + 1) * (2 * geo.mb_w + 2)
+
+
+def _parse_error(status: int, pos: int) -> UnsupportedVideo:
+    """The host parser's error for the kernel's ``status`` at bit ``pos``."""
+    msg = PARSE_ERRORS.get(status & 0xFF, "MPEG-4 parse failed with status {status}")
+    what = PARSE_MARKERS[status >> 8] if (status & 0xFF) == 4 and (status >> 8) < len(PARSE_MARKERS) else ""
+    return UnsupportedVideo(msg.format(what=what, pos=pos, status=status))
+
+
+def _parse_blob(data: bytes, offsets, vol_ids, vols) -> Tuple[np.ndarray, Tuple[int, int, int]]:
+    """``mpeg4_parse``'s one input buffer: the VOPs' int64 (sample start,
+    VOP payload start, sample end), the VOLs' int32 (time_bits,
+    resync_marker_disable, quant_precision, 0), the VOPs' int32 VOL index and
+    the samples, each 8-byte aligned, 8 zero bytes after them; and where the
+    last three start."""
+    table = np.asarray(offsets, np.int64).reshape(len(offsets), 3)
+    vol_tab = np.asarray([(v.time_bits, v.resync_marker_disable, v.quant_precision, 0) for v in vols], np.int32)
+    sections = [table.view(np.uint8).reshape(-1), vol_tab.view(np.uint8).reshape(-1),
+                np.asarray(vol_ids, np.int32).view(np.uint8).reshape(-1), np.frombuffer(data, np.uint8)]
+    starts, pos = [], 0
+    for s in sections:
+        starts.append(pos)
+        pos += (len(s) + 7) // 8 * 8
+    blob = np.zeros(pos + 8, np.uint8)
+    for s, at in zip(sections, starts):
+        blob[at:at + len(s)] = s
+    return blob, (starts[1], starts[2], starts[3])
+
+
+def parse_vops(data: bytes, offsets: Sequence[Tuple[int, int, int]], vol_ids: Sequence[int],
+               vols: Sequence[mpeg4v.VOL], device=None) -> VopRange:
+    """Entropy-decode the VOPs of one range of an ``mp4v`` stream -> their
+    packed rows on ``device``.  ``data`` holds the range's compressed
+    samples, ``offsets`` each VOP's (sample start, VOP payload start, sample
+    end) in it, ``vol_ids`` the VOL of ``vols`` in force for each VOP (all of
+    one frame size).  On the card, one launch of ``mpeg4_parse`` (a thread a
+    VOP) after one copy of the bytes, then one fetch of the VOPs' kinds and
+    statuses; a VOP the kernel refuses raises :class:`UnsupportedVideo` with
+    the host parser's message.  :func:`parse_vops_plain` on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if not offsets:
+        raise ValueError("parse_vops: no VOPs")
+    geo = Geometry(vols[0].width, vols[0].height)
+    if any((v.mb_w, v.mb_h) != (geo.mb_w, geo.mb_h) for v in vols):
+        raise UnsupportedVideo("MPEG-4 video whose frame size changes mid-stream")
+    if dev.type != "cuda":
+        return parse_vops_plain(data, offsets, vol_ids, vols, dev)
+    n = len(offsets)
+    blob, starts = _parse_blob(data, offsets, vol_ids, vols)
+    row = sum(row_parts(geo))
+    scratch_len = parse_scratch_len(geo)
+    on_card = torch.from_numpy(blob).to(dev)   # the one copy of the range
+    dev = on_card.device                       # with its index
+    packed = torch.zeros((n, row), dtype=torch.int16, device=dev)
+    scratch = torch.zeros((n, scratch_len), dtype=torch.int16, device=dev)
+    info = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    tab, tab_len = _parse_tables_c()
+    args = _ParseArgs(n, len(vols), geo.mb_w, geo.mb_h, row, scratch_len, tab_len, *starts)
+    _launch("mpeg4_parse", dev, on_card.data_ptr(), packed.data_ptr(), scratch.data_ptr(), info.data_ptr(),
+            ctypes.addressof(tab), ctypes.addressof(args))
+    got = info.cpu().numpy()                   # the one fetch
+    bad = np.flatnonzero(got[:, 2])
+    if len(bad):
+        i = int(bad[0])
+        raise _parse_error(int(got[i, 2]), int(got[i, 3]))
+    return VopRange(packed, "".join("IPN"[k] for k in got[:, 0]), got[:, 1].tolist())
+
+
 # --- the wrappers -----------------------------------------------------------------
+
+class _ParseArgs(ctypes.Structure):
+    """``ParseArgs`` in ``csrc/mpeg4_parse.cu``."""
+    _fields_ = [(f, ctypes.c_int) for f in ("n_vops", "n_vols", "mb_w", "mb_h", "row_len", "scratch_len",
+                                            "tab_len", "vols_at", "ids_at", "data_at")]
+
 
 class _ReconArgs(ctypes.Structure):
     """``ReconArgs`` in ``csrc/mpeg4_decode.cu``."""

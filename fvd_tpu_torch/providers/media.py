@@ -20,8 +20,9 @@ what phones and the JAX package's own transcodes give, through
 or ``mp4v``.
 A file in any other container or codec raises
 ``fvd_tpu_torch.utils.avi.UnsupportedVideo`` naming it.  Audio comes from an
-ffmpeg binary where one exists, else from a sibling ``.wav`` next to the
-input, else none (the reference tolerates missing audio, main.py:267-271).
+MP4's AAC-LC track, decoded by the port (``providers/audio.py``), else an
+ffmpeg binary where one exists, else a sibling ``.wav`` next to the input,
+else none (the reference tolerates missing audio, main.py:267-271).
 The viz videos are PNG-in-AVI (fourcc ``png ``), which OpenCV reads
 losslessly.
 """
@@ -39,8 +40,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fvd_tpu_torch.providers import native_decode
+from fvd_tpu_torch.providers import audio, native_decode
 from fvd_tpu_torch.utils import avi, mp4
+from fvd_tpu_torch.utils.avi import UnsupportedVideo
+from fvd_tpu_torch.utils.wav import write_wav
 
 def is_mp4(path: str) -> bool:
     """Does the file at ``path`` announce an ISO BMFF (MP4) container?"""
@@ -691,13 +694,24 @@ def ffmpeg_bin() -> Optional[str]:
     return shutil.which("ffmpeg")
 
 
-def extract_audio(video_path: str, out_wav: str, target_sr: int = 44100) -> Optional[str]:
+def extract_audio(video_path: str, out_wav: str, target_sr: int = 44100, device=None) -> Optional[str]:
     """Extract an audio track to WAV.
 
-    Priority: ffmpeg binary -> sibling .wav next to the source video -> None
-    (reference tolerates missing audio, main.py:267-271).  The JAX package
-    tries its libav shim first; the port has none.
+    Priority, as the JAX package's: the port's decoder (an MP4's AAC-LC
+    track, ``fvd_tpu_torch/providers/audio.py``, its kernels on ``device``,
+    default the card; the audio track alone, whatever the video's codec) ->
+    ffmpeg binary -> sibling .wav next to the source
+    video -> None (reference tolerates missing audio, main.py:267-271).  The
+    decoder falls through only on :class:`UnsupportedVideo` (another
+    container, codec or AAC feature); a kernel's failure raises.
     """
+    try:
+        samples = audio.extract_file(video_path, target_sr, device=device)
+        if samples is not None and len(samples) > 0:
+            write_wav(out_wav, samples, target_sr)
+            return out_wav
+    except UnsupportedVideo:
+        pass
     ff = ffmpeg_bin()
     if ff:
         proc = subprocess.run(

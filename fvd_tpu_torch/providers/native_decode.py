@@ -4,16 +4,21 @@ counterpart of ``fvd_tpu/providers/native_decode.py`` (the libav shim,
 opens an MP4 by its codec: ``mp4v`` here, H.264 (``avc1``, ``avc3``) on the
 card's NVDEC (``fvd_tpu_torch/providers/nvdec.py``).
 
-Entropy decoding and encoding run on the host (``fvd_tpu_torch/utils/mpeg4v.py``,
-the container in ``fvd_tpu_torch/utils/mp4.py``); reconstruction and colour
-conversion run in the kernels of ``fvd_tpu_torch/ops/mpeg4.py``, on the card
-unless the caller passes ``device="cpu"``, where their plain versions run.
+The host reads the container (``fvd_tpu_torch/utils/mp4.py``) and each
+sample's headers; entropy decoding, reconstruction and colour conversion run
+in the kernels of ``fvd_tpu_torch/ops/mpeg4.py``, on the card unless the
+caller passes ``device="cpu"``, where their plain versions run (the host
+parser of ``fvd_tpu_torch/utils/mpeg4v.py`` among them).  Encoding's bit
+writer runs on the host.
 
 :class:`NativeVideo` is one decode session, as the shim's handle is: it reads
 the stream in a single forward pass across :meth:`NativeVideo.read_frames`
-calls (ids before the session's position are dropped), a GOP at a time: the
-host parses the GOP's VOPs, their levels and vectors cross to the card in one
-copy, and the card reconstructs each VOP and converts the wanted ones to RGB.
+calls (ids before the session's position are dropped), a range of samples at
+a time (:data:`PARSE_CHUNK_BYTES`): the range's compressed bytes cross to the
+card in one copy, one launch parses its VOPs, one fetch brings back their
+kinds and statuses, and the card reconstructs each VOP and converts the
+wanted ones to RGB.  A not-coded VOP gives no frame, as in libavcodec.  The
+file's audio track reads through ``fvd_tpu_torch/providers/audio.py``.
 :func:`write_mp4v` writes frames as an ``mp4v`` MP4, as the JAX package's
 ``write_video`` does through OpenCV: an I-VOP every :data:`GOP` frames, P-VOPs
 between them, ``vop_quant`` :data:`QUANT`.
@@ -28,12 +33,16 @@ import numpy as np
 import torch
 
 from fvd_tpu_torch.ops import mpeg4 as ops
+from fvd_tpu_torch.providers import audio
 from fvd_tpu_torch.utils import mp4, mpeg4v
 from fvd_tpu_torch.utils.avi import UnsupportedVideo, fps_rational
 
 #: the JAX package's files: an I-VOP every 12 frames, vop_quant 3
 GOP = 12
 QUANT = 3
+#: the most device memory one parsed range takes (its packed rows and the
+#: parse kernel's scratch): 64 MiB: 213 VOPs at 320x240, 7 at 1920x1080
+PARSE_CHUNK_BYTES = 64 << 20
 
 
 def available() -> bool:
@@ -82,11 +91,13 @@ class NativeVideo:
             self.close()
             raise
         self.geo = ops.Geometry(vol.width, vol.height)
-        self._decoder = mpeg4v.Decoder(vol)
-        self._pos = 0                              # next sample to decode
-        self._ref: Optional[torch.Tensor] = None   # the frame of sample _pos - 1
-        self._ahead: Optional[mpeg4v.VopData] = None
-        self.stats = {"parse_s": 0.0, "recon_s": 0.0, "rgb_s": 0.0, "vops": 0}
+        self._vol = vol                             # the VOL in force after the last sample scanned
+        self._pos = 0                               # next sample to reconstruct
+        self._out = 0                               # frames given so far (a not-coded VOP gives none)
+        self._ref: Optional[torch.Tensor] = None    # the frame of sample _pos - 1
+        per_vop = 2 * (sum(ops.row_parts(self.geo)) + ops.parse_scratch_len(self.geo))
+        self._chunk = max(1, PARSE_CHUNK_BYTES // per_vop)
+        self.stats = {"parse_s": 0.0, "recon_s": 0.0, "rgb_s": 0.0, "vops": 0, "ranges": 0}
 
     @property
     def device(self) -> torch.device:
@@ -115,114 +126,110 @@ class NativeVideo:
         t = self.track
         fps = t.fps
         return fps, t.frame_count, self.geo.width, self.geo.height, \
-            (t.frame_count / fps if fps else 0.0), False
+            (t.frame_count / fps if fps else 0.0), audio.has_audio(self._data, self.path)
 
     def probe_extra(self) -> Tuple[int, str]:
         """(rotation degrees [0, 360) from the ``tkhd`` matrix, codec name)."""
         return self.track.rotation, "mpeg4"
 
     def extract_audio(self, target_sr: int, max_seconds: float = 7200.0) -> Optional[np.ndarray]:
-        """No audio codec is ported yet: always None (callers take the
-        sibling ``.wav``)."""
-        return None
+        """The file's first audio track as mono float32 at ``target_sr``, at
+        most ``max_seconds`` (:func:`fvd_tpu_torch.providers.audio.extract`
+        on the session's device); None without an audio track."""
+        return audio.extract(self.path, self._data, target_sr, max_seconds, self.device)
 
-    def next_gop(self, stop: int) -> List[mpeg4v.VopData]:
-        """Parse the VOPs from the session's position up to (not including)
-        the next I-VOP after it, or sample ``stop``, whichever comes first.
-        An I-VOP parsed ahead is kept for the next call."""
-        vops: List[mpeg4v.VopData] = []
-        end = min(stop, self.track.frame_count)
+    def _parse(self, first: int, last: int) -> ops.VopRange:
+        """Samples ``first`` to ``last`` (exclusive) entropy-decoded in one
+        :func:`fvd_tpu_torch.ops.mpeg4.parse_vops` call: the host finds each
+        sample's VOP and any VOL in force, the range's bytes cross in one
+        copy."""
         t0 = time.perf_counter()
-        while self._pos + len(vops) < end:
-            if self._ahead is not None:  # the VOP of sample self._pos
-                vop, self._ahead = self._ahead, None
-            else:
-                vop = self._decoder.decode(self._sample(self._pos + len(vops)))
-                self.stats["vops"] += 1
-            if vops and vop.kind == "I":
-                self._ahead = vop
-                break
-            vops.append(vop)
+        data, offsets, vol_ids, vols = mpeg4v.scan_samples([self._sample(i) for i in range(first, last)], self._vol)
+        rng = ops.parse_vops(data, offsets, vol_ids, vols, self.device)
+        self._vol = vols[-1]
         self.stats["parse_s"] += time.perf_counter() - t0
-        return vops
+        self.stats["vops"] += last - first
+        self.stats["ranges"] += 1
+        return rng
 
     def read_frames(self, frame_ids: Sequence[int]) -> Tuple[np.ndarray, List[int]]:
         """The frames ``frame_ids`` (sorted, without repeats; ids past the end
         or before the session's position dropped) -> (uint8 [T, H, W, 3] RGB,
         kept ids).  Asking for an id past the end leaves the session at the
-        end, as the shim's pass reads the stream to its end looking for it."""
+        end, as the shim's pass reads the stream to its end looking for it.
+        As libavcodec, a not-coded VOP gives no frame: frame ids count the
+        coded VOPs."""
         n = self.track.frame_count
         ids = {int(i) for i in frame_ids}
-        frames, kept = self._read(sorted(i for i in ids if self._pos <= i < n))
+        frames, kept = self._read(sorted(i for i in ids if self._out <= i < n))
         if any(i >= n for i in ids):
-            self._pos, self._ahead, self._ref = n, None, None
+            self._pos, self._ref = n, None
         return frames.cpu().numpy(), kept
 
     def _read(self, wanted: List[int]) -> Tuple[torch.Tensor, List[int]]:
         """The frames ``wanted`` (sorted, from the session's position on) on
-        the session's device, and the ids read."""
+        the session's device, and the ids read: ranges of VOPs parsed on the
+        device, each VOP reconstructed, the wanted frames converted to RGB."""
         geo, dev = self.geo, self.device
         out = torch.empty((len(wanted), geo.height, geo.width, 3), dtype=torch.uint8, device=dev)
-        if not wanted:
-            return out, []
         k = 0
+
+        def convert(frame, out_id):
+            nonlocal k
+            if k < len(wanted) and wanted[k] == out_id:
+                ops.yuv420_to_rgb(frame, geo, out=out[k])
+                k += 1
+
         while k < len(wanted):
-            vops = self.next_gop(wanted[-1] + 1)
-            if not vops:
+            # each sample gives at most one frame
+            end = min(self._pos + wanted[-1] + 1 - self._out, self.track.frame_count)
+            if self._pos >= end:
                 break
-            first = self._pos
-            frames = self.reconstruct(vops)
-            t0 = time.perf_counter()
-            for j, frame in enumerate(frames):
-                if k < len(wanted) and wanted[k] == first + j:
-                    ops.yuv420_to_rgb(frame, geo, out=out[k])
-                    k += 1
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-            self.stats["rgb_s"] += time.perf_counter() - t0
+            rng = self._parse(self._pos, min(end, self._pos + self._chunk))
+            self._reconstruct(rng, convert)
         return out[:k], wanted[:k]
 
-    def reconstruct(self, vops: List[mpeg4v.VopData]) -> List[torch.Tensor]:
-        """Reconstruct ``vops`` (the samples from the session's position on)
-        and advance it; returns the flat frames on the session's device."""
-        geo, dev = self.geo, self.device
+    def _reconstruct(self, rng: ops.VopRange, on_frame) -> None:
+        """Reconstruct the VOPs of ``rng`` (the samples from
+        the session's position on) in order, calling ``on_frame(frame,
+        out_id)`` with each VOP's flat frame and its frame id (None for a
+        not-coded VOP, which repeats the previous frame and gives no frame of
+        its own), and advance the session past them."""
+        geo = self.geo
         t0 = time.perf_counter()
-        n_blk, n_mb = geo.n_blocks, geo.n_mb
-        parts = (n_blk * 64, n_mb, n_mb, 2 * n_blk, n_blk)
-        packed = np.empty((len(vops), sum(parts)), np.int16)
-        for i, v in enumerate(vops):
-            packed[i] = np.concatenate([v.levels.reshape(-1), v.qscale, v.intra, v.mv.reshape(-1),
-                                        v.coded])
-        # one copy of the GOP to the device
-        side = torch.from_numpy(packed).to(dev, non_blocking=False)
-        frames = []
-        for i, v in enumerate(vops):
-            if v.kind == "N":
+        rgb = 0.0
+        for j, kind in enumerate(rng.kinds):
+            if kind == "N":
                 if self._ref is None:
                     raise UnsupportedVideo(f"{self.path}: a not-coded VOP before any frame")
-                frames.append(self._ref)
-                continue
-            if v.kind == "P" and self._ref is None:
-                raise UnsupportedVideo(f"{self.path}: a P-VOP before any I-VOP")
-            row = side[i]
-            lv, q, intra, mv, coded = torch.split(row, parts)
-            ref = self._ref if v.kind == "P" else None
-            self._ref = ops.reconstruct_vop(lv.view(n_blk, 64), q, intra, mv.view(n_blk, 2), coded,
-                                            ref, v.rounding, geo)
-            frames.append(self._ref)
-        self._pos += len(vops)
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-        self.stats["recon_s"] += time.perf_counter() - t0
-        return frames
+            else:
+                if kind == "P" and self._ref is None:
+                    raise UnsupportedVideo(f"{self.path}: a P-VOP before any I-VOP")
+                lv, q, intra, mv, coded = rng.split(j, geo)
+                self._ref = ops.reconstruct_vop(lv, q, intra, mv, coded, self._ref if kind == "P" else None,
+                                                rng.rounding[j], geo)
+            out_id = None
+            if kind != "N":
+                out_id = self._out
+                self._out += 1
+            t1 = time.perf_counter()
+            on_frame(self._ref, out_id)
+            rgb += time.perf_counter() - t1
+        self._pos += len(rng)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.stats["recon_s"] += time.perf_counter() - t0 - rgb
+        self.stats["rgb_s"] += rgb
 
 
-def write_mp4v(path: str, frames: np.ndarray, fps: float, device=None) -> dict:
+def write_mp4v(path: str, frames: np.ndarray, fps: float, device=None, audio: Optional[tuple] = None) -> dict:
     """RGB uint8 ``[T, H, W, 3]`` -> an ``mp4v`` MP4 at ``path``, encoded on
     ``device`` (default the card): :func:`fvd_tpu_torch.ops.mpeg4.forward_vop`
     then the host's bitstream writer, the reference rebuilt with
-    :func:`fvd_tpu_torch.ops.mpeg4.reconstruct_vop`.  Returns host seconds
-    spent (``forward_s``, ``recon_s``, ``bits_s``) and the frame count."""
+    :func:`fvd_tpu_torch.ops.mpeg4.reconstruct_vop`; ``audio``, where given,
+    is :meth:`fvd_tpu_torch.utils.mp4.Mp4Writer.add_audio`'s arguments (an
+    AAC track).  Returns host seconds spent (``forward_s``, ``recon_s``,
+    ``bits_s``) and the frame count."""
     frames = np.asarray(frames)
     if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3 or not len(frames):
         raise ValueError(f"frames are uint8 [T, H, W, 3] RGB, got {frames.dtype} {frames.shape}")
@@ -242,6 +249,8 @@ def write_mp4v(path: str, frames: np.ndarray, fps: float, device=None) -> dict:
     ref: Optional[torch.Tensor] = None
     rounding, seconds = 0, 0
     with mp4.Mp4Writer(path, w, h, fps, config) as out:
+        if audio is not None:
+            out.add_audio(*audio)
         for i, frame in enumerate(frames):
             t0 = time.perf_counter()
             intra = i % GOP == 0

@@ -36,6 +36,7 @@ import torch
 
 from fvd_tpu_torch import _kernels
 from fvd_tpu_torch.ops import mpeg4 as ops
+from fvd_tpu_torch.providers import audio
 from fvd_tpu_torch.utils import h264, mp4
 from fvd_tpu_torch.utils.avi import UnsupportedVideo
 
@@ -245,16 +246,18 @@ class NvdecVideo:
         duration is the movie header's, as the shim reads it."""
         t = self.track
         duration = t.movie_duration or (t.frame_count / t.fps if t.fps else 0.0)
-        return t.fps, t.frame_count, self.width, self.height, duration, False
+        return t.fps, t.frame_count, self.width, self.height, duration, audio.has_audio(self._data, self.path)
 
     def probe_extra(self) -> Tuple[int, str]:
         """(rotation degrees [0, 360) from the ``tkhd`` matrix, codec name)."""
         return self.track.rotation, "h264"
 
     def extract_audio(self, target_sr: int, max_seconds: float = 7200.0) -> Optional[np.ndarray]:
-        """No audio codec is ported yet: always None (callers take the
-        sibling ``.wav``)."""
-        return None
+        """The file's first audio track as mono float32 at ``target_sr``, at
+        most ``max_seconds`` (:func:`fvd_tpu_torch.providers.audio.extract`,
+        on the session's device argument: the audio needs no NVDEC); None
+        without an audio track."""
+        return audio.extract(self.path, self._data, target_sr, max_seconds, self._device_arg)
 
     def _feed(self) -> None:
         """Feed the next sample, or the end of the stream after the last."""

@@ -70,7 +70,7 @@ def _load_envelope(video_path: str, fps: float, duration: float, device=None) ->
     try:
         if not os.path.exists(wav):
             tmpdir = tempfile.mkdtemp(prefix="fvd_stream_")
-            wav = extract_audio(video_path, os.path.join(tmpdir, "audio.wav"))
+            wav = extract_audio(video_path, os.path.join(tmpdir, "audio.wav"), device=device)
             if wav is None:
                 return None
         try:

@@ -33,7 +33,7 @@ import mmap
 import struct
 from dataclasses import dataclass, field
 from fractions import Fraction
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from fvd_tpu_torch.utils.avi import UnsupportedVideo, container_name, fps_rational
 
@@ -125,8 +125,8 @@ def _descriptor(data, pos: int) -> Tuple[int, int, int]:
     return tag, pos, pos + size
 
 
-def _esds_config(data, start: int, end: int) -> bytes:
-    """The DecoderSpecificInfo in an ``esds`` box body."""
+def _esds(data, start: int, end: int) -> Tuple[int, bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo) of an ``esds`` box body."""
     tag, s, e = _descriptor(data, start + 4)   # after version/flags
     if tag != 0x03:
         raise UnsupportedVideo("MP4 esds without an ES descriptor")
@@ -141,19 +141,89 @@ def _esds_config(data, start: int, end: int) -> bytes:
     tag, s, e = _descriptor(data, s)
     if tag != 0x04:
         raise UnsupportedVideo("MP4 esds without a DecoderConfig descriptor")
-    if data[s] not in (0x20,):
-        raise UnsupportedVideo(f"MP4 mp4v track of object type 0x{data[s]:02x}, not MPEG-4 Visual")
+    object_type = data[s]
     s += 13
     while s < e:
         tag, ds, de = _descriptor(data, s)
         if tag == 0x05:
-            return bytes(data[ds:de])
+            return object_type, bytes(data[ds:de])
         s = de
-    return b""
+    return object_type, b""
+
+
+def _esds_config(data, start: int, end: int) -> bytes:
+    """The DecoderSpecificInfo of an ``mp4v`` track's ``esds`` box body."""
+    object_type, config = _esds(data, start, end)
+    if object_type != 0x20:
+        raise UnsupportedVideo(f"MP4 mp4v track of object type 0x{object_type:02x}, not MPEG-4 Visual")
+    return config
 
 
 def _full(data, s: int) -> int:
     return s + 4  # skip version and flags
+
+
+def _table_reader(data, s: int, e: int):
+    """``table(kind)``: (first entry, entry count) of full box ``kind`` of
+    the ``stbl`` at ``[s, e)``, or None."""
+    def table(kind):
+        box = _child(data, s, e, kind)
+        if box is None:
+            return None
+        body = _full(data, box[0])
+        (n,) = struct.unpack_from(">I", data, body)
+        return body + 4, n
+    return table
+
+
+def _samples(data, s: int, e: int, path: str, what: str) -> Tuple[List[int], List[int], List[int]]:
+    """Each sample's duration, byte offset and size from the ``stbl`` at
+    ``[s, e)`` (``stts``, ``stsz``, ``stco`` or ``co64``, ``stsc``)."""
+    table = _table_reader(data, s, e)
+    deltas: List[int] = []
+    t = table(b"stts")
+    if t is None:
+        raise UnsupportedVideo(f"{path}: MP4 {what} track without stts")
+    for i in range(t[1]):
+        count, delta = struct.unpack_from(">II", data, t[0] + 8 * i)
+        deltas += [delta] * count
+    sizes: List[int]
+    box = _child(data, s, e, b"stsz")
+    if box is None:
+        raise UnsupportedVideo(f"{path}: MP4 {what} track without stsz")
+    uniform, n = struct.unpack_from(">II", data, _full(data, box[0]))
+    sizes = [uniform] * n if uniform else list(struct.unpack_from(f">{n}I", data, _full(data, box[0]) + 8))
+    t = table(b"stco")
+    if t is not None:
+        chunks = list(struct.unpack_from(f">{t[1]}I", data, t[0]))
+    else:
+        t = table(b"co64")
+        if t is None:
+            raise UnsupportedVideo(f"{path}: MP4 {what} track without stco or co64")
+        chunks = list(struct.unpack_from(f">{t[1]}Q", data, t[0]))
+    t = table(b"stsc")
+    if t is None:
+        raise UnsupportedVideo(f"{path}: MP4 {what} track without stsc")
+    runs = [struct.unpack_from(">III", data, t[0] + 12 * i) for i in range(t[1])]
+    offsets: List[int] = []
+    k = 0
+    for i, (first, per_chunk, _) in enumerate(runs):
+        last = runs[i + 1][0] - 1 if i + 1 < len(runs) else len(chunks)
+        for chunk in range(first - 1, last):
+            pos = chunks[chunk]
+            for _ in range(per_chunk):
+                if k >= len(sizes):
+                    break
+                offsets.append(pos)
+                pos += sizes[k]
+                k += 1
+    if len(offsets) != len(sizes):
+        raise UnsupportedVideo(f"{path}: MP4 sample table places {len(offsets)} of {len(sizes)} samples")
+    if any(o + z > len(data) for o, z in zip(offsets, sizes)):
+        raise UnsupportedVideo(f"{path}: MP4 samples run past the end of the file (cut?)")
+    if len(deltas) < len(sizes):
+        deltas += [deltas[-1] if deltas else 0] * (len(sizes) - len(deltas))
+    return deltas, offsets, sizes
 
 
 def _sample_table(data, s: int, e: int, path: str, tkhd) -> Track:
@@ -178,61 +248,12 @@ def _sample_table(data, s: int, e: int, path: str, tkhd) -> Track:
         raise UnsupportedVideo(f"{path}: MP4 video of codec {fourcc!r}; the port reads MPEG-4 "
                                f"Part 2 ('mp4v') and H.264 ('avc1', 'avc3') only")
 
-    def table(kind):
-        box = _child(data, s, e, kind)
-        if box is None:
-            return None
-        body = _full(data, box[0])
-        (n,) = struct.unpack_from(">I", data, body)
-        return body + 4, n
-
-    deltas: List[int] = []
-    t = table(b"stts")
-    if t is None:
-        raise UnsupportedVideo(f"{path}: MP4 video track without stts")
-    for i in range(t[1]):
-        count, delta = struct.unpack_from(">II", data, t[0] + 8 * i)
-        deltas += [delta] * count
-    sizes: List[int]
-    box = _child(data, s, e, b"stsz")
-    if box is None:
-        raise UnsupportedVideo(f"{path}: MP4 video track without stsz")
-    uniform, n = struct.unpack_from(">II", data, _full(data, box[0]))
-    sizes = [uniform] * n if uniform else list(struct.unpack_from(f">{n}I", data, _full(data, box[0]) + 8))
-    t = table(b"stco")
-    if t is not None:
-        chunks = list(struct.unpack_from(f">{t[1]}I", data, t[0]))
-    else:
-        t = table(b"co64")
-        if t is None:
-            raise UnsupportedVideo(f"{path}: MP4 video track without stco or co64")
-        chunks = list(struct.unpack_from(f">{t[1]}Q", data, t[0]))
-    t = table(b"stsc")
-    if t is None:
-        raise UnsupportedVideo(f"{path}: MP4 video track without stsc")
-    runs = [struct.unpack_from(">III", data, t[0] + 12 * i) for i in range(t[1])]
-    offsets: List[int] = []
-    k = 0
-    for i, (first, per_chunk, _) in enumerate(runs):
-        last = runs[i + 1][0] - 1 if i + 1 < len(runs) else len(chunks)
-        for chunk in range(first - 1, last):
-            pos = chunks[chunk]
-            for _ in range(per_chunk):
-                if k >= len(sizes):
-                    break
-                offsets.append(pos)
-                pos += sizes[k]
-                k += 1
-    if len(offsets) != len(sizes):
-        raise UnsupportedVideo(f"{path}: MP4 sample table places {len(offsets)} of {len(sizes)} samples")
-    if any(o + z > len(data) for o, z in zip(offsets, sizes)):
-        raise UnsupportedVideo(f"{path}: MP4 samples run past the end of the file (cut?)")
+    table = _table_reader(data, s, e)
+    deltas, offsets, sizes = _samples(data, s, e, path, "video")
     sync = None
     t = table(b"stss")
     if t is not None:
         sync = [v - 1 for v in struct.unpack_from(f">{t[1]}I", data, t[0])]
-    if len(deltas) < len(sizes):
-        deltas += [deltas[-1] if deltas else 0] * (len(sizes) - len(deltas))
     cto = None
     t = table(b"ctts")
     if t is not None:
@@ -246,21 +267,28 @@ def _sample_table(data, s: int, e: int, path: str, tkhd) -> Track:
                  tkhd or Track.matrix, cto)
 
 
-def _media_time(data, s: int, e: int) -> int:
-    """The ``media_time`` of the first non-empty edit of a ``trak``'s
-    ``edts/elst``, or 0."""
+def _edit(data, s: int, e: int) -> Optional[Tuple[int, int]]:
+    """(``media_time``, segment duration in the movie timescale) of the
+    first non-empty edit of a ``trak``'s ``edts/elst``; None without one."""
     edts = _child(data, s, e, b"edts")
     elst = _child(data, *edts, b"elst") if edts else None
     if elst is None:
-        return 0
+        return None
     version = data[elst[0]]
     (n,) = struct.unpack_from(">I", data, elst[0] + 4)
     fmt, step = (">Qq", 20) if version == 1 else (">Ii", 12)
     for i in range(n):
-        _, media_time = struct.unpack_from(fmt, data, elst[0] + 8 + step * i)
+        duration, media_time = struct.unpack_from(fmt, data, elst[0] + 8 + step * i)
         if media_time != -1:
-            return media_time
-    return 0
+            return media_time, duration
+    return None
+
+
+def _media_time(data, s: int, e: int) -> int:
+    """The ``media_time`` of the first non-empty edit of a ``trak``'s
+    ``edts/elst``, or 0."""
+    edit = _edit(data, s, e)
+    return edit[0] if edit else 0
 
 
 def _movie_duration(data, s: int, e: int) -> float:
@@ -319,6 +347,76 @@ def parse(path: str, data) -> Track:
     track.media_time = _media_time(data, s, e)
     track.movie_duration = _movie_duration(data, *moov)
     return track
+
+
+@dataclass
+class AudioTrack:
+    """The first audio track of an MP4 file: its sample entry's fourcc, for
+    ``mp4a`` the ``esds``' objectTypeIndication and DecoderSpecificInfo (an
+    AudioSpecificConfig for 0x40, MPEG-4 audio), the ``mdhd`` timescale, the
+    sample table, and the first edit (the encoder's priming ``media_time``
+    and the edit's length, in the media timescale; ``edit_duration`` None
+    without an edit list)."""
+    fourcc: str
+    object_type: int
+    config: bytes
+    timescale: int
+    sample_deltas: List[int]
+    offsets: List[int]
+    sizes: List[int]
+    media_time: int = 0
+    edit_duration: Optional[int] = None
+
+
+def _movie_timescale(data, s: int, e: int) -> int:
+    mvhd = _child(data, s, e, b"mvhd")
+    if mvhd is None:
+        return 0
+    return struct.unpack_from(">I", data, mvhd[0] + (20 if data[mvhd[0]] == 1 else 12))[0]
+
+
+def audio_track(path: str, data) -> Optional[AudioTrack]:
+    """The first audio (``hdlr 'soun'``) track of the MP4 file whose bytes
+    are ``data``, or None."""
+    moov = _child(data, 0, len(data), b"moov")
+    if moov is None:
+        return None
+    for kind, s, e in _boxes(data, *moov):
+        if kind != b"trak":
+            continue
+        mdia = _child(data, s, e, b"mdia")
+        hdlr = _child(data, *mdia, b"hdlr") if mdia else None
+        if hdlr is None or bytes(data[hdlr[0] + 8:hdlr[0] + 12]) != b"soun":
+            continue
+        minf = _child(data, *mdia, b"minf")
+        stbl = _child(data, *minf, b"stbl") if minf else None
+        stsd = _child(data, *stbl, b"stsd") if stbl else None
+        if stsd is None:
+            raise UnsupportedVideo(f"{path}: MP4 audio track without a sample description")
+        entries = list(_boxes(data, _full(data, stsd[0]) + 4, stsd[1]))
+        if not entries:
+            raise UnsupportedVideo(f"{path}: MP4 audio track without a sample entry")
+        entry, es, ee = entries[0]
+        version, = struct.unpack_from(">H", data, es + 8)
+        children = es + 28 + {1: 16, 2: 36}.get(version, 0)
+        object_type, config = 0, b""
+        if entry == b"mp4a":
+            esds = _child(data, children, ee, b"esds")
+            if esds is not None:
+                object_type, config = _esds(data, *esds)
+        mdhd = _child(data, *mdia, b"mdhd")
+        timescale = 0
+        if mdhd is not None:
+            timescale = struct.unpack_from(">I", data, mdhd[0] + (20 if data[mdhd[0]] == 1 else 12))[0]
+        deltas, offsets, sizes = _samples(data, *stbl, path, "audio")
+        track = AudioTrack(entry.decode("latin-1"), object_type, config, timescale, deltas, offsets, sizes)
+        edit = _edit(data, s, e)
+        if edit is not None:
+            movie_scale = _movie_timescale(data, *moov)
+            track.media_time = edit[0]
+            track.edit_duration = edit[1] * timescale // movie_scale if movie_scale else None
+        return track
+    return None
 
 
 def open_track(path: str):
@@ -393,6 +491,7 @@ class Mp4Writer:
         self._sizes: List[int] = []
         self._sync: List[int] = []
         self._cto: List[int] = []
+        self._audio = None
 
     def write(self, sample: bytes, sync: bool, composition_offset: int = 0) -> None:
         """Append one sample; ``composition_offset`` is in frame durations."""
@@ -403,10 +502,23 @@ class Mp4Writer:
         self._cto.append(composition_offset * self.delta)
         self._pos += len(sample)
 
+    def add_audio(self, config: bytes, sample_rate: int, channels: int, frames: Sequence[bytes],
+                  priming: int = 1024) -> None:
+        """An AAC track beside the video: its AudioSpecificConfig, rate,
+        channels and access units (1024 samples each), written after the
+        video samples as one chunk; an edit list starts it ``priming``
+        samples in (the encoder's delay), as FFmpeg's mov muxer writes it."""
+        self._audio = (config, sample_rate, channels, [bytes(f) for f in frames], priming)
+
     def close(self) -> None:
         if self._f is None:
             return
         try:
+            if self._audio is not None:
+                self._audio_at = self._pos
+                for frame in self._audio[3]:
+                    self._f.write(frame)
+                    self._pos += len(frame)
             mdat_size = self._pos - self._mdat_at
             if mdat_size >= 1 << 32:
                 raise ValueError(f"{self.path}: more than 4 GiB of samples")
@@ -428,9 +540,12 @@ class Mp4Writer:
         duration = n * self.delta
         movie_ms = duration * 1000 // self.timescale
         media_time = self._cto[0] if self._cto else 0
+        audio_trak = self._audio_trak() if self._audio is not None else b""
+        if self._audio is not None:
+            movie_ms = max(movie_ms, self._audio_ms)
         mvhd = _fullbox(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, movie_ms),
                         struct.pack(">IH", 0x10000, 0x100), bytes(10), struct.pack(">9i", *_IDENTITY), bytes(24),
-                        struct.pack(">I", 2))
+                        struct.pack(">I", 3 if self._audio is not None else 2))
         tkhd = _fullbox(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, movie_ms), bytes(8),
                         struct.pack(">hhH", 0, 0, 0), bytes(2), struct.pack(">9i", *self.matrix),
                         struct.pack(">II", self.width << 16, self.height << 16))
@@ -475,4 +590,31 @@ class Mp4Writer:
                                       _fullbox(b"hdlr", 0, 0, bytes(4), b"mdirappl", bytes(9)),
                                       _box(b"ilst", _box(b"\xa9too", _box(b"data", struct.pack(">II", 1, 0),
                                                                              _ENCODER)))))
-        return _box(b"moov", mvhd, trak, udta)
+        return _box(b"moov", mvhd, trak, audio_trak, udta)
+
+    def _audio_trak(self) -> bytes:
+        config, rate, channels, frames, priming = self._audio
+        n = len(frames)
+        duration = n * 1024
+        self._audio_ms = max(0, duration - priming) * 1000 // rate
+        tkhd = _fullbox(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 2, 0, self._audio_ms), bytes(8),
+                        struct.pack(">hhH", 0, 1, 0x100), bytes(2), struct.pack(">9i", *_IDENTITY),
+                        struct.pack(">II", 0, 0))
+        edts = _box(b"edts", _fullbox(b"elst", 0, 0, struct.pack(">IIiHH", 1, self._audio_ms, priming, 1, 0)))
+        mdhd = _fullbox(b"mdhd", 0, 0, struct.pack(">IIII", 0, 0, rate, duration), struct.pack(">HH", 0x55C4, 0))
+        hdlr = _fullbox(b"hdlr", 0, 0, bytes(4), b"soun", bytes(12), b"SoundHandler\x00")
+        dinf = _box(b"dinf", _fullbox(b"dref", 0, 0, struct.pack(">I", 1), _fullbox(b"url ", 0, 1)))
+        bitrate = int(sum(map(len, frames)) * 8 * rate / max(duration, 1))
+        dcd = _desc(0x04, bytes([0x40, 0x15]) + struct.pack(">I", max(map(len, frames), default=0))[1:]
+                    + struct.pack(">II", bitrate, bitrate) + _desc(0x05, config))
+        esds = _fullbox(b"esds", 0, 0, _desc(0x03, struct.pack(">HB", 2, 0) + dcd + _desc(0x06, b"\x02")))
+        entry = _box(b"mp4a", bytes(6), struct.pack(">H", 1), bytes(8),
+                     struct.pack(">HHHHI", channels, 16, 0, 0, min(rate, 0xFFFF) << 16), esds)
+        stsd = _fullbox(b"stsd", 0, 0, struct.pack(">I", 1), entry)
+        stts = _fullbox(b"stts", 0, 0, struct.pack(">III", 1, n, 1024))
+        stsc = _fullbox(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, n, 1))
+        stsz = _fullbox(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *map(len, frames)))
+        stco = _fullbox(b"stco", 0, 0, struct.pack(">II", 1, self._audio_at))
+        stbl = _box(b"stbl", stsd, stts, stsc, stsz, stco)
+        minf = _box(b"minf", _fullbox(b"smhd", 0, 0, bytes(4)), dinf, stbl)
+        return _box(b"trak", tkhd, edts, _box(b"mdia", mdhd, hdlr, minf))

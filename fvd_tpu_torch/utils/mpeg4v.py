@@ -31,7 +31,7 @@ raises :class:`UnsupportedVideo` naming it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -478,6 +478,42 @@ class _IntraState:
         self.dc[g][i] = 0 if v < 0 else 2047 if v > 2047 else v
 
 
+def vop_header(sample: bytes, vol: VOL) -> Tuple[int, VOL]:
+    """(byte offset of the VOP's payload, the VOL in force for it) of one
+    MP4 sample: the headers before the VOP are read, a VOL among them
+    replacing ``vol``; a sample without a VOP, or with a start code the
+    Simple Profile does not use, raises."""
+    for code, off in start_codes(sample):
+        if 0x120 <= code <= 0x12F:
+            vol = parse_vol(sample, off)
+        elif code == VOP_START:
+            return off, vol
+        elif code in (VOS_START, VO_START, GOV_START, USER_DATA, VOS_END) or code <= 0x11F:
+            continue
+        else:
+            raise UnsupportedVideo(f"MPEG-4 video with start code 0x{code:03X}")
+    raise UnsupportedVideo("MPEG-4 sample without a VOP")
+
+
+def scan_samples(samples: Sequence[bytes], vol: VOL) -> Tuple[bytes, List[Tuple[int, int, int]], List[int],
+                                                              List[VOL]]:
+    """The samples of a range of VOPs, the first parsed under ``vol``, as
+    :func:`fvd_tpu_torch.ops.mpeg4.parse_vops` takes them: (their bytes
+    joined, each VOP's (sample start, VOP payload start, sample end) in
+    them, the index of the VOL in force for each, the VOLs from ``vol`` on,
+    one more each time a sample holds a VOL header)."""
+    offsets, vol_ids, vols = [], [], [vol]
+    at = 0
+    for sample in samples:
+        vop, v = vop_header(sample, vols[-1])
+        if v is not vols[-1]:
+            vols.append(v)
+        offsets.append((at, at + vop, at + len(sample)))
+        vol_ids.append(len(vols) - 1)
+        at += len(sample)
+    return b"".join(samples), offsets, vol_ids, vols
+
+
 def _rounded_div(a: int, b: int) -> int:
     return (a + (b >> 1)) // b if a >= 0 else -((-a + (b >> 1)) // b)
 
@@ -492,20 +528,10 @@ class Decoder:
     def decode(self, sample: bytes) -> VopData:
         """The VOP of one MP4 sample (headers before it are read and, for a
         VOL, adopted)."""
-        vop_off = None
-        for code, off in start_codes(sample):
-            if 0x120 <= code <= 0x12F:
-                self.vol = parse_vol(sample, off)
-                self.n_mb = self.vol.mb_w * self.vol.mb_h
-            elif code == VOP_START:
-                vop_off = off
-                break
-            elif code in (VOS_START, VO_START, GOV_START, USER_DATA, VOS_END) or code <= 0x11F:
-                continue
-            else:
-                raise UnsupportedVideo(f"MPEG-4 video with start code 0x{code:03X}")
-        if vop_off is None:
-            raise UnsupportedVideo("MPEG-4 sample without a VOP")
+        vop_off, vol = vop_header(sample, self.vol)
+        if vol is not self.vol:
+            self.vol = vol
+            self.n_mb = vol.mb_w * vol.mb_h
         return self._vop(sample, vop_off)
 
     def _vop(self, data: bytes, off: int) -> VopData:
@@ -559,13 +585,17 @@ class Decoder:
                     raise UnsupportedVideo("MPEG-4 video with resync markers (video packets)")
                 b0 = len(qlist) * 6
                 if ctype == 1:
-                    if r.bit():  # not_coded: the vector (0, 0), no residual
-                        qlist.append(q)
-                        continue
+                    # not_coded, then MCBPC; a stuffing code repeats both
                     while True:
+                        not_coded = r.bit()
+                        if not_coded:
+                            break
                         sym = r.vlc(_MCBPC_P)
                         if sym != 20:
                             break
+                    if not_coded:  # the vector (0, 0), no residual
+                        qlist.append(q)
+                        continue
                     mb_type, cbpc = sym >> 2, sym & 3
                 else:
                     while True:

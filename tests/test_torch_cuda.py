@@ -1018,9 +1018,9 @@ def test_whisper_canvas_batch_on_card_matches_cpu(cuda):
 
 
 def _mpeg4_gop(tmp_path, w=320, h=240, n=24):
-    """A GOP and a half of parsed VOPs of a moving texture written by the
-    port's encoder (I-VOPs and P-VOPs with not_coded macroblocks), and the
-    frames, for the decode kernels."""
+    """Two GOPs of parsed VOPs of a moving texture written by the port's
+    encoder (I-VOPs and P-VOPs with not_coded macroblocks), and the frames,
+    for the decode kernels."""
     from fvd_tpu_torch.providers import native_decode as tnd
 
     rng = np.random.RandomState(3)
@@ -1030,9 +1030,11 @@ def _mpeg4_gop(tmp_path, w=320, h=240, n=24):
     frames = np.stack([base[t // 3:t // 3 + h, 2 * t:2 * t + w] for t in range(n)]).astype(np.uint8)
     path = str(tmp_path / "gop.mp4")
     tnd.write_mp4v(path, frames, 30.0, device="cpu")
-    with tnd.NativeVideo(path, device="cpu") as v:
-        vops = v.next_gop(n) + v.next_gop(n)
-    return vops, frames, v.geo
+    from fvd_tpu_torch.ops import mpeg4 as tops
+
+    rng = tops.parse_vops(*_parse_inputs(path), "cpu")
+    geo = tops.Geometry(w, h)
+    return [rng.vop(i, geo) for i in range(len(rng))], frames, geo
 
 
 def test_mpeg4_kernels_match_plain_over_a_gop(cuda, tmp_path):
@@ -1181,3 +1183,133 @@ def test_nvdec_fails_without_fallback(cuda, tmp_path):
         with pytest.raises(expected, match="NVDEC") as raised:
             v.read_frames([0, 1])
     assert expected is UnsupportedVideo or tnv.out_of_reach(raised.value)
+
+
+def _parse_inputs(path):
+    """Every sample of ``path`` as ``parse_vops``' inputs."""
+    from fvd_tpu_torch.utils import mp4, mpeg4v
+
+    data = open(path, "rb").read()
+    track = mp4.parse(path, data)
+    return mpeg4v.scan_samples([data[o:o + n] for o, n in zip(track.offsets, track.sizes)],
+                               mpeg4v.find_vol(track.config))
+
+
+@pytest.mark.parametrize("source", ["ka_64x48", "ka_96x64", "encoder_320x240"])
+def test_mpeg4_parse_matches_plain(cuda, tmp_path, source):
+    """mpeg4_parse against the host parser, bit for bit, on every VOP of a
+    known-answer stream (every syntax path) and of the port's encoder's
+    file: one launch a range."""
+    from fvd_tpu_torch.ops import mpeg4 as tops
+    from fvd_tpu_torch.providers import native_decode as tnd
+    from fvd_tpu_torch.utils import mpeg4v_ka
+
+    path = str(tmp_path / "s.mp4")
+    if source.startswith("ka"):
+        w, h = (int(v) for v in source[3:].split("x"))
+        mpeg4v_ka.write_mp4(path, w, h, 10.0, mpeg4v_ka.covering_stream(w, h, 14, seed=w))
+    else:
+        frames = np.random.RandomState(0).randint(0, 256, (14, 240, 320, 3)).astype(np.uint8)
+        tnd.write_mp4v(path, frames, 30.0, device="cpu")
+    args = _parse_inputs(path)
+    before = _kernels.LAUNCHES["mpeg4_parse"]
+    got = tops.parse_vops(*args, device=cuda)
+    assert _kernels.LAUNCHES["mpeg4_parse"] - before == 1
+    plain = tops.parse_vops_plain(*args)
+    assert got.kinds == plain.kinds and got.rounding == plain.rounding
+    assert torch.equal(got.packed.cpu(), plain.packed)
+
+
+def test_mpeg4_parse_reports_the_host_parsers_errors(cuda):
+    """Each fault of ``tests/test_torch_mpeg4_parse.py``'s list: the kernel
+    raises the host parser's message, bit position included."""
+    from test_torch_mpeg4_parse import BROKEN, _broken
+    from fvd_tpu_torch.ops import mpeg4 as tops
+    from fvd_tpu_torch.utils import mpeg4v
+    from fvd_tpu_torch.utils.avi import UnsupportedVideo
+
+    vol = mpeg4v.find_vol(mpeg4v.write_headers(32, 32, 10))
+    for _, body, message in BROKEN:
+        sample = _broken(vol, lambda w: body(w, vol))
+        args = (sample, [(0, 4, len(sample))], [0], [vol])
+        with pytest.raises(UnsupportedVideo, match=message) as plain:
+            tops.parse_vops(*args, device="cpu")
+        with pytest.raises(UnsupportedVideo) as card:
+            tops.parse_vops(*args, device=cuda)
+        assert str(card.value) == str(plain.value)
+
+
+def test_card_session_never_parses_in_python(cuda, tmp_path, monkeypatch):
+    """A session on the card reads a known-answer file to the CPU
+    session's frames with the host parser disabled."""
+    from fvd_tpu_torch.providers import native_decode as tnd
+    from fvd_tpu_torch.utils import mpeg4v, mpeg4v_ka
+
+    path = str(tmp_path / "ka.mp4")
+    mpeg4v_ka.write_mp4(path, 64, 48, 10.0, mpeg4v_ka.covering_stream(64, 48, 12))
+    with tnd.NativeVideo(path, device="cpu") as v:
+        want, kept = v.read_frames(range(12))
+
+    def refuse(*a, **k):
+        raise AssertionError("the host parser ran in a card session")
+
+    monkeypatch.setattr(mpeg4v.Decoder, "_vop", refuse)
+    before = _kernels.LAUNCHES["mpeg4_parse"]
+    with tnd.NativeVideo(path, device=cuda) as v:
+        got, kept_c = v.read_frames(range(12))
+    assert kept_c == kept and np.array_equal(got, want)
+    assert _kernels.LAUNCHES["mpeg4_parse"] - before >= 1
+
+
+def _aac_spectra(channels, rate, n=20, seed=0):
+    from fvd_tpu_torch.utils import aac, aac_tables, aac_writer
+
+    frames = aac_writer.covering_frames(channels, rate, n=n, seed=seed)
+    index = aac_tables.SAMPLE_RATES.index(rate)
+    units = [aac_writer.write_frame(f, index) for f in frames]
+    spectra = aac.decode(aac.parse_asc(aac_writer.audio_specific_config(rate, channels)), units)
+    meta = np.stack([spectra.sequence, spectra.shape, spectra.prev_sequence, spectra.prev_shape])
+    return torch.from_numpy(spectra.coef), torch.from_numpy(meta)
+
+
+@pytest.mark.parametrize("channels,rate", [(1, 44100), (2, 48000)])
+def test_aac_synth_matches_plain(cuda, channels, rate):
+    """aac_synth (float64 sums) against the float64 plain synthesis over
+    every window sequence and shape: within 1e-6 (a few float32 steps at
+    the signal's scale), one launch."""
+    from fvd_tpu_torch.ops import aac as taac
+
+    coef, meta = _aac_spectra(channels, rate)
+    before = _kernels.LAUNCHES["aac_synth"]
+    got = taac.imdct_synth(coef.to(cuda), meta.to(cuda)).cpu()
+    assert _kernels.LAUNCHES["aac_synth"] - before == 1
+    want = taac.imdct_synth(coef, meta)
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("channels,rate", [(2, 48000), (1, 22050), (2, 44100), (1, 8000)])
+def test_audio_resample_matches_plain(cuda, channels, rate):
+    from fvd_tpu_torch.ops import aac as taac
+
+    x = torch.from_numpy(np.random.RandomState(rate).uniform(-0.5, 0.5, (channels, 30000)).astype(np.float32))
+    before = _kernels.LAUNCHES["audio_resample"]
+    got = taac.resample(x.to(cuda)[:, 100:], rate, 44100).cpu()
+    assert _kernels.LAUNCHES["audio_resample"] - before == 1
+    want = taac.resample(x[:, 100:].contiguous(), rate, 44100)
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-6
+
+
+def test_aac_track_on_card_matches_cpu(cuda, tmp_path):
+    from fvd_tpu_torch.providers import native_decode as tnd
+    from fvd_tpu_torch.utils import aac_tables, aac_writer
+
+    frames = aac_writer.covering_frames(2, 48000, n=16, seed=9)
+    units = [aac_writer.write_frame(f, aac_tables.SAMPLE_RATES.index(48000)) for f in frames]
+    path = str(tmp_path / "a.mp4")
+    tnd.write_mp4v(path, np.zeros((3, 16, 16, 3), np.uint8), 10.0, device="cpu",
+                   audio=(aac_writer.audio_specific_config(48000, 2), 48000, 2, units, 1024))
+    with tnd.NativeVideo(path, device="cpu") as v:
+        want = v.extract_audio(44100)
+    with tnd.NativeVideo(path, device=cuda) as v:
+        got = v.extract_audio(44100)
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1e-6

@@ -74,7 +74,9 @@ def test_every_module_imports_with_jax_flax_cv2_blocked():
             "fvd_tpu_torch.nodes._smooth", "fvd_tpu_torch.tools.ab_bench",
             "fvd_tpu_torch.utils.mp4", "fvd_tpu_torch.utils.mpeg4v", "fvd_tpu_torch.ops.mpeg4",
             "fvd_tpu_torch.providers.native_decode", "fvd_tpu_torch.utils.h264", "fvd_tpu_torch.utils.h264_pcm",
-            "fvd_tpu_torch.providers.nvdec"} <= set(mods)
+            "fvd_tpu_torch.providers.nvdec", "fvd_tpu_torch.utils.aac", "fvd_tpu_torch.utils.aac_tables",
+            "fvd_tpu_torch.utils.aac_writer", "fvd_tpu_torch.utils.mpeg4v_ka", "fvd_tpu_torch.ops.aac",
+            "fvd_tpu_torch.providers.audio"} <= set(mods)
     # a fresh interpreter: this test process has imported jax for other files
     code = (
         "import importlib, sys\n"

@@ -19,7 +19,8 @@ from fvd_tpu.synthetic import make_face_video as jax_make_face_video
 from fvd_tpu_torch.ops import mpeg4 as tops
 from fvd_tpu_torch.providers import media as tmedia
 from fvd_tpu_torch.providers import native_decode as tnd
-from fvd_tpu_torch.utils import mpeg4v
+from fvd_tpu_torch.utils import mp4, mpeg4v
+from fvd_tpu_torch.utils import mpeg4v_ka as ka
 from fvd_tpu_torch.utils.avi import UnsupportedVideo
 
 #: the bars against the JAX package's readers, per RGB channel
@@ -92,9 +93,20 @@ def test_no_drift_over_a_gop(clips, name):
             assert err[i].max() <= MAX_BAR and err[i].mean() <= MEAN_BAR, i
 
 
+def parsed_vops(path, n=None):
+    """The first ``n`` samples of ``path`` (all by default) through
+    ``parse_vops`` on the CPU, as host ``VopData``, and the geometry."""
+    data = open(path, "rb").read()
+    track = mp4.parse(path, data)
+    samples = [data[o:o + s] for o, s in zip(track.offsets, track.sizes)][:n]
+    vol = mpeg4v.find_vol(track.config) or mpeg4v.find_vol(samples[0])
+    geo = tops.Geometry(vol.width, vol.height)
+    rng = tops.parse_vops(*mpeg4v.scan_samples(samples, vol), "cpu")
+    return [rng.vop(i, geo) for i in range(len(rng))], geo
+
+
 def test_texture_p_vops_carry_half_pel_motion(clips):
-    with tnd.NativeVideo(clips["texture"], device="cpu") as v:
-        vops = v.next_gop(tnd.GOP)
+    vops, _ = parsed_vops(clips["texture"], tnd.GOP)
     kinds = "".join(x.kind for x in vops)
     assert kinds == "I" + "P" * (tnd.GOP - 1)
     mv = np.concatenate([x.mv.reshape(-1, 6, 2)[:, :4] for x in vops[1:]]).reshape(-1, 2)
@@ -259,10 +271,18 @@ def test_plain_idct_is_simple_idct():
         np.testing.assert_array_equal(got[i], _simple_idct_row_col(blocks[i]))
 
 
-def test_not_coded_vop_repeats_the_previous_frame(clips):
-    with tnd.NativeVideo(clips["texture"], device="cpu") as v:
-        vops = v.next_gop(2)
-        n = vops[1]
-        skipped = mpeg4v.VopData("N", 0, np.zeros_like(n.levels), n.qscale, n.intra, n.mv, n.coded)
-        frames = v.reconstruct([vops[0], skipped])
-    assert torch.equal(frames[0], frames[1])
+def test_not_coded_vop_repeats_the_previous_frame(tmp_path):
+    """A not-coded VOP gives no frame and leaves the reference as it was: a
+    known-answer stream with one reads to the frames of the same stream
+    without it."""
+    specs = ka.covering_stream(64, 48, 8, seed=0)
+    assert specs[4].kind == "N"
+    paths = str(tmp_path / "with.mp4"), str(tmp_path / "without.mp4")
+    ka.write_mp4(paths[0], 64, 48, 10.0, specs)
+    ka.write_mp4(paths[1], 64, 48, 10.0, specs[:4] + specs[5:])
+    read = []
+    for path in paths:
+        with tnd.NativeVideo(path, device="cpu") as v:
+            read.append(v.read_frames(range(8)))
+    assert read[0][1] == read[1][1] == list(range(7))
+    np.testing.assert_array_equal(read[0][0], read[1][0])
